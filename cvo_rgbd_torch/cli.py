@@ -1,11 +1,13 @@
 """Command-line interface.
 
-    python -m cvo_rgbd_torch.cli run <folder> <seq> [--device cpu]
+    python -m cvo_rgbd_torch.cli run <folder> <seq> [--adaptive]
+        [--backend kernel|dense] [--device cpu]
     python -m cvo_rgbd_torch.cli evaluate-ate <groundtruth> <estimate>
     python -m cvo_rgbd_torch.cli evaluate-rpe <groundtruth> <estimate>
 
-`run` mirrors the reference executable (`./cvo $data_path $tum_seq`)
-on the CUDA device unless `--device cpu` is given.
+`run` mirrors the reference executables (`./cvo $data_path $tum_seq`,
+and the adaptive one with `--adaptive`) on the CUDA device unless
+`--device cpu` is given.
 """
 
 from __future__ import annotations
@@ -16,18 +18,19 @@ import sys
 
 
 def _make_params(args):
-    """Params from CLI flags: the C++ constants (eps=5e-5/1e-5) unless
-    `--matlab-tol` (5e-4/1e-4) or `--eps/--eps-2` say otherwise."""
-    from cvo_rgbd_torch.params import CvoParams
+    """Params from CLI flags: AcvoParams under `--adaptive`, else
+    CvoParams, on `--backend`, with the C++ constants (eps=5e-5/1e-5)
+    unless `--matlab-tol` (5e-4/1e-4) or `--eps/--eps-2` say otherwise."""
+    from cvo_rgbd_torch.params import AcvoParams, CvoParams
 
-    kw = {}
+    kw = {"backend": args.backend}
     if args.matlab_tol:
         kw["eps"], kw["eps_2"] = 5e-4, 1e-4
     if args.eps is not None:
         kw["eps"] = args.eps
     if args.eps_2 is not None:
         kw["eps_2"] = args.eps_2
-    return CvoParams(**kw)
+    return (AcvoParams if args.adaptive else CvoParams)(**kw)
 
 
 def _cmd_run(args):
@@ -37,6 +40,7 @@ def _cmd_run(args):
     run_odometry(
         args.folder,
         seq,
+        adaptive=args.adaptive,
         params=_make_params(args),
         output=args.output,
         max_frames=args.max_frames,
@@ -87,6 +91,15 @@ def main(argv=None):
                     "realsense/fr1/fr2/fr3/kitti15/kitti05")
     pr.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' to run on the CPU)")
+    pr.add_argument("--adaptive", action="store_true",
+                    help="adaptive CVO (acvo): HSV features and the "
+                    "adaptive length-scale (adaptive_cvo.cpp)")
+    pr.add_argument("--backend", default="kernel",
+                    choices=["kernel", "dense"],
+                    help="'kernel' (default; the hand-written CUDA kernels, "
+                    "the JAX package's 'pallas') or 'dense' (the dense "
+                    "Gram in plain torch, its 'xla'); the whole-align "
+                    "'fused' backend is not ported yet")
     pr.add_argument("--output")
     pr.add_argument("--max-frames", type=int)
     pr.add_argument("--checkpoint")

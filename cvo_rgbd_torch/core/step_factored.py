@@ -1,12 +1,13 @@
 """Moment-factored line-search polynomials.
 
-Port of the part of the JAX package's `core/step_factored.py` the kernel
-backend uses.  Each per-pair quantity of cvo::compute_step_size
-(cvo.cpp:249-289) is a product of affine functions of the fixed point
-x_i, so B, C, D, E = sum_ij A_ij P_k(x_i) with P_k polynomials of degree
-<= 4 in x_i whose coefficients depend only on j.  `Poly` multiplies the
-affine forms symbolically, with [M]-vector coefficients; the result is
-contracted against the moment matrix in core/moments.py.
+Port of the JAX package's `core/step_factored.py`.  Each per-pair
+quantity of cvo::compute_step_size (cvo.cpp:249-289) is a product of
+affine functions of the fixed point x_i, so B, C, D, E = sum_ij A_ij
+P_k(x_i) with P_k polynomials of degree <= 4 in x_i whose coefficients
+depend only on j.  `Poly` multiplies the affine forms symbolically, with
+[M]-vector coefficients; the result is contracted against the moment
+matrix in core/moments.py (kernel backend) or against A @ coefficients
+and Phi(x) (dense backend, `step_coefficients_factored`).
 """
 
 from __future__ import annotations
@@ -144,3 +145,26 @@ def line_search_polys(y_field, y_pair, omega, v, ell):
         + (1.0 / 24.0) * (beta2 * beta2)
     )
     return P_B, P_C, P_D, P_E
+
+
+def step_coefficients_factored(A, x_pos, y_pos, omega, v, ell):
+    """B, C, D, E of the quartic objective from a dense Gram (the dense
+    backend's `step_mode="factored"`): the four polynomials' [M, 35]
+    coefficients stacked to [M, 140], then one [N,M]x[M,140] product
+    contracted with Phi(x).  Both clouds are first centered on the
+    A-weighted centroid of x (exact: only x - y enters), which keeps |x|
+    at cloud-extent scale and bounds the degree-4 monomial cancellation."""
+    row = torch.sum(A, dim=1)
+    tot = torch.clamp_min(torch.sum(row), 1e-30)
+    centroid = (row @ x_pos) / tot
+    x_c = x_pos - centroid
+    polys = line_search_polys(y_pos, y_pos - centroid, omega, v, ell)
+    zero = torch.zeros_like(y_pos[:, 0])
+    C_all = torch.stack(
+        [P.terms.get(e, zero) for P in polys for e in MONOMIALS], dim=1
+    )
+    AC = A @ C_all                       # [N, 140], the only big product
+    phi = monomial_features(x_c)
+    out = torch.sum(AC.reshape(AC.shape[0], 4, NUM_MONO) * phi[:, None, :],
+                    dim=(0, 2))
+    return out[0], out[1], out[2], out[3]

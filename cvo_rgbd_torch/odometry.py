@@ -2,7 +2,7 @@
 
 Port of the JAX package's `odometry.py` (reference: cvo_main.cpp:8-73):
 frontend -> align -> chain the accumulated pose, one TUM trajectory line
-per frame, with
+per frame, for cvo or adaptive cvo (adaptive_cvo_main.cpp), with
 - an `OdometryState` checkpoint in the JAX package's JSON format, so a
   run of either package resumes in the other;
 - skip-and-mark failures (rgbddataset_rkhs.m:49-81): a non-finite
@@ -10,7 +10,8 @@ per frame, with
   previous pose.
 
 The across-pair warm state (the reference's persistent R/T/ell members,
-cvo.cpp:43-45, 398-399) and its failure reset stay on the device, so
+cvo.cpp:43-45, 398-399; acvo resets ell per pair, adaptive_cvo.cpp:475)
+and its failure reset stay on the device, so
 the host dispatches frame i+1 without waiting for frame i.  Results come
 back every `fetch_every` frames in one `.cpu()` copy; pose chaining
 happens on the host in float64 from those per-pair transforms.
@@ -31,7 +32,7 @@ from cvo_rgbd_torch.core.registration import align, check_supported
 from cvo_rgbd_torch.device import pin_fp32, resolve_device
 from cvo_rgbd_torch.frontend import make_frontend
 from cvo_rgbd_torch.io.tum import load_assoc, write_trajectory_line
-from cvo_rgbd_torch.params import CvoParams
+from cvo_rgbd_torch.params import AcvoParams, CvoParams
 
 
 @dataclasses.dataclass
@@ -51,7 +52,7 @@ class OdometryState:
     # across-pair warm-start state: None = cold (identity / ell_init)
     warm_R: np.ndarray | None = None   # [3,3]
     warm_T: np.ndarray | None = None   # [3]
-    warm_ell: float | None = None      # cvo only
+    warm_ell: float | None = None      # cvo only; acvo resets per pair
 
     def save(self, path):
         with open(path, "w") as f:
@@ -85,11 +86,12 @@ class OdometryState:
         )
 
 
-def _odom_step(params, fixed, moving, warm, min_valid, device):
+def _odom_step(params, adaptive, fixed, moving, warm, min_valid, device):
     """Align one pair and fold the warm-start bookkeeping on the device:
     returns (packed [19] = tf 16 | iterations | converged | finite,
     next warm (R, T, ell)).  Failure (non-finite tf or a degenerate
-    cloud on either side) resets the warm state to cold."""
+    cloud on either side) resets the warm state to cold; acvo's next ell
+    is always ell_init (adaptive_cvo.cpp:475)."""
     R0, T0, ell0 = warm
     res = align(params, fixed, moving, R0, T0, ell0, device=device)
     finite = (
@@ -100,7 +102,10 @@ def _odom_step(params, fixed, moving, warm, min_valid, device):
     f32 = torch.float32
     Rw = torch.where(finite, res.R, torch.eye(3, dtype=f32, device=device))
     Tw = torch.where(finite, res.T, torch.zeros(3, dtype=f32, device=device))
-    ellw = torch.where(finite, res.ell, params.ell_init)
+    if adaptive:
+        ellw = torch.full((), params.ell_init, dtype=f32, device=device)
+    else:
+        ellw = torch.where(finite, res.ell, params.ell_init)
     packed = torch.cat([
         res.tf.reshape(16),
         torch.stack([res.iterations.to(f32), res.converged.to(f32),
@@ -112,6 +117,7 @@ def _odom_step(params, fixed, moving, warm, min_valid, device):
 def run_odometry_frames(
     frames,
     dataset_seq,
+    adaptive=False,
     params=None,
     traj=None,
     state: OdometryState | None = None,
@@ -133,15 +139,21 @@ def run_odometry_frames(
     must already be left out of `frames` by the caller.  `checkpoint`:
     path the state is saved to at every flush.
 
+    `adaptive` picks acvo (HSV features, feature_type 0, and the
+    adaptive ell, adaptive_cvo.cpp:451) over cvo (feature_type 1,
+    cvo.cpp:340); `params` defaults to AcvoParams() or CvoParams().
+
     `warm_start` (default True = reference semantics): every pair after
     the first starts from the previous pair's converged relative
-    transform and final ell; a failed pair resets to identity/ell_init.
-    False starts every pair cold."""
-    params = params or CvoParams()
+    transform and, for cvo, its final ell (acvo starts each pair at
+    ell_init); a failed pair resets to identity/ell_init.  False starts
+    every pair cold."""
+    params = params or (AcvoParams() if adaptive else CvoParams())
     check_supported(params)
     dev = resolve_device(device)
     pin_fp32()
-    frontend = make_frontend(dataset_seq, num_want, 1, device=str(dev))
+    frontend = make_frontend(dataset_seq, num_want, 0 if adaptive else 1,
+                             device=str(dev))
     state = state or OdometryState(0, np.eye(4))
 
     f32 = torch.float32
@@ -152,7 +164,8 @@ def run_odometry_frames(
     )
     warm = cold
     if warm_start and state.warm_R is not None:
-        ell = params.ell_init if state.warm_ell is None else state.warm_ell
+        ell = (params.ell_init if adaptive or state.warm_ell is None
+               else state.warm_ell)
         warm = (
             torch.as_tensor(state.warm_R, dtype=f32).to(dev),
             torch.as_tensor(state.warm_T, dtype=f32).to(dev),
@@ -197,7 +210,7 @@ def run_odometry_frames(
                 w = flat[19 * len(pending):]
                 state.warm_R = w[:9].reshape(3, 3).astype(np.float32)
                 state.warm_T = w[9:12].astype(np.float32)
-                state.warm_ell = float(w[12])
+                state.warm_ell = None if adaptive else float(w[12])
             state.save(checkpoint)
         pending.clear()
         chunk_t0 = time.time()
@@ -214,7 +227,7 @@ def run_odometry_frames(
                     write_trajectory_line(traj, name, state.accum)
                 state.frame_index = i + 1
             continue
-        packed, nxt = _odom_step(params, fixed_cloud, cloud,
+        packed, nxt = _odom_step(params, adaptive, fixed_cloud, cloud,
                                  warm if warm_start else cold, min_valid, dev)
         if warm_start:
             warm = nxt
@@ -248,6 +261,7 @@ def load_image_pair(folder, entry):
 def run_odometry(
     folder,
     dataset_seq,
+    adaptive=False,
     params=None,
     output=None,
     max_frames=None,
@@ -260,15 +274,18 @@ def run_odometry(
     device=None,
 ):
     """Run odometry over a TUM-format folder (assoc.txt + PNGs) and write
-    the trajectory to `output` (default <folder>/cvo_poses_qt.txt).
-    Resumes from `checkpoint` when it exists.  Returns list[FrameRecord]."""
-    params = params or CvoParams()
+    the trajectory to `output` (default <folder>/acvo_poses_qt.txt for
+    acvo, else <folder>/cvo_poses_qt.txt).  Resumes from `checkpoint`
+    when it exists.  Returns list[FrameRecord]."""
+    params = params or (AcvoParams() if adaptive else CvoParams())
     check_supported(params)
     entries = load_assoc(os.path.join(folder, "assoc.txt"))
     if max_frames:
         entries = entries[:max_frames]
     if output is None:
-        output = os.path.join(folder, "cvo_poses_qt.txt")
+        output = os.path.join(
+            folder, "acvo_poses_qt.txt" if adaptive else "cvo_poses_qt.txt"
+        )
 
     state = OdometryState(0, np.eye(4))
     mode = "w"
@@ -285,7 +302,8 @@ def run_odometry(
 
     with open(output, mode) as traj:
         return run_odometry_frames(
-            frames(), dataset_seq, params=params, traj=traj, state=state,
+            frames(), dataset_seq, adaptive=adaptive, params=params,
+            traj=traj, state=state,
             checkpoint=checkpoint, num_want=num_want, warm_start=warm_start,
             fetch_every=fetch_every, min_valid=min_valid, log=log,
             device=device,

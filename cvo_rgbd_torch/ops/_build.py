@@ -19,7 +19,7 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
-KERNELS = ("color_gram", "fused_moments")
+KERNELS = ("color_gram", "fused_moments", "fused_wsq")
 
 # No --use_fast_math: it turns expf into __expf and flushes denormals,
 # and the Gram needs the accurate exp (csrc/pair_tile.cuh).
@@ -37,6 +37,7 @@ SIGNATURES = {
     "fused_moments": (
         "fused_moments_launch", [_P] * 14 + [_I, _I, _I, _I, _P]
     ),
+    "fused_wsq": ("fused_wsq_launch", [_P] * 12 + [_I, _I, _I, _I, _P]),
 }
 
 

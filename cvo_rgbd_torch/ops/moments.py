@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from cvo_rgbd_torch.core.gram import pairwise_sqdist
 from cvo_rgbd_torch.core.numerics import exp_neg
 from cvo_rgbd_torch.core.step_factored import NUM_MONO
 from cvo_rgbd_torch.ops import _build
@@ -52,10 +53,7 @@ def pair_weights(xp, xf, xm, yp, yf, ym, scal, ck=None):
     per-component d2 in difference form.  The exponentials are taken
     only where the position gate d2 < d2_thres passes: every other entry
     is zero in any case, and the values kept are the same bits."""
-    d2 = None
-    for c in range(3):
-        d = xp[:, c, None] - yp[None, :, c]
-        d2 = d * d if d2 is None else d2 + d * d
+    d2 = pairwise_sqdist(xp, yp)
     near = d2 < scal[S_D2_THRES]
     ii, jj = near.nonzero(as_tuple=True)
     d2n = d2[ii, jj]

@@ -8,7 +8,8 @@ set builds both.  Defaults reproduce the reference constants:
 Backends are named for what runs on the card:
 - "kernel" (port of "pallas"): the hand-written CUDA kernels of
   `cvo_rgbd_torch.ops`, one moment sweep per iteration.  The default.
-- "dense" (port of "xla"): the dense masked Gram.  Not ported yet.
+- "dense" (port of "xla"): the dense masked Gram in plain torch, no
+  kd-sort; the only backend of `yy_quirk`.
 - "fused" (the whole align loop in one kernel).  Not ported yet.
 """
 
@@ -60,8 +61,8 @@ class CvoParams:
 
 @dataclasses.dataclass(frozen=True)
 class AcvoParams:
-    """Adaptive CVO (adaptive_cvo.cpp:25-43).  Carried for parameter
-    parity; `align` does not run it yet."""
+    """Adaptive CVO (adaptive_cvo.cpp:25-43): the length-scale follows
+    the gradient dl of the objective instead of a schedule."""
 
     ell_init: float = 0.1       # (adaptive_cvo.cpp:25)
     ell_min: float = 0.0391     # (adaptive_cvo.cpp:27)

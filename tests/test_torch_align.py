@@ -90,8 +90,8 @@ def test_empty_moving_cloud_converges_at_iteration_zero():
 
 
 @pytest.mark.parametrize("params", [
-    ct.AcvoParams(),
-    ct.CvoParams(backend="dense"),
+    ct.AcvoParams(backend="fused"),
+    ct.AcvoParams(exp_mode="fast"),
     ct.CvoParams(backend="fused"),
     ct.MATLAB_PARAMS,
     ct.CvoParams(exp_mode="fast"),
@@ -99,6 +99,19 @@ def test_empty_moving_cloud_converges_at_iteration_zero():
 def test_unported_configurations_raise(params):
     x, y = _pair(5, 100, 128)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ct.align(params, _port(x), _port(y), device="cpu")
+
+
+@pytest.mark.parametrize("params,match", [
+    (ct.AcvoParams(yy_quirk=True), "yy_quirk"),
+    (ct.AcvoParams(color_mode="linear"), "linear"),
+])
+def test_kernel_backend_refuses_what_the_jax_pallas_backend_refuses(
+        params, match):
+    """As the JAX package's pallas backend (core/registration.py:95-100):
+    yy_quirk and linear acvo need the dense backend."""
+    x, y = _pair(5, 100, 128)
+    with pytest.raises(ValueError, match=match):
         ct.align(params, _port(x), _port(y), device="cpu")
 
 

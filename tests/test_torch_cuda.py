@@ -95,3 +95,56 @@ def test_align_on_card_matches_cpu(dev):
     cpu = ct.align(p, x.to("cpu"), y.to("cpu"), device="cpu")
     # the JAX suite's stop-skew tolerance (tests/test_parallel.py:217)
     assert (gpu.tf.cpu() - cpu.tf).abs().max().item() <= 3e-4
+
+
+def _rendered_pair(dev, num_want=512):
+    """The acvo frontend's clouds of the first rendered pair, on `dev`."""
+    from cvo_rgbd_torch import synth
+    from cvo_rgbd_torch.frontend import make_frontend
+
+    fe = make_frontend(1, num_want, 0, device=str(dev))
+    frames = synth.render_frames(synth.revisit_path(2, period=33),
+                                 synth.BandScene(h=96, w=128))
+    return [fe(f[2], f[3]) for f in frames]
+
+
+@pytest.mark.parametrize("use_ck", [True, False])
+@pytest.mark.parametrize("ell", [0.1, 0.0391])
+def test_fused_wsq_kernel_matches_plain(dev, use_ck, ell):
+    from cvo_rgbd_torch.core.cloud import aabb_min_d2, block_bounds, kd_sort
+    from cvo_rgbd_torch.ops import gram, wsq
+    from cvo_rgbd_torch.params import AcvoParams
+
+    p = AcvoParams()
+    for x in map(kd_sort, _rendered_pair(dev)):
+        ck = gram.color_gram(*x, *x, p=p) if use_ck else None
+        lo, hi = block_bounds(x.positions, x.mask, wsq.TILE_W)
+        md = aabb_min_d2(lo, hi, lo, hi)
+        ell_t = torch.full((), ell, device=dev)
+        ref_w, ref_n = wsq.fused_wsq_plain(*x, *x, gram.scalars(ell_t, p), ck)
+        out = {}
+        for sym in (False, True):
+            for skip in (None, md):
+                launches = wsq.fused_wsq.launches
+                w, n = wsq.fused_wsq(*x, *x, ell_t, ck, skip, p=p,
+                                     symmetric=sym)
+                assert wsq.fused_wsq.launches == launches + 1
+                out[sym, skip is None] = (float(w), float(n))
+                # one fp32 sum in another order: 1e-4 relative; the
+                # gates agree pair by pair
+                assert abs(float(w) - float(ref_w)) <= 1e-4 * float(ref_w)
+                assert float(n) == float(ref_n) > 0
+        for sym in (False, True):   # the skip drops only zero tiles
+            assert out[sym, True] == out[sym, False]
+
+
+def test_acvo_align_on_card_matches_cpu(dev):
+    import cvo_rgbd_torch as ct
+
+    x, y = _rendered_pair(dev)
+    p = ct.AcvoParams(eps=5e-4, eps_2=1e-4)
+    gpu = ct.align(p, x, y)
+    cpu = ct.align(p, x.to("cpu"), y.to("cpu"), device="cpu")
+    assert bool(gpu.converged) and bool(cpu.converged)
+    # the JAX suite's stop-skew tolerance (tests/test_parallel.py:217)
+    assert (gpu.tf.cpu() - cpu.tf).abs().max().item() <= 3e-4

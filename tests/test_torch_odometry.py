@@ -12,7 +12,6 @@ import io
 import numpy as np
 import pytest
 import torch
-from PIL import Image
 
 from cvo_rgbd_torch import synth as tsynth
 from cvo_rgbd_torch.cli import main as t_cli
@@ -21,52 +20,16 @@ from cvo_rgbd_torch.io.tum import parse_trajectory, read_trajectory
 from cvo_rgbd_torch.odometry import run_odometry, run_odometry_frames
 from cvo_rgbd_tpu.odometry import run_odometry as j_run_odometry
 
+from torch_scenes import H, N_FRAMES, W, make_parallax_folder
+
 torch.set_num_threads(2)
 
-H, W = 96, 128
-FX = 517.3         # fr1 intrinsics (camera registry key 1)
-N_FRAMES = 6
-DEPTHS = [1.0, 2.0, 4.0]
-DX_M = 4.0 / FX    # camera translation/frame: 4px@1m, 2px@2m, 1px@4m
 NUM_WANT = 1024
-
-
-def _smooth_field(seed, h, w):
-    from scipy.ndimage import gaussian_filter, zoom
-
-    r = np.random.default_rng(seed)
-    b = zoom(gaussian_filter(r.normal(0, 1, (h // 4 + 2, w // 4 + 2)), 1.2),
-             4.05)[:h, :w]
-    return (b - b.min()) / (b.max() - b.min())
 
 
 @pytest.fixture(scope="module")
 def dataset(tmp_path_factory):
-    root = tmp_path_factory.mktemp("torch_tumsynth")
-    (root / "rgb").mkdir()
-    (root / "depth").mkdir()
-    wb = W + 4 * N_FRAMES + 8
-    big = np.stack([40 + 200 * _smooth_field(s, H, wb) for s in (1, 2, 3)],
-                   axis=-1).astype(np.float32)
-    lines, gt = [], ["# ground truth"]
-    for i in range(N_FRAMES):
-        name = f"{100.0 + 0.1 * i:.6f}"
-        rgb = np.zeros((H, W, 3), np.float32)
-        dep = np.zeros((H, W), np.float32)
-        for b in range(6):
-            z = DEPTHS[b % 3]
-            s = int(round(FX * DX_M / z)) * i
-            rows = slice(b * 16, (b + 1) * 16)
-            rgb[rows] = big[rows, s:s + W]
-            dep[rows] = z * 5000.0
-        Image.fromarray(rgb.astype(np.uint8)).save(root / "rgb" / f"{name}.png")
-        Image.fromarray(dep.astype(np.uint16)).save(
-            root / "depth" / f"{name}.png")
-        lines.append(f"{name} rgb/{name}.png {name} depth/{name}.png")
-        gt.append(f"{name} {i * DX_M:.9f} 0 0 0 0 0 1")
-    (root / "assoc.txt").write_text("\n".join(lines) + "\n")
-    (root / "groundtruth.txt").write_text("\n".join(gt) + "\n")
-    return root
+    return make_parallax_folder(tmp_path_factory.mktemp("torch_tumsynth"))
 
 
 @pytest.fixture(scope="module")

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 import cvo_rgbd_torch
-from cvo_rgbd_torch.ops import _build, gram, moments
+from cvo_rgbd_torch.ops import _build, gram, moments, wsq
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "cvo_rgbd_torch"
@@ -101,7 +101,8 @@ def test_wrappers_never_fall_back():
     """A CUDA tensor launches the kernel or raises: no try/except around
     a launch, and any device that is neither CPU nor CUDA is refused."""
     for fn in (gram.color_gram, gram.color_gram_cuda, moments.fused_moments,
-               moments.fused_moments_cuda, _build.entry, _build.check):
+               moments.fused_moments_cuda, wsq.fused_wsq, wsq.fused_wsq_cuda,
+               _build.entry, _build.check):
         tree = ast.parse(inspect.getsource(fn).lstrip())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), fn
     meta = [torch.empty((128, k), device="meta") for k in (3, 5)]
