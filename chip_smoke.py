@@ -14,19 +14,26 @@ and prints no result line):
 3. kernels vs their plain torch versions on the card, on the first pair
    at N=M=3072, with CUDA-event timings: `color_gram` and
    `fused_moments` on the cvo clouds; 3b. `fused_wsq` on the acvo
-   clouds' two self-pairs;
+   clouds' two self-pairs; 3c. the whole-align kernel `align_fused`
+   after 1, 3 and 10 iterations, tiled on the first cvo and acvo pairs
+   (N=M=3072) and resident on two small pairs (N=M=1024);
 4. one reference-scale cvo align at the C++ stops (eps=5e-5,
    eps_2=1e-5) on the kernel backend, a small pair registered on the
    card and on the CPU (plain versions), which must agree, and a
    profile of one iteration; 4b. the same for acvo (`self_mode="exact"`,
-   then one align with `"cheb"`);
+   then one align with `"cheb"`); 4c. the same aligns on the fused
+   backend, each run twice (the iterations must repeat), ms/iteration
+   by slope (10 against 60 iterations) and a profile of one align;
 5. the main paths: `run_odometry_frames` over the rendered sequence for
-   cvo, 5b. then for acvo (`adaptive=True`), each with every kernel's
-   launch count set to 0 just before and read just after, and the
-   trajectory scored (ATE) against the exact ground truth.
+   cvo, 5b. then for acvo (`adaptive=True`), 5c. then for both on the
+   fused backend at capacity 3072 (tiled) and 1024 (resident), each
+   with every kernel's launch count set to 0 just before and read just
+   after, and the trajectory scored (ATE) against the exact ground
+   truth.  The fused runs must launch `align_fused` once a pair and
+   none of the per-iteration kernels.
 
 The line before last is a JSON object with each kernel's launches on
-the two main paths together, its error against the plain version, its
+the main paths together, its error against the plain version, its
 time, the plain version's time and its bound; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -57,14 +64,24 @@ OPS_GATED = 70
 # the count
 OPS_WSQ_GATED = 3
 KERNELS = ("color_gram", "fused_moments", "fused_wsq")
+FUSED = ("align_fused_tiled", "align_fused_resident")
+FUSED_ITERS = (1, 3, 10)
+# capacity of the resident-mode odometry run: N = M = 1024 is within
+# both resident budgets (cvo N*M <= 2^20, acvo N*M + N^2 + M^2 <= 3*2^20)
+RESIDENT_NUM_WANT = 1024
 # the cell: a 10-frame sequence rendered at 240x320, 3000 points a frame
 # (capacity 3072); the small pair of the card-vs-CPU checks, 96x128
 FRAMES, SIZE, NUM_WANT = 10, (240, 320), 3000
 SMALL_SIZE, SMALL_NUM_WANT = (96, 128), 1024
 RUNS = 30
 WARMUP = 5
+# a whole plain align of 10 iterations takes 0.1-0.3 s: fewer runs
+PLAIN_ALIGN_RUNS, PLAIN_ALIGN_WARMUP = 5, 1
 # ~0.5 ms of device clock cycles, longer than a wrapper's host overhead
 SPIN_CYCLES = 1_000_000
+# ~10 ms: align_fused's wrapper enqueues its per-align precompute (the
+# moment basis, tile bounds, a few copies) before the launch
+ALIGN_SPIN_CYCLES = 20_000_000
 
 
 def log(msg):
@@ -80,22 +97,22 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn):
-    """Median over RUNS calls of fn, each between its own CUDA events,
-    after WARMUP untimed calls.  A short device-side spin ahead of the
+def time_ms(fn, runs=RUNS, warmup=WARMUP, spin=SPIN_CYCLES):
+    """Median over `runs` calls of fn, each between its own CUDA events,
+    after `warmup` untimed calls.  A short device-side spin ahead of the
     first event lets the host enqueue fn's launches before the clock
     starts, so a kernel's time is its device time, not the wrapper's
     Python overhead (a plain version that synchronizes still pays it)."""
     import torch
 
-    for _ in range(WARMUP):
+    for _ in range(warmup):
         fn()
     times = []
-    for _ in range(RUNS):
+    for _ in range(runs):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
-        torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda._sleep(spin)
         e0.record()
         fn()
         e1.record()
@@ -285,30 +302,108 @@ def phase_wsq(fixed, moving, p):
     return out
 
 
+def fused_bound(counts, x, y):
+    """(bound ms, bound_by) of align_fused over the pairs its plain
+    version counted: each pair the function needs, once an iteration
+    (the flow and the line search both come from momT), its color kernel
+    recomputed.  Resident mode's second sweep over the same pairs is the
+    kernel's cost, not the function's, and is not counted."""
+    from cvo_rgbd_torch.ops.align_fused import OUT_LEN
+    from cvo_rgbd_torch.ops.moments import NUM_MONO
+
+    per_pair = OPS_PAIR + OPS_COLOR
+    nops = (counts["pairs"] * per_pair + counts["gated"] * OPS_GATED
+            + counts.get("self_pairs", 0) * per_pair
+            + counts.get("self_gated", 0) * OPS_WSQ_GATED)
+    n, m = x.capacity, y.capacity
+    nbytes = ((n + m) * 9 + n * NUM_MONO + OUT_LEN) * 4
+    return bound(nbytes, nops)
+
+
+def phase_fused_kernels(cases):
+    """The whole-align kernel against its plain version on the card after
+    1, 3 and 10 iterations (eps = eps_2 = 0, so each align runs exactly
+    max_iter iterations): R, T, ell, omega and v within 1e-5 after 1 and
+    3 iterations and 1e-4 after 10.  Each 10-iteration align is timed
+    against the plain version and its bound; the kernel line takes the
+    cvo case of each mode."""
+    import torch
+
+    from cvo_rgbd_torch.core.cloud import kd_sort
+    from cvo_rgbd_torch.ops.align_fused import (
+        align_fused_cuda,
+        align_fused_plain,
+        fused_mode,
+    )
+    out = {}
+    for mode, cls, fixed, moving in cases:
+        x, y = kd_sort(fixed), kd_sort(moving)
+        label = f"align_fused {mode} {cls.__name__} N=M={x.capacity}"
+        err = 0.0
+        for it in FUSED_ITERS:
+            p = cls(backend="fused", max_iter=it, eps=0.0, eps_2=0.0)
+            check(fused_mode(p, x, y) == mode, f"{label}: not {mode}")
+            row = align_fused_cuda(p, x, y)
+            counts = {}
+            ref = align_fused_plain(p, x, y, counts=counts)
+            e = (row - ref).abs()
+            worst = max(e[12:24].max().item(), e[26:33].max().item())
+            tol = 1e-5 if it <= 3 else 1e-4
+            log(f"{label} iterations={it}: max |err| R {e[12:21].max():.2e} "
+                f"T {e[21:24].max():.2e} ell {e[26]:.2e} omega "
+                f"{e[27:30].max():.2e} v {e[30:33].max():.2e} (tolerance "
+                f"{tol:g}); k {row[24].item():.0f} vs {ref[24].item():.0f}")
+            check(worst <= tol, f"{label}: kernel and plain version disagree "
+                  f"after {it} iterations: {worst}")
+            check(row[24].item() == ref[24].item() == it,
+                  f"{label}: iteration counts differ")
+            err = max(err, worst)
+        ms = time_ms(lambda: align_fused_cuda(p, x, y),
+                     spin=ALIGN_SPIN_CYCLES)
+        plain_ms = time_ms(lambda: align_fused_plain(p, x, y),
+                           PLAIN_ALIGN_RUNS, PLAIN_ALIGN_WARMUP)
+        b_ms, b_by = fused_bound(counts, x, y)
+        log(f"{label} {FUSED_ITERS[-1]} iterations: {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); pairs "
+            f"{counts['pairs']}, gated {counts['gated']}, self pairs "
+            f"{counts.get('self_pairs', 0)}")
+        name = f"align_fused_{mode}"
+        if name not in out:
+            out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=b_ms, bound_by=b_by)
+        else:
+            out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
+    return out
+
+
 def reset_launches():
     from cvo_rgbd_torch import ops
 
-    for name in KERNELS:
+    for name in KERNELS + ("align_fused",):
         getattr(ops, name).launches = 0
 
 
 def read_launches():
     from cvo_rgbd_torch import ops
 
-    return {name: getattr(ops, name).launches for name in KERNELS}
+    return {name: getattr(ops, name).launches
+            for name in KERNELS + ("align_fused",)}
 
 
 def phase_align(fixed, moving, p, small=None, skew=0.1):
     """A reference-scale align on the kernels, then (given a small pair)
     the small pair on the card and on the CPU (plain versions), which
     must agree: tf within 3e-4 and stopping iterations within `skew` of
-    each other.  Returns the launches of the reference-scale align."""
+    each other.  Returns the reference-scale align's host ms/iteration."""
     import torch
 
     from cvo_rgbd_torch import align
 
+    fused = p.backend == "fused"
     name = type(p).__name__ + (
-        f"(self_mode={p.self_mode!r})" if hasattr(p, "self_mode") else "")
+        f"(self_mode={p.self_mode!r})"
+        if hasattr(p, "self_mode") and not fused else "") + (
+        f" backend={p.backend}")
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
@@ -318,17 +413,31 @@ def phase_align(fixed, moving, p, small=None, skew=0.1):
     launches = read_launches()
     it = int(res.iterations.item())
     conv = bool(res.converged.item())
+    ms_iter = dt * 1e3 / max(it + 1, 1)
     log(f"align {name} N=M={fixed.capacity}: iterations={it} "
         f"converged={conv} final ell={res.ell.item():.6f} "
-        f"{dt * 1e3 / max(it + 1, 1):.3f} ms/iteration, launches {launches}")
+        f"{ms_iter:.3f} ms/iteration, launches {launches}")
     check(conv, "reference-scale align did not converge")
     check(torch.isfinite(res.tf).all().item(), "non-finite tf")
-    used = ("color_gram", "fused_moments") + (
-        ("fused_wsq",) if hasattr(p, "self_mode") else ())
-    check(all(launches[k] > 0 for k in used),
-          "align did not launch its kernels")
+    if fused:
+        # one launch of the tiled kernel and nothing of the kernel backend
+        from cvo_rgbd_torch.ops.align_fused import fused_mode
+
+        check(fused_mode(p, fixed, moving) == "tiled"
+              and launches["align_fused"] == 1
+              and not any(launches[k] for k in KERNELS),
+              f"fused align launches {launches}")
+        again = align(p, fixed, moving)
+        check(int(again.iterations.item()) == it
+              and torch.equal(again.tf, res.tf),
+              "the same fused align did not repeat bit for bit")
+    else:
+        used = ("color_gram", "fused_moments") + (
+            ("fused_wsq",) if hasattr(p, "self_mode") else ())
+        check(all(launches[k] > 0 for k in used),
+              "align did not launch its kernels")
     if small is None:
-        return launches
+        return ms_iter
 
     fx, mv = small
     gpu = align(p, fx, mv)
@@ -345,7 +454,7 @@ def phase_align(fixed, moving, p, small=None, skew=0.1):
           and bool(cpu.converged.item())
           and abs(it_g - it_c) <= max(2, skew * it_c),
           "card and CPU align disagree")
-    return launches
+    return ms_iter
 
 
 def phase_profile(fixed, moving, p, n_iter=5):
@@ -394,7 +503,56 @@ def phase_profile(fixed, moving, p, n_iter=5):
         f"launches per iteration")
 
 
-def phase_odometry(frames, p, adaptive):
+def phase_fused_timing(fixed, moving, p, kernel_ms_iter):
+    """The fused backend's ms/iteration by slope (eps = eps_2 = 0, 10
+    against 60 iterations, CUDA events around the launch), next to the
+    kernel backend's host ms/iteration; then one whole align (kd-sort
+    and precompute included) on CUDA events and under torch.profiler:
+    launches per align and the device's busy share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from cvo_rgbd_torch import align
+    from cvo_rgbd_torch.core.cloud import kd_sort
+    from cvo_rgbd_torch.ops.align_fused import align_fused_cuda
+
+    x, y = kd_sort(fixed), kd_sort(moving)
+    t = {}
+    for it in (10, 60):
+        q = dataclasses.replace(p, max_iter=it, eps=0.0, eps_2=0.0)
+        t[it] = time_ms(lambda: align_fused_cuda(q, x, y),
+                        spin=ALIGN_SPIN_CYCLES)
+    slope = (t[60] - t[10]) / 50
+    whole_ms = time_ms(lambda: align(p, fixed, moving))
+    align(p, fixed, moving)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = align(p, fixed, moving)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.key.startswith("cudaLaunch"))
+    gpu = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(gpu, "the profiler recorded no device activity")
+    dev_ms = sum(e.time_range.elapsed_us() for e in gpu) / 1e3
+    kern_ms = sum(e.time_range.elapsed_us() for e in gpu
+                  if "align_kernel" in e.name) / 1e3
+    its = int(res.iterations.item()) + 1
+    log(f"fused {type(p).__name__} N=M={fixed.capacity}: {t[10]:.4f} ms at "
+        f"10 iterations, {t[60]:.4f} ms at 60, slope {slope:.4f} "
+        f"ms/iteration (kernel backend: {kernel_ms_iter:.3f} ms/iteration, "
+        f"host clock); whole align {whole_ms:.4f} ms on CUDA events, "
+        f"{its} iterations; profiled: {host_ms:.3f} ms host, device busy "
+        f"{dev_ms:.3f} ms ({100 * dev_ms / host_ms:.1f}%), of which "
+        f"align_fused {kern_ms:.3f} ms; {launches} kernel launches per "
+        "align")
+    check(slope > 0, "fused ms/iteration by slope is not positive")
+
+
+def phase_odometry(frames, p, adaptive, num_want=NUM_WANT):
     """A main path, with the launch counts read around it."""
     import numpy as np
     import torch
@@ -403,14 +561,15 @@ def phase_odometry(frames, p, adaptive):
     from cvo_rgbd_torch.io.tum import parse_trajectory
     from cvo_rgbd_torch.odometry import run_odometry_frames
 
-    name = "acvo" if adaptive else "cvo"
+    name = ("acvo" if adaptive else "cvo") + (
+        f" fused num_want={num_want}" if p.backend == "fused" else "")
     traj = io.StringIO()
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
     recs = run_odometry_frames(
         ((i, nm, rgb, dep) for i, nm, rgb, dep, _ in frames), 1,
-        adaptive=adaptive, params=p, traj=traj, num_want=NUM_WANT,
+        adaptive=adaptive, params=p, traj=traj, num_want=num_want,
         log=lambda *a: None,
     )
     torch.cuda.synchronize()
@@ -432,9 +591,24 @@ def phase_odometry(frames, p, adaptive):
     check(all(np.isfinite(m).all() for m in est.values()), "non-finite pose")
     check(ate < 0.02, f"{name} odometry ATE {ate} m against the exact "
           "ground truth")
+    # the capacity picks the fused kernel's mode for every pair of a run
+    mode = "tiled" if num_want > RESIDENT_NUM_WANT else "resident"
+    n_fused = launches.pop("align_fused")
+    launches.update({k: 0 for k in FUSED})
+    launches[f"align_fused_{mode}"] = n_fused
+    if p.backend == "fused":
+        # one whole-align launch a pair and no per-iteration kernel: no
+        # silent fallback
+        check(n_fused == len(recs),
+              f"the {name} main path did not launch align_fused {mode} "
+              f"once a pair: {launches}")
+        check(not any(launches[k] for k in KERNELS),
+              f"the {name} main path launched another kernel: {launches}")
+        return launches
     used = KERNELS if adaptive else KERNELS[:2]
     for k in used:
         check(launches[k] > 0, f"the {name} main path never launched {k}")
+    check(n_fused == 0, f"the {name} main path launched align_fused")
     return launches
 
 
@@ -444,6 +618,11 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    start = time.perf_counter()
+
+    def mark(phase):
+        log(f"-- {phase} done at {time.perf_counter() - start:.1f} s")
+
     from cvo_rgbd_torch.device import pin_fp32
     from cvo_rgbd_torch.frontend import make_frontend
     from cvo_rgbd_torch.ops import _build
@@ -482,29 +661,52 @@ def main():
 
     p = CvoParams()   # kernel backend, C++ stops eps=5e-5 / eps_2=1e-5
     pa = AcvoParams()
+    mark("1-2 (build, data)")
     kernels = phase_kernels(c0, c1, p)
     kernels.update(phase_wsq(a0, a1, pa))
+    mark("3-3b")
 
     small_scene = BandScene(*SMALL_SIZE)
     small = [make_frontend(1, SMALL_NUM_WANT, 1)(f[2], f[3])
              for f in render_frames(revisit_path(2, period=33), small_scene)]
-    phase_align(c0, c1, p, small)
-    phase_profile(c0, c1, p)
-
     small_a = [make_frontend(1, SMALL_NUM_WANT, 0)(f[2], f[3])
                for f in render_frames(revisit_path(2, period=33),
                                       small_scene)]
+    kernels.update(phase_fused_kernels([
+        ("tiled", CvoParams, c0, c1), ("tiled", AcvoParams, a0, a1),
+        ("resident", CvoParams, *small), ("resident", AcvoParams, *small_a),
+    ]))
+    mark("3c")
+
+    ms_iter = phase_align(c0, c1, p, small)
+    phase_profile(c0, c1, p)
+    mark("4")
+
     # acvo's tail at the C++ stops is slower still: on this pair the
     # plain versions stopped at 146 and at 170 iterations under two CPU
     # builds of torch, tf within 1e-4 of each other
-    phase_align(a0, a1, pa, small_a, skew=0.25)
+    ms_iter_a = phase_align(a0, a1, pa, small_a, skew=0.25)
     phase_align(a0, a1, dataclasses.replace(pa, self_mode="cheb"))
     phase_profile(a0, a1, pa)
+    mark("4b")
 
-    launches = {k: 0 for k in KERNELS}
-    for params, adaptive in ((p, False), (pa, True)):
-        for k, v in phase_odometry(frames, params, adaptive).items():
+    # 4c. the fused backend at the same stops
+    pf = dataclasses.replace(p, backend="fused")
+    paf = dataclasses.replace(pa, backend="fused")
+    phase_align(c0, c1, pf, small)
+    phase_fused_timing(c0, c1, pf, ms_iter)
+    phase_align(a0, a1, paf, small_a, skew=0.25)
+    phase_fused_timing(a0, a1, paf, ms_iter_a)
+    mark("4c")
+
+    launches = {k: 0 for k in KERNELS + FUSED}
+    runs = [(p, False, NUM_WANT), (pa, True, NUM_WANT)]
+    runs += [(q, adaptive, nw) for nw in (NUM_WANT, RESIDENT_NUM_WANT)
+             for q, adaptive in ((pf, False), (paf, True))]
+    for params, adaptive, nw in runs:
+        for k, v in phase_odometry(frames, params, adaptive, nw).items():
             launches[k] += v
+        mark(f"5 ({params.backend}, {type(params).__name__}, {nw})")
 
     sources = {
         "color_gram": ("cvo_rgbd_torch/csrc/color_gram.cu",
@@ -513,9 +715,13 @@ def main():
                           "cvo_rgbd_tpu/ops/pallas_moments.py:199"),
         "fused_wsq": ("cvo_rgbd_torch/csrc/fused_wsq.cu",
                       "cvo_rgbd_tpu/ops/pallas_moments.py:320"),
+        "align_fused_tiled": ("cvo_rgbd_torch/csrc/align_fused.cu",
+                              "cvo_rgbd_tpu/ops/pallas_align.py:1351"),
+        "align_fused_resident": ("cvo_rgbd_torch/csrc/align_fused.cu",
+                                 "cvo_rgbd_tpu/ops/pallas_align.py:1379"),
     }
     rows = []
-    for name in KERNELS:
+    for name in KERNELS + FUSED:
         k = kernels[name]
         src, rep = sources[name]
         rows.append({
@@ -525,6 +731,7 @@ def main():
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": None,
         })
+    log(f"all phases passed in {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,7 @@
 """Command-line interface.
 
     python -m cvo_rgbd_torch.cli run <folder> <seq> [--adaptive]
-        [--backend kernel|dense] [--device cpu]
+        [--backend kernel|dense|fused] [--device cpu]
     python -m cvo_rgbd_torch.cli evaluate-ate <groundtruth> <estimate>
     python -m cvo_rgbd_torch.cli evaluate-rpe <groundtruth> <estimate>
 
@@ -95,11 +95,12 @@ def main(argv=None):
                     help="adaptive CVO (acvo): HSV features and the "
                     "adaptive length-scale (adaptive_cvo.cpp)")
     pr.add_argument("--backend", default="kernel",
-                    choices=["kernel", "dense"],
+                    choices=["kernel", "dense", "fused"],
                     help="'kernel' (default; the hand-written CUDA kernels, "
-                    "the JAX package's 'pallas') or 'dense' (the dense "
-                    "Gram in plain torch, its 'xla'); the whole-align "
-                    "'fused' backend is not ported yet")
+                    "one sweep per iteration, the JAX package's 'pallas'), "
+                    "'dense' (the dense Gram in plain torch, its 'xla') "
+                    "or 'fused' (the whole align loop in one kernel "
+                    "launch)")
     pr.add_argument("--output")
     pr.add_argument("--max-frames", type=int)
     pr.add_argument("--checkpoint")

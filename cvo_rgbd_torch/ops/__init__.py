@@ -4,13 +4,16 @@
 - `moments.fused_moments` (csrc/fused_moments.cu): the per-iteration
   moment sweep.
 - `wsq.fused_wsq` (csrc/fused_wsq.cu): the adaptive self-kernel sweep.
+- `align_fused.align_fused` (csrc/align_fused.cu): the whole align loop,
+  one launch per align.
 
 A wrapper takes the plain version only for CPU tensors; for CUDA tensors
 it launches its kernel or raises.  `wrapper.launches` counts launches.
 """
 
+from cvo_rgbd_torch.ops.align_fused import align_fused
 from cvo_rgbd_torch.ops.gram import color_gram
 from cvo_rgbd_torch.ops.moments import fused_moments
 from cvo_rgbd_torch.ops.wsq import fused_wsq
 
-__all__ = ["color_gram", "fused_moments", "fused_wsq"]
+__all__ = ["align_fused", "color_gram", "fused_moments", "fused_wsq"]

@@ -19,7 +19,7 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
-KERNELS = ("color_gram", "fused_moments", "fused_wsq")
+KERNELS = ("color_gram", "fused_moments", "fused_wsq", "align_fused")
 
 # No --use_fast_math: it turns expf into __expf and flushes denormals,
 # and the Gram needs the accurate exp (csrc/pair_tile.cuh).
@@ -38,6 +38,17 @@ SIGNATURES = {
         "fused_moments_launch", [_P] * 14 + [_I, _I, _I, _I, _P]
     ),
     "fused_wsq": ("fused_wsq_launch", [_P] * 12 + [_I, _I, _I, _I, _P]),
+    "align_fused_tiled": (
+        "align_fused_tiled_launch", [_P] * 23 + [_I] * 6 + [_P]
+    ),
+    "align_fused_resident": (
+        "align_fused_resident_launch", [_P] * 23 + [_I] * 6 + [_P]
+    ),
+}
+# entry points that live in another source's library
+LIBRARY = {
+    "align_fused_tiled": "align_fused",
+    "align_fused_resident": "align_fused",
 }
 
 
@@ -86,10 +97,11 @@ def build(names=KERNELS) -> None:
 
 @functools.lru_cache(maxsize=None)
 def entry(name: str):
-    """The C launch function of kernel `name`, built and loaded once."""
-    build((name,))
+    """The C launch function `name`, its library built and loaded once."""
+    lib = LIBRARY.get(name, name)
+    build((lib,))
     fn_name, argtypes = SIGNATURES[name]
-    fn = getattr(ctypes.CDLL(str(BUILD / f"lib{name}.so")), fn_name)
+    fn = getattr(ctypes.CDLL(str(BUILD / f"lib{lib}.so")), fn_name)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn

@@ -10,7 +10,11 @@ Backends are named for what runs on the card:
   `cvo_rgbd_torch.ops`, one moment sweep per iteration.  The default.
 - "dense" (port of "xla"): the dense masked Gram in plain torch, no
   kd-sort; the only backend of `yy_quirk`.
-- "fused" (the whole align loop in one kernel).  Not ported yet.
+- "fused" (port of "fused"): the whole align loop in one launch of
+  `csrc/align_fused.cu`, resident or tiled by problem size; problems it
+  cannot run go to "dense" or "kernel" as in the JAX package.  It
+  recomputes the color kernel in the kernel, so `ck_cache` and
+  `self_mode` do not apply to it.
 """
 
 from __future__ import annotations

@@ -90,9 +90,7 @@ def test_empty_moving_cloud_converges_at_iteration_zero():
 
 
 @pytest.mark.parametrize("params", [
-    ct.AcvoParams(backend="fused"),
     ct.AcvoParams(exp_mode="fast"),
-    ct.CvoParams(backend="fused"),
     ct.MATLAB_PARAMS,
     ct.CvoParams(exp_mode="fast"),
 ])

@@ -148,3 +148,158 @@ def test_acvo_align_on_card_matches_cpu(dev):
     assert bool(gpu.converged) and bool(cpu.converged)
     # the JAX suite's stop-skew tolerance (tests/test_parallel.py:217)
     assert (gpu.tf.cpu() - cpu.tf).abs().max().item() <= 3e-4
+
+
+def _fused_pair(dev, algo, mode):
+    """A pair the fused backend runs in `mode`: random clouds for cvo,
+    the rendered acvo pair (whose self-Grams have neighbours) for acvo."""
+    from cvo_rgbd_torch.core.cloud import kd_sort
+
+    cap = 1024 if mode == "resident" else 1152
+    if algo == "cvo":
+        return _clouds(dev, n=cap - 24, cap=cap, seed=2)
+    return [kd_sort(c) for c in _rendered_pair(dev, num_want=cap)]
+
+
+@pytest.mark.parametrize("max_iter", [1, 3, 10])
+@pytest.mark.parametrize("mode", ["resident", "tiled"])
+@pytest.mark.parametrize("algo", ["cvo", "acvo"])
+def test_align_fused_kernel_matches_plain(dev, algo, mode, max_iter):
+    import cvo_rgbd_torch as ct
+    from cvo_rgbd_torch.ops.align_fused import (
+        align_fused,
+        align_fused_cuda,
+        align_fused_plain,
+        fused_mode,
+    )
+
+    x, y = _fused_pair(dev, algo, mode)
+    cls = ct.CvoParams if algo == "cvo" else ct.AcvoParams
+    p = cls(backend="fused", max_iter=max_iter, eps=0.0, eps_2=0.0)
+    assert fused_mode(p, x, y) == mode
+    launches = align_fused.launches
+    row = align_fused_cuda(p, x, y)
+    assert align_fused.launches == launches + 1
+    ref = align_fused_plain(p, x, y)
+    assert row[24].item() == ref[24].item() == max_iter
+    # R, T, ell, omega, v: fp32 sums in another order, 1e-5 after 1 and 3
+    # iterations and 1e-4 after 10 (tests/test_torch_fused.py)
+    tol = 1e-5 if max_iter <= 3 else 1e-4
+    assert (row[12:] - ref[12:]).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("mode", ["resident", "tiled"])
+@pytest.mark.parametrize("algo", ["cvo", "acvo"])
+def test_fused_degenerate_pairs_on_card(dev, algo, mode):
+    """Self-registration stops at iteration 0 with tf == I; an all-masked
+    moving cloud converges at iteration 0 with a finite tf."""
+    import cvo_rgbd_torch as ct
+    from cvo_rgbd_torch.ops.align_fused import fused_mode
+
+    x, _ = _fused_pair(dev, algo, mode)
+    p = (ct.CvoParams if algo == "cvo" else ct.AcvoParams)(backend="fused")
+    assert fused_mode(p, x, x) == mode
+    res = ct.align(p, x, x)
+    assert int(res.iterations) == 0 and bool(res.converged)
+    assert torch.equal(res.tf.cpu(), torch.eye(4))
+    empty = ct.pad_cloud(np.zeros((0, 3)), capacity=x.capacity, device=dev)
+    res = ct.align(p, x, empty)
+    assert int(res.iterations) == 0 and bool(res.converged)
+    assert torch.isfinite(res.tf).all()
+
+
+@pytest.mark.parametrize("mode", ["resident", "tiled"])
+def test_align_fused_long_ell_schedule(dev, mode):
+    """A six-step cvo schedule reaches the kernel whole: ell moves at the
+    same iterations as in the plain version."""
+    import cvo_rgbd_torch as ct
+    from cvo_rgbd_torch.ops.align_fused import (
+        align_fused_cuda,
+        align_fused_plain,
+    )
+
+    x, y = _fused_pair(dev, "cvo", mode)
+    sched = ((0, 0.12), (1, 0.10), (2, 0.08), (4, 0.06), (6, 0.05),
+             (8, 0.04))
+    p = ct.CvoParams(backend="fused", ell_sched=sched, max_iter=10, eps=0.0,
+                     eps_2=0.0)
+    row = align_fused_cuda(p, x, y)
+    ref = align_fused_plain(p, x, y)
+    assert row[24].item() == ref[24].item() == 10
+    assert row[26].item() == ref[26].item() == np.float32(0.04)
+    assert (row[12:] - ref[12:]).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("mode,n,m", [("resident", 512, 1024),
+                                      ("tiled", 2048, 1152)])
+@pytest.mark.parametrize("algo", ["cvo", "acvo"])
+def test_align_fused_unequal_clouds(dev, algo, mode, n, m):
+    """Fixed and moving clouds of different capacities: every work split
+    of the kernel (row items, moment chunks, columns, both self
+    triangles) sizes itself from its own cloud."""
+    import cvo_rgbd_torch as ct
+    from cvo_rgbd_torch.core.cloud import kd_sort
+    from cvo_rgbd_torch.ops.align_fused import (
+        align_fused_cuda,
+        align_fused_plain,
+        fused_mode,
+    )
+
+    rng = np.random.default_rng(4)
+    k = max(n, m)
+    pos = rng.random((k, 3)) * np.array([2.0, 1.5, 1.0]) + np.array(
+        [-1.0, -0.7, 1.0])
+    feat = rng.random((k, 5)) * np.array([255, 255, 255, 60, 60])
+    moved = pos + rng.normal(0.0, 0.01, pos.shape)
+    x = kd_sort(ct.pad_cloud(pos[:n - 24], feat[:n - 24], n, device=dev))
+    y = kd_sort(ct.pad_cloud(moved[:m - 24], feat[:m - 24], m, device=dev))
+    cls = ct.CvoParams if algo == "cvo" else ct.AcvoParams
+    p = cls(backend="fused", max_iter=3, eps=0.0, eps_2=0.0)
+    assert fused_mode(p, x, y) == mode
+    row = align_fused_cuda(p, x, y)
+    ref = align_fused_plain(p, x, y)
+    assert row[24].item() == ref[24].item() == 3
+    assert (row[12:] - ref[12:]).abs().max().item() <= 1e-5
+
+
+def test_align_fused_pads_a_resident_fixed_cloud(dev):
+    """A hand-built fixed cloud of capacity 1000 (a multiple of 8 only)
+    runs resident; the kernel pads it to whole row items with masked
+    rows, which must change nothing."""
+    import cvo_rgbd_torch as ct
+    from cvo_rgbd_torch.ops.align_fused import (
+        align_fused_cuda,
+        align_fused_plain,
+        fused_mode,
+    )
+
+    x, y = _clouds(dev, n=1000, cap=1024, seed=3)
+    x = ct.PointCloud(*(t[:1000] for t in x))
+    p = ct.CvoParams(backend="fused", max_iter=3, eps=0.0, eps_2=0.0)
+    assert fused_mode(p, x, y) == "resident"
+    row = align_fused_cuda(p, x, y)
+    ref = align_fused_plain(p, x, y)
+    assert row[24].item() == ref[24].item() == 3
+    assert (row[12:] - ref[12:]).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("mode", ["resident", "tiled"])
+@pytest.mark.parametrize("algo", ["cvo", "acvo"])
+def test_fused_align_on_card_matches_cpu(dev, algo, mode):
+    import cvo_rgbd_torch as ct
+
+    x, y = _fused_pair(dev, algo, mode)
+    p = (ct.CvoParams if algo == "cvo" else ct.AcvoParams)(backend="fused")
+    gpu = ct.align(p, x, y)
+    again = ct.align(p, x, y)
+    cpu = ct.align(p, x.to("cpu"), y.to("cpu"), device="cpu")
+    assert bool(gpu.converged) and bool(cpu.converged)
+    # no float atomics: the same align repeats bit for bit
+    assert torch.equal(gpu.tf, again.tf)
+    assert int(gpu.iterations) == int(again.iterations)
+    # the JAX suite's stop-skew tolerance (tests/test_parallel.py:217); at
+    # the C++ stops the last iterations contract slowly, so the stopping
+    # iteration moves with the fp32 summation order
+    assert (gpu.tf.cpu() - cpu.tf).abs().max().item() <= 3e-4
+    it_g, it_c = int(gpu.iterations), int(cpu.iterations)
+    assert abs(it_g - it_c) <= max(2, 0.25 * it_c)

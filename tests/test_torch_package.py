@@ -14,6 +14,7 @@ import torch
 
 import cvo_rgbd_torch
 from cvo_rgbd_torch.ops import _build, gram, moments, wsq
+from cvo_rgbd_torch.ops.align_fused import align_fused, align_fused_cuda
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "cvo_rgbd_torch"
@@ -102,7 +103,7 @@ def test_wrappers_never_fall_back():
     a launch, and any device that is neither CPU nor CUDA is refused."""
     for fn in (gram.color_gram, gram.color_gram_cuda, moments.fused_moments,
                moments.fused_moments_cuda, wsq.fused_wsq, wsq.fused_wsq_cuda,
-               _build.entry, _build.check):
+               align_fused, align_fused_cuda, _build.entry, _build.check):
         tree = ast.parse(inspect.getsource(fn).lstrip())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), fn
     meta = [torch.empty((128, k), device="meta") for k in (3, 5)]
