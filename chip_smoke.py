@@ -10,27 +10,46 @@ and prints no result line):
    CUDA kernels built from `cvo_rgbd_torch/csrc/` with nvcc;
 2. data: a 10-frame `revisit_path` sequence rendered in memory at
    240x320 (`cvo_rgbd_torch.synth`), frontend at num_want=3000
-   (capacity 3072), cvo features (RGB) and acvo features (HSV);
+   (capacity 3072), cvo features (RGB) and acvo features (HSV); 2b. the
+   same frames backprojected whole (`depth_to_cloud`), written as .pcd
+   files and loaded as the MATLAB batch runner loads them (range filter
+   [0.8, 4] m, then a 0.05 m grid: capacity 384, resident on the fused
+   backend), and on a 0.015 m grid (capacity 2816, tiled);
 3. kernels vs their plain torch versions on the card, on the first pair
    at N=M=3072, with CUDA-event timings: `color_gram` and
    `fused_moments` on the cvo clouds; 3b. `fused_wsq` on the acvo
    clouds' two self-pairs; 3c. the whole-align kernel `align_fused`
    after 1, 3 and 10 iterations, tiled on the first cvo and acvo pairs
-   (N=M=3072) and resident on two small pairs (N=M=1024);
+   (N=M=3072) and resident on two small pairs (N=M=1024); 3d. the
+   two-pass sweeps `fused_flow` and `fused_step_coeffs` on the first cvo
+   pair at ell 0.1 and 0.03, with and without the color cache, then in
+   MATLAB's linear mode with the CI on the first pcd pairs; 3e. the
+   linear branches of `fused_moments` and `align_fused` (tiled on the
+   0.015 m pair, resident on the 0.05 m pair);
 4. one reference-scale cvo align at the C++ stops (eps=5e-5,
    eps_2=1e-5) on the kernel backend, a small pair registered on the
    card and on the CPU (plain versions), which must agree, and a
-   profile of one iteration; 4b. the same for acvo (`self_mode="exact"`,
+   profile of one iteration, with the moment sweep and with the direct
+   step's two sweeps; 4b. the same for acvo (`self_mode="exact"`,
    then one align with `"cheb"`); 4c. the same aligns on the fused
    backend, each run twice (the iterations must repeat), ms/iteration
    by slope (10 against 60 iterations) and a profile of one align;
 5. the main paths: `run_odometry_frames` over the rendered sequence for
    cvo, 5b. then for acvo (`adaptive=True`), 5c. then for both on the
-   fused backend at capacity 3072 (tiled) and 1024 (resident), each
-   with every kernel's launch count set to 0 just before and read just
-   after, and the trajectory scored (ATE) against the exact ground
-   truth.  The fused runs must launch `align_fused` once a pair and
-   none of the per-iteration kernels.
+   fused backend at capacity 3072 (tiled) and 1024 (resident), 5d. then
+   for both on the kernel backend with `step_mode="direct"` (`fused_flow`
+   and `fused_step_coeffs` in place of `fused_moments`), each with every
+   kernel's launch count set to 0 just before and read just after, and
+   the trajectory scored (ATE) against the exact ground truth.  The
+   fused runs must launch `align_fused` once a pair and none of the
+   per-iteration kernels;
+6. the MATLAB path on the pcd files at both grids: `cli batch` (kernel
+   backend: `fused_moments`, never `color_gram`), `run_batch` on the
+   fused backend (`align_fused` once a pair) and with
+   `step_mode="direct"` (`fused_flow` and `fused_step_coeffs` each
+   iteration), each scored against the exact relative ground truth; one
+   small linear pair on the card and on the CPU; `cli stitch`.  3d and
+   3e take the linear pairs at the batch's capacity for the grid.
 
 The line before last is a JSON object with each kernel's launches on
 the main paths together, its error against the plain version, its
@@ -40,11 +59,14 @@ time, the plain version's time and its bound; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import io
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and fp32 outside the
@@ -63,7 +85,17 @@ OPS_GATED = 70
 # a pair of the self-sweep that passes the gate: the a*d2 FMA (2) and
 # the count
 OPS_WSQ_GATED = 3
-KERNELS = ("color_gram", "fused_moments", "fused_wsq")
+# csrc/fused_flow.cu, where A is nonzero: the flow sweep's sum A, three
+# FMAs into sum A y, the A d2 FMA and the count; the step sweep's four
+# dot fields (6 each), beta..epsilon (9), and B..E with their sums (~27);
+# per column of the step sweep, the fields xi z .. xi^4 z and their dots
+OPS_FLOW_GATED = 10
+OPS_STEP_GATED = 60
+OPS_STEP_COLUMN = 80
+# the per-iteration kernels of the odometry paths, then the two sweeps of
+# the kernel backend's step_mode="direct"
+PER_ITER = ("color_gram", "fused_moments", "fused_wsq")
+KERNELS = PER_ITER + ("fused_flow", "fused_step_coeffs")
 FUSED = ("align_fused_tiled", "align_fused_resident")
 FUSED_ITERS = (1, 3, 10)
 # capacity of the resident-mode odometry run: N = M = 1024 is within
@@ -82,6 +114,9 @@ SPIN_CYCLES = 1_000_000
 # ~10 ms: align_fused's wrapper enqueues its per-align precompute (the
 # moment basis, tile bounds, a few copies) before the launch
 ALIGN_SPIN_CYCLES = 20_000_000
+# the MATLAB batch runner's grid (rgbddataset_rkhs.m:40-47), and a finer
+# one whose clouds run tiled on the fused backend
+BATCH_GRID, FINE_GRID = 0.05, 0.015
 
 
 def log(msg):
@@ -326,7 +361,7 @@ def phase_fused_kernels(cases):
     max_iter iterations): R, T, ell, omega and v within 1e-5 after 1 and
     3 iterations and 1e-4 after 10.  Each 10-iteration align is timed
     against the plain version and its bound; the kernel line takes the
-    cvo case of each mode."""
+    first case of each mode.  A case is (mode, params, fixed, moving)."""
     import torch
 
     from cvo_rgbd_torch.core.cloud import kd_sort
@@ -336,12 +371,14 @@ def phase_fused_kernels(cases):
         fused_mode,
     )
     out = {}
-    for mode, cls, fixed, moving in cases:
+    for mode, base, fixed, moving in cases:
         x, y = kd_sort(fixed), kd_sort(moving)
-        label = f"align_fused {mode} {cls.__name__} N=M={x.capacity}"
+        label = (f"align_fused {mode} {type(base).__name__} "
+                 f"color_mode={base.color_mode} N=M={x.capacity}")
         err = 0.0
         for it in FUSED_ITERS:
-            p = cls(backend="fused", max_iter=it, eps=0.0, eps_2=0.0)
+            p = dataclasses.replace(base, backend="fused", max_iter=it,
+                                    eps=0.0, eps_2=0.0)
             check(fused_mode(p, x, y) == mode, f"{label}: not {mode}")
             row = align_fused_cuda(p, x, y)
             counts = {}
@@ -374,6 +411,297 @@ def phase_fused_kernels(cases):
         else:
             out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
     return out
+
+
+def pcd_sets(frames, root, cam):
+    """2b: the frames backprojected whole and written as .pcd files under
+    `root`, loaded as the MATLAB batch runner loads them at BATCH_GRID and
+    FINE_GRID.  Returns {grid: [(name, positions, colors)]}."""
+    from cvo_rgbd_torch.batch import load_pcd_dir
+    from cvo_rgbd_torch.core.cloud import round_up
+    from cvo_rgbd_torch.io.export import depth_to_cloud, write_pcd
+
+    t0 = time.perf_counter()
+    for _, nm, rgb, dep, _ in frames:
+        pos, col = depth_to_cloud(rgb, dep, cam)
+        write_pcd(os.path.join(root, f"{nm}.pcd"), pos, col)
+    log(f"wrote {len(frames)} .pcd files of {pos.shape[0]} points in "
+        f"{time.perf_counter() - t0:.2f} s")
+    sets = {}
+    for grid in (BATCH_GRID, FINE_GRID):
+        clouds = load_pcd_dir(root, grid=grid)
+        cap = round_up(max(c[1].shape[0] for c in clouds))
+        log(f"pcd grid={grid}: N per frame {[c[1].shape[0] for c in clouds]}"
+            f", capacity {cap}")
+        sets[grid] = clouds
+    caps = {g: round_up(max(c[1].shape[0] for c in sets[g])) for g in sets}
+    check(caps[BATCH_GRID] <= 1024 < caps[FINE_GRID] <= 4096,
+          f"pcd capacities {caps}: want a resident and a tiled fused pair")
+    return sets
+
+
+def linear_pair(clouds, dev):
+    """The first pcd pair as the batch gives it to the kernels: the whole
+    set padded to one capacity (`run_batch`), kd-sorted on `dev`, its
+    masked CI, and the features zero-padded to NFEAT (`align`)."""
+    from cvo_rgbd_torch.batch import pad_clouds
+    from cvo_rgbd_torch.core.cloud import kd_sort
+    from cvo_rgbd_torch.core.registration import prepare_ci
+    from cvo_rgbd_torch.ops.gram import pad_feat
+    from cvo_rgbd_torch.params import MATLAB_PARAMS
+
+    x, y = (kd_sort(c) for c in pad_clouds(clouds, dev)[:2])
+    ci = prepare_ci(MATLAB_PARAMS, x, y)
+    x, y = (c._replace(features=pad_feat(c.features)) for c in (x, y))
+    return x, y, ci
+
+
+def rel_close(got, ref, tol=1e-4):
+    """|got - ref| / |ref| (the norm for a vector) and whether it is
+    within tol."""
+    rel = (got - ref).norm().item() / max(ref.norm().item(), 1e-30)
+    return rel, rel <= tol
+
+
+def flow_bound(n, m, nnz, use_ck, per_gated, column_ops=0):
+    """(bound ms, bound_by) of one sweep of csrc/fused_flow.cu: every
+    pair's weight (its color kernel when there is no cache), the gated
+    pairs' terms; each plane, the cache and the results moved once."""
+    from cvo_rgbd_torch.ops.gram import NFEAT
+
+    nbytes = ((n + m) * (3 + NFEAT + 1) + 8 + 9 + 6) * 4
+    nbytes += n * m * 4 if use_ck else 0
+    nops = n * m * (OPS_PAIR + (0 if use_ck else OPS_COLOR))
+    return bound(nbytes, nops + nnz * per_gated + m * column_ops)
+
+
+def phase_flow(cases):
+    """3d: fused_flow and fused_step_coeffs against their plain versions:
+    nnz exact, each other output (omega*c, v*d, sum A d2, sum A, and B,
+    C, D, E) within 1e-4 of its magnitude.  A case is (label, params,
+    fixed, moving, ck, ell, timed); the kernel line takes the last timed
+    case, the main path's (the linear sweep of the finer pcd pair)."""
+    import torch
+
+    from cvo_rgbd_torch.ops import flow, gram
+
+    out = {}
+    for label, p, x, y, ck, ell, timed in cases:
+        dev = x.positions.device
+        linear = p.color_mode == "linear"
+        scal = gram.scalars(torch.full((), ell, device=dev), p)
+        args = (*x, *y, scal)
+        got = flow.fused_flow_cuda(*args, ck, linear)
+        ref = flow.fused_flow_plain(*args, ck, linear)
+        wv = torch.cat([got[0:3] / p.c, got[3:6] / p.d])
+        got_s = flow.fused_step_coeffs_cuda(*args, wv, ck, linear)
+        ref_s = flow.fused_step_coeffs_plain(*args, wv, ck, linear)
+        torch.cuda.synchronize()
+        nnz, ref_nnz = got[8].item(), ref[8].item()
+        rels = {name: rel_close(got[sl], ref[sl]) for name, sl in (
+            ("omega*c", slice(0, 3)), ("v*d", slice(3, 6)),
+            ("wsq", slice(6, 7)), ("sum_A", slice(7, 8)))}
+        rels.update({name: rel_close(got_s[q], ref_s[q])
+                     for q, name in enumerate("BCDE")})
+        n, m = x.capacity, y.capacity
+        log(f"fused_flow/fused_step_coeffs {label} N={n} M={m} ell={ell}: "
+            f"nnz {nnz:.0f} vs {ref_nnz:.0f} (exact), relative errors "
+            + ", ".join(f"{k} {v[0]:.2e}" for k, v in rels.items())
+            + " (tolerance 1e-4 of each output's magnitude)")
+        check(nnz == ref_nnz > 0, f"fused_flow {label}: nnz differs")
+        check(all(ok for _, ok in rels.values()),
+              f"fused_flow/fused_step_coeffs {label} disagree: {rels}")
+        if not timed:
+            continue
+        ms = time_ms(lambda: flow.fused_flow_cuda(*args, ck, linear))
+        plain_ms = time_ms(lambda: flow.fused_flow_plain(*args, ck, linear))
+        ms_s = time_ms(lambda: flow.fused_step_coeffs_cuda(*args, wv, ck,
+                                                           linear))
+        plain_s = time_ms(lambda: flow.fused_step_coeffs_plain(
+            *args, wv, ck, linear))
+        use_ck = ck is not None
+        b = flow_bound(n, m, nnz, use_ck, OPS_FLOW_GATED)
+        b_s = flow_bound(n, m, nnz, use_ck, OPS_STEP_GATED, OPS_STEP_COLUMN)
+        log(f"fused_flow {label}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {b[0]:.4f} ms ({b[1]}); fused_step_coeffs: {ms_s:.4f} "
+            f"ms, plain {plain_s:.4f} ms, bound {b_s[0]:.4f} ms ({b_s[1]})")
+        err = (got[:8] - ref[:8]).abs().max().item()
+        err_s = (got_s - ref_s).abs().max().item()
+        out["fused_flow"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                 bound_ms=b[0], bound_by=b[1])
+        out["fused_step_coeffs"] = dict(max_abs_err=err_s, ms=ms_s,
+                                        plain_ms=plain_s, bound_ms=b_s[0],
+                                        bound_by=b_s[1])
+    return out
+
+
+def phase_linear_moments(x, y, ci):
+    """3e: the linear branch of fused_moments against its plain version
+    on a pcd pair: Mom within 1e-4 of each column, nnz exact, tile skip
+    on and off the same bits."""
+    import torch
+
+    from cvo_rgbd_torch.core.cloud import aabb_min_d2, block_bounds
+    from cvo_rgbd_torch.core.registration import build_moments_pre
+    from cvo_rgbd_torch.ops import gram, moments
+    from cvo_rgbd_torch.params import MATLAB_PARAMS
+
+    dev = x.positions.device
+    c0, xc, phi = build_moments_pre(x)
+    yc = y.positions - c0
+    md = aabb_min_d2(*block_bounds(x.positions, x.mask, moments.TILE_I),
+                     *block_bounds(y.positions, y.mask, moments.TILE_J))
+    for ell in (0.1, 0.03):
+        scal = gram.scalars(torch.full((), ell, device=dev), MATLAB_PARAMS)
+        args = (xc, x.features, x.mask, yc, y.features, y.mask, phi, scal,
+                ci)
+        ref, ref_nnz = moments.fused_moments_plain(*args, None, True)
+        got = [moments.fused_moments_cuda(*args, skip, True)
+               for skip in (None, md)]
+        torch.cuda.synchronize()
+        colmax = ref.abs().amax(dim=0).clamp_min(1e-30)
+        rel = max(((mom - ref).abs() / colmax).max().item()
+                  for mom, _ in got)
+        nnz = [n.item() for _, n in got]
+        ms = time_ms(lambda: moments.fused_moments_cuda(*args, md, True))
+        log(f"fused_moments linear N={x.capacity} ell={ell}: Mom err/max|col|"
+            f"={rel:.3e} (tolerance 1e-4), nnz {nnz} vs {ref_nnz.item():.0f} "
+            f"(exact); {ms:.4f} ms with the skip")
+        check(rel <= 1e-4, f"linear fused_moments Mom disagrees: {rel}")
+        check(all(v == ref_nnz.item() for v in nnz),
+              "linear fused_moments nnz differs")
+        check(torch.equal(got[0][0], got[1][0]),
+              "linear fused_moments: tile skip on and off differ")
+
+
+def relative_gt(frames):
+    """The exact relative poses inv(P[i-1]) P[i] of the rendered frames:
+    each maps frame i's points into frame i-1, as a batch result does."""
+    import numpy as np
+
+    poses = [np.asarray(f[4], dtype=np.float64) for f in frames]
+    return [np.linalg.inv(a) @ b for a, b in zip(poses, poses[1:])]
+
+
+def phase_batch(root, grid, label, gt, params=None):
+    """6: one MATLAB batch run over the pcd files, through `cli batch`
+    (params None: MATLAB_PARAMS on the kernel backend) or `run_batch`,
+    with every launch count set to 0 just before and read just after.
+    Every pair must be finite and converged; the translation error
+    against the exact relative ground truth must beat identity's."""
+    import numpy as np
+    import torch
+
+    from cvo_rgbd_torch import cli
+    from cvo_rgbd_torch.batch import run_batch
+
+    out = os.path.join(root, f"batch_{label}_{grid}.npz")
+    lines = []
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    if params is None:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(["batch", root, "--grid", str(grid), "--output", out])
+        lines = buf.getvalue().splitlines()
+    else:
+        run_batch(root, params=params, grid=grid, output=out,
+                  log=lines.append)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+    res = np.load(out)["results"]
+    pairs = [ln for ln in lines if ln.startswith("pair ")]
+    iters = [int(ln.split("iters=")[1].split()[0]) for ln in pairs
+             if "iters=" in ln]
+    err = [float(np.linalg.norm(r[:3, 3] - g[:3, 3]))
+           for r, g in zip(res[1:], gt)]
+    motion = [float(np.linalg.norm(g[:3, 3])) for g in gt]
+    log(f"batch {label} grid={grid}: {len(pairs)} pairs, "
+        f"{len(pairs) / dt:.3f} pairs/s ({dt:.3f} s with loading), "
+        f"iterations {iters}, translation error against the exact relative "
+        f"ground truth mean {np.mean(err):.5f} m max {np.max(err):.5f} m "
+        f"(identity: mean {np.mean(motion):.5f} m), launches {launches}")
+    check(len(iters) == len(pairs) == len(gt) and np.isfinite(res).all()
+          and not any("not converged" in ln for ln in pairs),
+          f"batch {label}: a pair failed or did not converge: {pairs}")
+    check(np.mean(err) < np.mean(motion),
+          f"batch {label}: no better than identity")
+    return launches
+
+
+def phase_matlab(root, frames):
+    """6: the MATLAB path at both grids on the three routes, then one small
+    linear pair card vs CPU, then `cli stitch`.  Returns the launches."""
+    import torch
+
+    from cvo_rgbd_torch import align, cli
+    from cvo_rgbd_torch.batch import load_pcd_dir, pad_clouds
+    from cvo_rgbd_torch.params import MATLAB_PARAMS
+
+    gt = relative_gt(frames)
+    n = len(gt)
+    total = {k: 0 for k in KERNELS + FUSED}
+    routes = (
+        ("kernel", None),
+        ("fused", dataclasses.replace(MATLAB_PARAMS, backend="fused")),
+        ("direct", dataclasses.replace(MATLAB_PARAMS, step_mode="direct")),
+    )
+    for grid in (BATCH_GRID, FINE_GRID):
+        for label, params in routes:
+            # the capacity picks the fused kernel's mode for every pair
+            got = fused_by_mode(phase_batch(root, grid, label, gt, params),
+                                "tiled" if grid == FINE_GRID else "resident")
+            if label == "kernel":
+                check(got["fused_moments"] > 0 and got["color_gram"] == 0
+                      and not any(got[k] for k in FUSED), f"cli batch "
+                      f"launched {got}")
+            elif label == "fused":
+                check(sum(got[k] for k in FUSED) == n
+                      and not any(got[k] for k in KERNELS),
+                      f"fused batch: align_fused not once a pair: {got}")
+            else:
+                check(got["fused_flow"] > 0
+                      and got["fused_flow"] == got["fused_step_coeffs"]
+                      and got["fused_moments"] == got["color_gram"] == 0,
+                      f"direct batch launched {got}")
+            for k, v in got.items():
+                total[k] += v
+
+    # one small linear pair on the card and on the CPU (plain versions)
+    clouds = load_pcd_dir(root, grid=BATCH_GRID)[:2]
+    x, y = pad_clouds(clouds, torch.device("cuda"))
+    for label, params in routes:
+        p = params or MATLAB_PARAMS
+        gpu = align(p, x, y)
+        cpu = align(p, x.to("cpu"), y.to("cpu"), device="cpu")
+        dtf = (gpu.tf.cpu() - cpu.tf).abs().max().item()
+        it_g, it_c = int(gpu.iterations.item()), int(cpu.iterations.item())
+        log(f"MATLAB align {label} N=M={x.capacity} card vs CPU: dtf="
+            f"{dtf:.3e} (tolerance 3e-4), iterations {it_g} vs {it_c}")
+        check(dtf <= 3e-4 and bool(gpu.converged.item())
+              and bool(cpu.converged.item()),
+              f"MATLAB align {label}: card and CPU disagree")
+
+    ply = os.path.join(root, "scene.ply")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["stitch", root, "--output", ply])
+    with open(ply) as f:
+        head = f.read().split("end_header")[0]
+    n_pts = int(head.split("element vertex ")[1].split()[0])
+    log(f"cli stitch: {buf.getvalue().strip()}; the PLY holds {n_pts} points")
+    check(n_pts > 0, "cli stitch wrote an empty PLY")
+    return total
+
+
+def fused_by_mode(launches, mode):
+    """The counts with align_fused's under align_fused_<mode>."""
+    n_fused = launches.pop("align_fused")
+    launches.update({k: 0 for k in FUSED})
+    launches[f"align_fused_{mode}"] = n_fused
+    return launches
 
 
 def reset_launches():
@@ -495,12 +823,14 @@ def phase_profile(fixed, moving, p, n_iter=5):
         return sum(e.time_range.elapsed_us() for e in gpu
                    if tag in e.name) / n_iter / 1e3
 
-    log(f"profile {type(p).__name__} N=M={fixed.capacity} ell={ell}: "
-        f"{host_ms:.3f} ms/iteration on the host clock, device busy "
-        f"{dev_us / 1e3:.3f} ms/iteration ({dev_us / 10 / host_ms:.1f}%), "
-        f"of which fused_moments {kernel_ms('moments_'):.3f} ms, fused_wsq "
-        f"{kernel_ms('wsq_'):.3f} ms; {launches / n_iter:.0f} kernel "
-        f"launches per iteration")
+    log(f"profile {type(p).__name__} step_mode={p.step_mode} "
+        f"N=M={fixed.capacity} ell={ell}: {host_ms:.3f} ms/iteration on the "
+        f"host clock, device busy {dev_us / 1e3:.3f} ms/iteration "
+        f"({dev_us / 10 / host_ms:.1f}%), of which fused_moments "
+        f"{kernel_ms('moments_'):.3f} ms, fused_wsq {kernel_ms('wsq_'):.3f} "
+        f"ms, fused_flow {kernel_ms('flow_kernel'):.3f} ms, "
+        f"fused_step_coeffs {kernel_ms('step_kernel'):.3f} ms; "
+        f"{launches / n_iter:.0f} kernel launches per iteration")
 
 
 def phase_fused_timing(fixed, moving, p, kernel_ms_iter):
@@ -561,8 +891,10 @@ def phase_odometry(frames, p, adaptive, num_want=NUM_WANT):
     from cvo_rgbd_torch.io.tum import parse_trajectory
     from cvo_rgbd_torch.odometry import run_odometry_frames
 
+    direct = p.step_mode == "direct"
     name = ("acvo" if adaptive else "cvo") + (
-        f" fused num_want={num_want}" if p.backend == "fused" else "")
+        f" fused num_want={num_want}" if p.backend == "fused" else "") + (
+        " step_mode=direct" if direct else "")
     traj = io.StringIO()
     torch.cuda.synchronize()
     reset_launches()
@@ -593,9 +925,8 @@ def phase_odometry(frames, p, adaptive, num_want=NUM_WANT):
           "ground truth")
     # the capacity picks the fused kernel's mode for every pair of a run
     mode = "tiled" if num_want > RESIDENT_NUM_WANT else "resident"
-    n_fused = launches.pop("align_fused")
-    launches.update({k: 0 for k in FUSED})
-    launches[f"align_fused_{mode}"] = n_fused
+    launches = fused_by_mode(launches, mode)
+    n_fused = launches[f"align_fused_{mode}"]
     if p.backend == "fused":
         # one whole-align launch a pair and no per-iteration kernel: no
         # silent fallback
@@ -605,9 +936,14 @@ def phase_odometry(frames, p, adaptive, num_want=NUM_WANT):
         check(not any(launches[k] for k in KERNELS),
               f"the {name} main path launched another kernel: {launches}")
         return launches
-    used = KERNELS if adaptive else KERNELS[:2]
+    # the direct step's two sweeps take the place of the moment sweep
+    step = ("fused_flow", "fused_step_coeffs") if direct else (
+        "fused_moments",)
+    used = ("color_gram",) + step + (("fused_wsq",) if adaptive else ())
     for k in used:
         check(launches[k] > 0, f"the {name} main path never launched {k}")
+    check(not any(launches[k] for k in KERNELS if k not in used),
+          f"the {name} main path launched another kernel: {launches}")
     check(n_fused == 0, f"the {name} main path launched align_fused")
     return launches
 
@@ -626,7 +962,7 @@ def main():
     from cvo_rgbd_torch.device import pin_fp32
     from cvo_rgbd_torch.frontend import make_frontend
     from cvo_rgbd_torch.ops import _build
-    from cvo_rgbd_torch.params import AcvoParams, CvoParams
+    from cvo_rgbd_torch.params import MATLAB_PARAMS, AcvoParams, CvoParams
     from cvo_rgbd_torch.synth import BandScene, render_frames, revisit_path
 
     # 1. environment
@@ -645,8 +981,9 @@ def main():
 
     # 2. data: the cvo frontend (RGB features) and the acvo one (HSV)
     t0 = time.perf_counter()
-    frames = list(render_frames(revisit_path(FRAMES, period=33),
-                                BandScene(*SIZE)))
+    scene = BandScene(*SIZE)
+    frames = list(render_frames(revisit_path(FRAMES, period=33), scene))
+    tmp = tempfile.TemporaryDirectory()
     fe, fe_a = make_frontend(1, NUM_WANT, 1), make_frontend(1, NUM_WANT, 0)
     c0 = fe(frames[0][2], frames[0][3])
     c1 = fe(frames[1][2], frames[1][3])
@@ -662,6 +999,14 @@ def main():
     p = CvoParams()   # kernel backend, C++ stops eps=5e-5 / eps_2=1e-5
     pa = AcvoParams()
     mark("1-2 (build, data)")
+
+    # 2b. the frames as .pcd files, for the MATLAB path
+    root = tmp.name
+    sets = pcd_sets(frames, root, scene.cam)
+    dev = c0.positions.device
+    lin = {g: linear_pair(sets[g], dev) for g in sets}
+    mark("2b (pcd)")
+
     kernels = phase_kernels(c0, c1, p)
     kernels.update(phase_wsq(a0, a1, pa))
     mark("3-3b")
@@ -673,13 +1018,38 @@ def main():
                for f in render_frames(revisit_path(2, period=33),
                                       small_scene)]
     kernels.update(phase_fused_kernels([
-        ("tiled", CvoParams, c0, c1), ("tiled", AcvoParams, a0, a1),
-        ("resident", CvoParams, *small), ("resident", AcvoParams, *small_a),
+        ("tiled", p, c0, c1), ("tiled", pa, a0, a1),
+        ("resident", p, *small), ("resident", pa, *small_a),
     ]))
     mark("3c")
 
+    # 3d. the two-pass sweeps: se on the first cvo pair, then linear on the
+    # pcd pairs; the kernel line's timing is the finer linear pair's
+    from cvo_rgbd_torch.core.cloud import kd_sort
+    from cvo_rgbd_torch.ops import gram
+
+    x0, x1 = kd_sort(c0), kd_sort(c1)
+    ck = gram.color_gram(*x0, *x1, p=p)
+    flow_cases = [(f"cvo ck={ck_in is not None}", p, x0, x1, ck_in, ell,
+                   ck_in is not None and ell == 0.03)
+                  for ell in (0.1, 0.03) for ck_in in (ck, None)]
+    flow_cases += [(f"linear grid={g}", MATLAB_PARAMS, *lin[g], ell,
+                    g == FINE_GRID and ell == 0.03)
+                   for g in (BATCH_GRID, FINE_GRID) for ell in (0.1, 0.03)]
+    kernels.update(phase_flow(flow_cases))
+    mark("3d")
+
+    # 3e. the linear branches of fused_moments and align_fused
+    phase_linear_moments(*lin[FINE_GRID])
+    phase_fused_kernels([
+        ("tiled", MATLAB_PARAMS, *lin[FINE_GRID][:2]),
+        ("resident", MATLAB_PARAMS, *lin[BATCH_GRID][:2]),
+    ])
+    mark("3e")
+
     ms_iter = phase_align(c0, c1, p, small)
     phase_profile(c0, c1, p)
+    phase_profile(c0, c1, dataclasses.replace(p, step_mode="direct"))
     mark("4")
 
     # acvo's tail at the C++ stops is slower still: on this pair the
@@ -688,6 +1058,7 @@ def main():
     ms_iter_a = phase_align(a0, a1, pa, small_a, skew=0.25)
     phase_align(a0, a1, dataclasses.replace(pa, self_mode="cheb"))
     phase_profile(a0, a1, pa)
+    phase_profile(a0, a1, dataclasses.replace(pa, step_mode="direct"))
     mark("4b")
 
     # 4c. the fused backend at the same stops
@@ -703,10 +1074,20 @@ def main():
     runs = [(p, False, NUM_WANT), (pa, True, NUM_WANT)]
     runs += [(q, adaptive, nw) for nw in (NUM_WANT, RESIDENT_NUM_WANT)
              for q, adaptive in ((pf, False), (paf, True))]
+    # 5d. the kernel backend's two-sweep step on the cells of 5 and 5b
+    runs += [(dataclasses.replace(q, step_mode="direct"), adaptive, NUM_WANT)
+             for q, adaptive in ((p, False), (pa, True))]
     for params, adaptive, nw in runs:
         for k, v in phase_odometry(frames, params, adaptive, nw).items():
             launches[k] += v
-        mark(f"5 ({params.backend}, {type(params).__name__}, {nw})")
+        mark(f"5 ({params.backend}, {params.step_mode}, "
+             f"{type(params).__name__}, {nw})")
+
+    # 6. the MATLAB path
+    for k, v in phase_matlab(root, frames).items():
+        launches[k] += v
+    tmp.cleanup()
+    mark("6 (MATLAB batch)")
 
     sources = {
         "color_gram": ("cvo_rgbd_torch/csrc/color_gram.cu",
@@ -719,6 +1100,10 @@ def main():
                               "cvo_rgbd_tpu/ops/pallas_align.py:1351"),
         "align_fused_resident": ("cvo_rgbd_torch/csrc/align_fused.cu",
                                  "cvo_rgbd_tpu/ops/pallas_align.py:1379"),
+        "fused_flow": ("cvo_rgbd_torch/csrc/fused_flow.cu",
+                       "cvo_rgbd_tpu/ops/pallas_gram.py:437"),
+        "fused_step_coeffs": ("cvo_rgbd_torch/csrc/fused_flow.cu",
+                              "cvo_rgbd_tpu/ops/pallas_gram.py:470"),
     }
     rows = []
     for name in KERNELS + FUSED:

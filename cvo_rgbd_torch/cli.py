@@ -2,12 +2,17 @@
 
     python -m cvo_rgbd_torch.cli run <folder> <seq> [--adaptive]
         [--backend kernel|dense|fused] [--device cpu]
+    python -m cvo_rgbd_torch.cli batch <pcd dir> [--grid 0.05]
+        [--output f.npz] [--device cpu]
+    python -m cvo_rgbd_torch.cli stitch <pcd dir> [--output scene.ply]
+        [--grid 0.05] [--merge-grid 0.01] [--device cpu]
     python -m cvo_rgbd_torch.cli evaluate-ate <groundtruth> <estimate>
     python -m cvo_rgbd_torch.cli evaluate-rpe <groundtruth> <estimate>
 
 `run` mirrors the reference executables (`./cvo $data_path $tum_seq`,
-and the adaptive one with `--adaptive`) on the CUDA device unless
-`--device cpu` is given.
+and the adaptive one with `--adaptive`); `batch` and `stitch` the MATLAB
+batch runner (MATLAB_PARAMS: linear color mode, MATLAB stops).  All run
+on the CUDA device unless `--device cpu` is given.
 """
 
 from __future__ import annotations
@@ -50,6 +55,41 @@ def _cmd_run(args):
         fetch_every=args.fetch_every,
         device=args.device,
     )
+
+
+def _cmd_batch(args):
+    from cvo_rgbd_torch.batch import run_batch
+
+    run_batch(args.directory, grid=args.grid, output=args.output,
+              device=args.device)
+
+
+def _cmd_stitch(args):
+    import numpy as np
+
+    from cvo_rgbd_torch.batch import align_pairs, load_pcd_dir, pad_clouds
+    from cvo_rgbd_torch.device import resolve_device
+    from cvo_rgbd_torch.io.export import (
+        merge_clouds,
+        transform_points,
+        write_ply,
+    )
+    from cvo_rgbd_torch.params import MATLAB_PARAMS
+
+    clouds = load_pcd_dir(args.directory, grid=args.grid)
+    padded = pad_clouds(clouds, resolve_device(args.device))
+    # independent cold-start aligns, then one device->host read
+    done, errors, _ = align_pairs(MATLAB_PARAMS, padded)
+    if errors:
+        raise RuntimeError(f"stitch: pairs failed: {errors}")
+    accum = np.eye(4)
+    placed = [(clouds[0][1], clouds[0][2])]
+    for k in range(1, len(clouds)):
+        accum = accum @ done[k][0]
+        placed.append((transform_points(accum, clouds[k][1]), clouds[k][2]))
+    pos, col = merge_clouds(placed, grid=args.merge_grid)
+    write_ply(args.output, pos, col)
+    print(f"{pos.shape[0]} points -> {args.output}")
 
 
 def _cmd_ate(args):
@@ -118,6 +158,24 @@ def main(argv=None):
                     help="frames between device->host result flushes "
                     "(the trajectory is identical for any value)")
     pr.set_defaults(fn=_cmd_run)
+
+    pb = sub.add_parser("batch", help="pairwise registration over a pcd dir")
+    pb.add_argument("directory")
+    pb.add_argument("--grid", type=float, default=0.05)
+    pb.add_argument("--output")
+    pb.add_argument("--device", default=None,
+                    help="torch device (default: cuda; 'cpu' to run on the CPU)")
+    pb.set_defaults(fn=_cmd_batch)
+
+    pst = sub.add_parser("stitch",
+                         help="register + merge a pcd dir into a PLY scene")
+    pst.add_argument("directory")
+    pst.add_argument("--output", default="scene.ply")
+    pst.add_argument("--grid", type=float, default=0.05)
+    pst.add_argument("--merge-grid", type=float, default=0.01)
+    pst.add_argument("--device", default=None,
+                     help="torch device (default: cuda; 'cpu' to run on the CPU)")
+    pst.set_defaults(fn=_cmd_stitch)
 
     pa = sub.add_parser("evaluate-ate", help="ATE RMSE of a trajectory")
     pa.add_argument("groundtruth")

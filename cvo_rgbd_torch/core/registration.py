@@ -11,8 +11,9 @@ adaptive_cvo.cpp:490-555), kept exactly:
   per iteration k:
     tf   = [R', -R'T]                  (update_tf, cvo.cpp:83-87)
     y    = tf * y0                     (transform_pcd, cvo.cpp:310-315)
-    kernel: Mom, nnz = fused_moments   (one Gram sweep, ops/moments.py)
-    dense:  A = se_gram                (core/gram.py)
+    kernel: Mom, nnz = fused_moments   (one Gram sweep, ops/moments.py;
+            or, step_mode="direct", the two sweeps of ops/flow.py)
+    dense:  A = se_gram / matlab_gram  (core/gram.py)
     omega, v [, dl] ; B..E ; step      (epilogues)
     if |omega|<eps and |v|<eps: break  (BEFORE the update, cvo.cpp:380)
     dR, dT = Exp_SEK3([omega;v], step) (cvo.cpp:391)
@@ -29,6 +30,12 @@ acvo's dl needs sum A|x-y|^2 and nnz of the cross Gram (from the moment
 sweep) and of the self-Grams Axx, Ayy: on the kernel backend two
 `fused_wsq` sweeps per iteration (`self_mode="exact"`), or per-align
 Chebyshev tables in ell (`self_mode="cheb"`).
+
+MATLAB's linear color mode (`color_mode="linear"`, MATLAB_PARAMS) weighs
+each pair by CI = color_scale * Cx Cz^T, computed once per align
+(`prepare_ci`): the dense backend gates it in `matlab_gram`; the kernel
+backend reads it, pre-masked, from the color-cache slot (cvo only, as the
+JAX package's pallas backend); the fused backend forms it in the kernel.
 
 The loop state lives on the device and the host never waits on it per
 iteration.  Once converged, every state field freezes (the JAX body's
@@ -68,11 +75,18 @@ from cvo_rgbd_torch.core.step_factored import (
     step_coefficients_factored,
 )
 from cvo_rgbd_torch.device import pin_fp32, resolve_device
-from cvo_rgbd_torch.ops import color_gram, fused_moments, fused_wsq
+from cvo_rgbd_torch.ops import (
+    color_gram,
+    fused_flow,
+    fused_moments,
+    fused_step_coeffs,
+    fused_wsq,
+)
 from cvo_rgbd_torch.ops.align_fused import align_fused, fused_eligible
+from cvo_rgbd_torch.ops.gram import pad_feat
 from cvo_rgbd_torch.ops.moments import TILE_I, TILE_J
 from cvo_rgbd_torch.ops.wsq import TILE_W
-from cvo_rgbd_torch.params import AcvoParams
+from cvo_rgbd_torch.params import AcvoParams, color_scale
 
 # iterations between host reads of `converged`
 CHECK_EVERY = 8
@@ -104,7 +118,8 @@ class AlignResult(NamedTuple):
 class AlignPre(NamedTuple):
     """Loop-invariant precomputations of the kernel backend."""
 
-    ck: tuple | None      # (ck_xy, ck_xx, ck_yy); None when ck_cache is off
+    ck: tuple | None      # (ck_xy, ck_xx, ck_yy); None when ck_cache is off;
+                          # linear mode: (ci, None, None), masked
     moments: tuple        # (c0, x - c0, Phi(x - c0))
     skip: tuple | None    # (lo_x, hi_x, md_xx, md_yy); None: tile_skip off
     cheb: tuple | None    # self_mode="cheb" tables; None otherwise
@@ -115,6 +130,8 @@ def check_supported(p) -> None:
     adaptive = isinstance(p, AcvoParams)
     if p.backend not in ("kernel", "dense", "fused"):
         raise ValueError(f"unknown backend {p.backend!r}")
+    if p.color_mode not in ("se", "linear"):
+        raise ValueError(f"unknown color_mode {p.color_mode!r}")
     if adaptive and p.backend == "kernel":
         # as the JAX package's pallas backend
         if p.color_mode == "linear":
@@ -123,11 +140,6 @@ def check_supported(p) -> None:
             )
         if p.yy_quirk:
             raise ValueError("yy_quirk emulation requires backend='dense'")
-    if p.color_mode != "se":
-        raise NotImplementedError(
-            f"color_mode={p.color_mode!r} is not ported yet: ROADMAP queue "
-            "1, item 14"
-        )
     if p.exp_mode != "precise":
         raise NotImplementedError(
             f"exp_mode={p.exp_mode!r} is not ported yet: ROADMAP queue 1, "
@@ -144,6 +156,22 @@ def _schedule_ell(ell, k, sched):
 
 def _self(cloud: PointCloud):
     return (*cloud, *cloud)
+
+
+def prepare_ci(p, fixed: PointCloud, moving: PointCloud):
+    """Linear mode's CI = color_scale * Cx Cz^T of the pair, once per
+    align (rkhs_se3_registration.m:108); None in se mode.  A plain
+    [N,3]x[3,M] product (zero feature planes add nothing) at full fp32
+    (`pin_fp32`: TF32 would move it by ~1e-3).  The kernel backend's is
+    masked, as its kernels take the masks from zeros in it;
+    `matlab_gram` gates the dense one itself."""
+    if p.color_mode != "linear":
+        return None
+    ci = linear_color_gram(fixed.features, moving.features, color_scale(p))
+    if p.backend == "kernel":
+        ci = torch.where(
+            (fixed.mask[:, None] > 0) & (moving.mask[None, :] > 0), ci, 0.0)
+    return ci
 
 
 def build_ck_caches(p, adaptive, fixed: PointCloud, moving: PointCloud):
@@ -257,34 +285,48 @@ def _cheb_self(cheb_pre, ell):
 
 
 def prepare(p, fixed: PointCloud, moving: PointCloud, ell0=None):
-    """The kernel backend's AlignPre for (already kd-sorted) clouds; None
-    for the dense backend, which precomputes nothing."""
+    """The AlignPre of (already kd-sorted) clouds.  The dense backend
+    keeps only linear mode's CI, in the `ck` slot (None in se mode)."""
+    ci = prepare_ci(p, fixed, moving)
+    ci_pre = None if ci is None else (ci, None, None)
     if p.backend != "kernel":
-        return None
+        return None if ci is None else AlignPre(ci_pre, None, None, None)
     adaptive = isinstance(p, AcvoParams)
-    ck = build_ck_caches(p, adaptive, fixed, moving)
+    ck = ci_pre or build_ck_caches(p, adaptive, fixed, moving)
     skip = build_skip_pre(p, adaptive, fixed, moving)
     cheb = build_selfsweep_cheb(p, adaptive, fixed, moving, ck, skip, ell0)
     return AlignPre(ck, build_moments_pre(fixed), skip, cheb)
 
 
 def _kernel_terms(p, adaptive, state, fixed, moving, y_pos, pre):
-    """(omega, v, step, dl) of one kernel-backend iteration."""
+    """(omega, v, step, dl) of one kernel-backend iteration: one moment
+    sweep and its epilogues, or under step_mode="direct" the flow sweep
+    and then the line-search sweep (the two passes of cvo.cpp:164-308)."""
     ck_xy, ck_xx, ck_yy = pre.ck if pre.ck else (None,) * 3
-    c0, x_c, phi = pre.moments
-    md_xy = md_xx = md_yy = None
+    direct = p.step_mode == "direct"
+    md_xx = md_yy = None
     if pre.skip is not None:
-        # the gap is shift-invariant: uncentered bounds serve the
-        # centered kernel coordinates
-        lo_x, hi_x, md_xx, md_yy = pre.skip
-        lo_y, hi_y = block_bounds(y_pos, moving.mask, TILE_J)
-        md_xy = aabb_min_d2(lo_x, hi_x, lo_y, hi_y)
-    Mom, nnz_xy = fused_moments(
-        x_c, fixed.features, fixed.mask,
-        y_pos - c0, moving.features, moving.mask,
-        phi, state.ell, ck_xy, md_xy, p=p,
-    )
-    omega, v, wsq_xy, _ = flow_from_moments(Mom, y_pos, c0, c=p.c, d=p.d)
+        _, _, md_xx, md_yy = pre.skip
+    y_cloud = (y_pos, moving.features, moving.mask)
+    if direct:
+        omega, v, wsq_xy, nnz_xy, _ = fused_flow(*fixed, *y_cloud, state.ell,
+                                                 ck_xy, p=p)
+    else:
+        c0, x_c, phi = pre.moments
+        md_xy = None
+        if pre.skip is not None:
+            # the gap is shift-invariant: uncentered bounds serve the
+            # centered kernel coordinates
+            lo_x, hi_x = pre.skip[:2]
+            lo_y, hi_y = block_bounds(y_pos, moving.mask, TILE_J)
+            md_xy = aabb_min_d2(lo_x, hi_x, lo_y, hi_y)
+        Mom, nnz_xy = fused_moments(
+            x_c, fixed.features, fixed.mask,
+            y_pos - c0, moving.features, moving.mask,
+            phi, state.ell, ck_xy, md_xy, p=p,
+        )
+        omega, v, wsq_xy, _ = flow_from_moments(Mom, y_pos, c0, c=p.c,
+                                                d=p.d)
     dl = None
     if adaptive:
         # the self-Grams feed only dl (adaptive_cvo.cpp:156-160,
@@ -294,20 +336,23 @@ def _kernel_terms(p, adaptive, state, fixed, moving, y_pos, pre):
         else:
             wsq_xx, nnz_xx = fused_wsq(*_self(fixed), state.ell, ck_xx,
                                        md_xx, p=p, symmetric=True)
-            y_cloud = (y_pos, moving.features, moving.mask)
             wsq_yy, nnz_yy = fused_wsq(*y_cloud, *y_cloud, state.ell, ck_yy,
                                        md_yy, p=p, symmetric=True)
         ell3 = state.ell * (state.ell * state.ell)
         numer = (wsq_yy - 2.0 * wsq_xy + wsq_xx) / ell3
         denom = nnz_xx + nnz_yy - 2.0 * nnz_xy
         dl = numer / torch.where(denom == 0, 1.0, denom)
-    B, C, D, E = step_from_moments(Mom, y_pos, c0, omega, v, state.ell)
+    if direct:
+        B, C, D, E = fused_step_coeffs(*fixed, *y_cloud, state.ell, omega, v,
+                                       ck_xy, p=p)
+    else:
+        B, C, D, E = step_from_moments(Mom, y_pos, c0, omega, v, state.ell)
     roots, valid = cubic_roots(4.0 * E, 3.0 * D, 2.0 * C, B)
     step = min_positive_root(roots, valid, p.min_step, p.max_step)
     return omega, v, step, dl
 
 
-def _gram(p, x_pos, x: PointCloud, y_pos, y: PointCloud, ell):
+def _se(p, x_pos, x: PointCloud, y_pos, y: PointCloud, ell):
     """se_gram of x_pos and y_pos with the features and masks of x, y."""
     return se_gram(
         x_pos, x.features, x.mask, y_pos, y.features, y.mask, ell,
@@ -316,16 +361,29 @@ def _gram(p, x_pos, x: PointCloud, y_pos, y: PointCloud, ell):
     )
 
 
-def _dense_terms(p, adaptive, state, fixed, moving, y_pos):
+def _gram(p, x_pos, x: PointCloud, y_pos, y: PointCloud, ell, ci):
+    """The dense Gram of the color mode (the JAX package's _gram):
+    matlab_gram with the pair's CI in linear mode, else se_gram."""
+    if p.color_mode == "linear":
+        return matlab_gram(x_pos, x.mask, y_pos, y.mask, ci, ell,
+                           sigma=p.sigma, sp_thres=p.sp_thres)
+    return _se(p, x_pos, x, y_pos, y, ell)
+
+
+def _dense_terms(p, adaptive, state, fixed, moving, y_pos, pre):
     """(omega, v, step, dl) of one dense-backend iteration."""
     x_pos = fixed.positions
-    A = _gram(p, x_pos, fixed, y_pos, moving, state.ell)
+    ci = pre.ck[0] if pre is not None else None
+    A = _gram(p, x_pos, fixed, y_pos, moving, state.ell, ci)
     omega, v = flow_mod.flow(A, x_pos, y_pos, c=p.c, d=p.d)
     dl = None
     if adaptive:
-        # Axx depends on the iteration only through ell; Ayy moves with y
-        Axx = _gram(p, x_pos, fixed, x_pos, fixed, state.ell)
-        Ayy = _gram(p, y_pos, moving, y_pos, moving, state.ell)
+        # Axx depends on the iteration only through ell; Ayy moves with y.
+        # Linear mode keeps the JAX algebra (its registration.py:212-220):
+        # Axx takes the cross pair's CI, and Ayy stays se_gram (ROADMAP
+        # queue 3)
+        Axx = _gram(p, x_pos, fixed, x_pos, fixed, state.ell, ci)
+        Ayy = _se(p, y_pos, moving, y_pos, moving, state.ell)
         dl = flow_mod.adaptive_dl(
             A, Axx, Ayy, x_pos, y_pos, state.ell,
             num_fixed=fixed.num_valid(), yy_quirk=p.yy_quirk,
@@ -357,7 +415,7 @@ def make_align_step(p):
                                                moving, y_pos, pre)
         else:
             omega, v, step, dl = _dense_terms(p, adaptive, state, fixed,
-                                              moving, y_pos)
+                                              moving, y_pos, pre)
 
         # stop 1: flow norm, BEFORE the update (cvo.cpp:380)
         stop1 = (torch.linalg.norm(omega) < p.eps) & (
@@ -446,6 +504,8 @@ def align(p, fixed: PointCloud, moving: PointCloud, R0=None, T0=None,
 
     The kernel backend kd-sorts both clouds (compact tiles are what the
     AABB skip prunes); the dense backend keeps the given point order.
+    Linear-mode clouds carry 3 color features (MATLAB_PARAMS); every
+    backend pads them with zeros to the kernels' 5, here, once per align.
 
     The fused backend runs the whole loop in one launch on kd-sorted
     clouds (`ops/align_fused.py`).  It recomputes the color kernel in the
@@ -458,21 +518,25 @@ def align(p, fixed: PointCloud, moving: PointCloud, R0=None, T0=None,
     dev = resolve_device(device)
     pin_fp32()
     fixed, moving = fixed.to(dev), moving.to(dev)
-    if p.backend == "fused":
-        if fused_eligible(p, fixed, moving):
-            # compact tiles for the in-kernel skip, sorted whether or not
-            # tile_skip is on, so skip on and off stay comparable
-            if fixed.capacity % 128 == 0:
-                fixed = kd_sort(fixed)
-            if moving.capacity % 128 == 0:
-                moving = kd_sort(moving)
-            return align_fused(p, fixed, moving, R0, T0, ell0)
+    if p.backend == "fused" and not fused_eligible(p, fixed, moving):
         adaptive = isinstance(p, AcvoParams)
         to_dense = (
             (adaptive and (p.yy_quirk or p.color_mode == "linear"))
             or fixed.capacity % 128 or moving.capacity % 128
         )
         p = dataclasses.replace(p, backend="dense" if to_dense else "kernel")
+    # the kernels read NFEAT feature planes; the zero planes change no
+    # color term and no CI
+    fixed, moving = (c._replace(features=pad_feat(c.features))
+                     for c in (fixed, moving))
+    if p.backend == "fused":
+        # compact tiles for the in-kernel skip, sorted whether or not
+        # tile_skip is on, so skip on and off stay comparable
+        if fixed.capacity % 128 == 0:
+            fixed = kd_sort(fixed)
+        if moving.capacity % 128 == 0:
+            moving = kd_sort(moving)
+        return align_fused(p, fixed, moving, R0, T0, ell0)
     if p.backend == "kernel":
         fixed, moving = kd_sort(fixed), kd_sort(moving)
     state = init_state(p, dev, R0, T0, ell0)
@@ -511,7 +575,7 @@ def function_inner_product(p, cloud_a: PointCloud, cloud_b: PointCloud,
         ell = p.ell_init
     if p.color_mode == "linear":
         ci = linear_color_gram(cloud_a.features, cloud_b.features,
-                               p.color_scale)
+                               color_scale(p))
         A = matlab_gram(cloud_a.positions, cloud_a.mask, cloud_b.positions,
                         cloud_b.mask, ci, ell, sigma=p.sigma,
                         sp_thres=p.sp_thres)

@@ -13,7 +13,10 @@
 //   phase 1 work items over the grid, each writing its own partial:
 //           - moment items (j-block of TJ, chunk of i-tiles): momT =
 //             Phi(x - c0)^T A and an int nnz, A recomputed per pair with
-//             its color kernel (pair_tile.cuh); tiled mode skips tiles by
+//             its color kernel (pair_tile.cuh), or in MATLAB's linear color
+//             mode (cvo only) with ci = color_scale * (xf . yf) over
+//             features 0-2 and the gate k >= sp_thres (:413-415, :811-816);
+//             tiled mode skips tiles by
 //             the fixed cloud's tile boxes against the box of the item's
 //             transformed y, reduced in the block every iteration;
 //           - resident only, row items (ROWS rows of x, one per thread,
@@ -51,7 +54,8 @@
 //
 // Bound on the H100: ~80 fp32 operations per pair the function needs
 // (the Gram with its color kernel; chip_smoke.py's OPS_PAIR + OPS_COLOR),
-// each pair once an iteration, plus 70 per gated pair of the moment sweep
+// each pair once an iteration (the linear color weight costs ~8 where the
+// se color kernel costs 44), plus 70 per gated pair of the moment sweep
 // (35 FMAs); the clouds (a few hundred KB) stay in L2, so the sweep is
 // bound by operations.  Resident mode evaluates each pair twice (the row
 // sweep, then the moment sweep), which the bound does not count.  Three
@@ -97,6 +101,8 @@ enum Const {
   C_ELL_MIN,
   C_ELL_SHRINK,
   C_ELL_MAX_INIT,
+  C_COLOR_SCALE,
+  C_LINEAR,
   N_CONST
 };
 
@@ -265,6 +271,21 @@ __device__ __forceinline__ float box_gap(const float* xb, const float* yb) {
   return md;
 }
 
+// A_ij of the align's color mode (pallas_align.py:473-483, :805-824): the
+// full se gate, or the linear weight ci of features 0-2 (rounded in the
+// JAX order) gated on k >= sp_thres and the masks.  `linear` is uniform.
+__device__ __forceinline__ float pair_weight(bool linear, float d2,
+                                             const float* fx, float xm,
+                                             const float* fy, float ym,
+                                             const Shared& S) {
+  if (!linear) return cvo::pair_full(d2, fx, xm, fy, ym, S.scal);
+  if (!(xm > 0.0f && ym > 0.0f)) return 0.0f;
+  const float dot = __fadd_rn(
+      __fadd_rn(__fmul_rn(fx[0], fy[0]), __fmul_rn(fx[1], fy[1])),
+      __fmul_rn(fx[2], fy[2]));
+  return cvo::pair_linear(d2, __fmul_rn(S.c[C_COLOR_SCALE], dot), S.scal);
+}
+
 template <bool RESIDENT>
 __device__ void moment_item(const Args& a, Shared& S, int jb, int chunk) {
   const int nbi = a.n / TI, nbj = a.m / TJ;
@@ -276,6 +297,7 @@ __device__ void moment_item(const Args& a, Shared& S, int jb, int chunk) {
   for (int c = 0; c < cvo::NFEAT; ++c) fy[c] = a.yf[cvo::NFEAT * j + c];
   const float ymj = a.ym[j];
   const bool use_skip = !RESIDENT && a.xb != nullptr;
+  const bool linear = S.c[C_LINEAR] != 0.0f;
   if (use_skip) block_box(ty, ymj > 0.0f, S);
   const float skip_thres = S.scal[cvo::S_D2_THRES] + SKIP_MARGIN;
 
@@ -301,9 +323,11 @@ __device__ void moment_item(const Args& a, Shared& S, int jb, int chunk) {
     for (int ii = 0; ii < TI; ++ii) {
       const float d2 =
           cvo::sqdist3(S.x[0][ii], S.x[1][ii], S.x[2][ii], ty[0], ty[1], ty[2]);
-      const float w = cvo::pair_full(d2, S.f[ii], S.xm[ii], fy, ymj, S.scal);
-      if (w > 0.0f) {
-        ++cnt;
+      const float w = pair_weight(linear, d2, S.f[ii], S.xm[ii], fy, ymj, S);
+      // a linear weight may be negative: it enters the sums, and only
+      // w > 0 is counted
+      if (w != 0.0f) {
+        cnt += w > 0.0f;
 #pragma unroll
         for (int k = 0; k < NMOM; ++k) acc[k] = fmaf(w, S.phi[ii][k], acc[k]);
       }
@@ -325,6 +349,7 @@ __device__ void row_item(const Args& a, Shared& S, int rb) {
 #pragma unroll
   for (int c = 0; c < cvo::NFEAT; ++c) fx[c] = a.xf[cvo::NFEAT * i + c];
   const float xmi = a.xm[i];
+  const bool linear = S.c[C_LINEAR] != 0.0f;
   float sA = 0.0f, s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, sxy = 0.0f;
   for (int j0 = 0; j0 < a.m; j0 += TJ) {
     __syncthreads();
@@ -341,8 +366,8 @@ __device__ void row_item(const Args& a, Shared& S, int rb) {
     for (int jj = 0; jj < TJ; ++jj) {
       const float d2 = cvo::sqdist3(x0, x1, x2, S.y[0][jj], S.y[1][jj],
                                     S.y[2][jj]);
-      const float w = cvo::pair_full(d2, fx, xmi, S.yf[jj], S.ym[jj], S.scal);
-      if (w > 0.0f) {
+      const float w = pair_weight(linear, d2, fx, xmi, S.yf[jj], S.ym[jj], S);
+      if (w != 0.0f) {
         sA += w;
         s0 = fmaf(w, S.y[0][jj], s0);
         s1 = fmaf(w, S.y[1][jj], s1);

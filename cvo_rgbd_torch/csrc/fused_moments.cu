@@ -4,9 +4,12 @@
 // (_moments_body, A tile from pallas_gram.py:_pair_tile):
 //   Mom[j, k] = sum_i A_ij * Phi[i, k]   (35 monomials of x_i - c0)
 //   nnz       = #{(i, j) : A_ij > 0}
-// with A_ij gated on d2 < d2_thres, a > sp_thres and the masks, and an
+// with A_ij gated on d2 < d2_thres, a > sp_thres and the masks (se color
+// mode), or A_ij = ci_ij k_ij gated on k >= sp_thres with ci the masked
+// linear color weights (MATLAB's linear mode, ck holding ci), and an
 // exact AABB skip of (i-tile, j-block) pairs whose lower bound on d2
-// exceeds d2_thres + SKIP_MARGIN (such tiles hold only zeros).
+// exceeds d2_thres + SKIP_MARGIN (such tiles hold only zeros: k < sp_thres
+// there too, by a margin far above the fp32 rounding of k).
 //
 // Bound on the H100: per unskipped pair ~35 fp32 operations (d2, exp,
 // gate) plus 70 (35 FMAs) where the pair passes the gate, and 4 bytes
@@ -36,7 +39,7 @@ constexpr int TI = 64;    // i per shared-memory tile; must match ops/moments.py
 constexpr int NMOM = 35;  // monomials of degree <= 4 in 3 variables
 constexpr float SKIP_MARGIN = 1e-5f;
 
-template <bool USE_CK>
+template <bool USE_CK, bool LINEAR>
 __global__ void __launch_bounds__(TJ)
 moments_partial_kernel(const float* __restrict__ xp,
                        const float* __restrict__ xf,
@@ -99,14 +102,19 @@ moments_partial_kernel(const float* __restrict__ xp,
       const float d2 =
           cvo::sqdist3(s_x[0][ii], s_x[1][ii], s_x[2][ii], y0, y1, y2);
       float a;
-      if constexpr (USE_CK) {
+      if constexpr (LINEAR) {
+        a = cvo::pair_linear(d2, ck[static_cast<size_t>(i0 + ii) * m + j],
+                             scal);
+      } else if constexpr (USE_CK) {
         a = cvo::pair_cached(d2, ck[static_cast<size_t>(i0 + ii) * m + j],
                              scal);
       } else {
         a = cvo::pair_full(d2, s_f[ii], s_m[ii], fy, ymj, scal);
       }
-      if (a > 0.0f) {
-        ++cnt;
+      // a linear weight may be negative (features of either sign): it
+      // enters the moments, and only a > 0 is counted
+      if (a != 0.0f) {
+        cnt += a > 0.0f;
 #pragma unroll
         for (int k = 0; k < NMOM; ++k) acc[k] = fmaf(a, s_phi[ii][k], acc[k]);
       }
@@ -156,20 +164,26 @@ __global__ void moments_reduce_kernel(const float* __restrict__ part,
 }  // namespace
 
 // part: [n_chunks, 35, m] f32 scratch; nnz_part: [n_chunks, m / TJ] i32
-// scratch; mom: [m, 35] f32; nnz: [1] f32.  ck or md may be null.
+// scratch; mom: [m, 35] f32; nnz: [1] f32.  ck or md may be null; linear
+// mode needs ck (the masked ci).
 extern "C" int fused_moments_launch(
     const float* xp, const float* xf, const float* xm, const float* yp,
     const float* yf, const float* ym, const float* phi, const float* ck,
     const float* md, const float* scal, float* part, int* nnz_part,
     float* mom, float* nnz, int n, int m, int tiles_per_chunk, int n_chunks,
-    cudaStream_t stream) {
+    int linear, cudaStream_t stream) {
   const dim3 grid(m / TJ, n_chunks);
-  if (ck != nullptr) {
-    moments_partial_kernel<true><<<grid, TJ, 0, stream>>>(
+  if (linear) {
+    if (ck == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    moments_partial_kernel<true, true><<<grid, TJ, 0, stream>>>(
+        xp, xf, xm, yp, yf, ym, phi, ck, md, scal, part, nnz_part, n, m,
+        tiles_per_chunk);
+  } else if (ck != nullptr) {
+    moments_partial_kernel<true, false><<<grid, TJ, 0, stream>>>(
         xp, xf, xm, yp, yf, ym, phi, ck, md, scal, part, nnz_part, n, m,
         tiles_per_chunk);
   } else {
-    moments_partial_kernel<false><<<grid, TJ, 0, stream>>>(
+    moments_partial_kernel<false, false><<<grid, TJ, 0, stream>>>(
         xp, xf, xm, yp, yf, ym, phi, ck, md, scal, part, nnz_part, n, m,
         tiles_per_chunk);
   }

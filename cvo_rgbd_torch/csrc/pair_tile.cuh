@@ -3,7 +3,9 @@
 // exp_neg ports the JAX package's core/numerics.py:exp_neg (same constants,
 // same operation order, rintf rounds half to even like jnp.round), and
 // the pair_* functions port the JAX package's ops/pallas_gram.py:_pair_tile:
-// the gated kernel entry A_ij of one fixed point i and one moving point j.
+// the gated kernel entry A_ij of one fixed point i and one moving point j,
+// in the se color mode (color kernel recomputed or cached) and in MATLAB's
+// linear color mode.
 //
 // Numerics rules carried over from the JAX package: per-component d2
 // (never |x|^2+|y|^2-2x.y), and an accurate exp, never __expf.  Build
@@ -88,6 +90,15 @@ __device__ __forceinline__ float pair_full(float d2, const float* fx,
   const bool gate = d2 < s[S_D2_THRES] && d2c < s[S_D2_C_THRES] &&
                     a > s[S_SP_THRES] && xm > 0.0f && ym > 0.0f;
   return gate ? a : 0.0f;
+}
+
+// A_ij in MATLAB's linear color mode (rkhs_se3_registration.m:125-127): ci
+// is the pair's pre-masked linear color weight (zero where a mask fails),
+// the gate is on the position kernel alone, k >= sp_thres, with no d2 gate.
+__device__ __forceinline__ float pair_linear(float d2, float ci,
+                                             const float* s) {
+  const float k = s[S_S2] * exp_neg(d2 * s[S_INV_2L2]);
+  return k >= s[S_SP_THRES] ? ci * k : 0.0f;
 }
 
 }  // namespace cvo

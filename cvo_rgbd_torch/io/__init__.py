@@ -1,1 +1,1 @@
-"""TUM RGB-D file formats."""
+"""File formats: TUM RGB-D text files, PCD clouds, PLY export."""

@@ -4,6 +4,8 @@
 - `moments.fused_moments` (csrc/fused_moments.cu): the per-iteration
   moment sweep.
 - `wsq.fused_wsq` (csrc/fused_wsq.cu): the adaptive self-kernel sweep.
+- `flow.fused_flow` and `flow.fused_step_coeffs` (csrc/fused_flow.cu): the
+  two sweeps of the two-pass step (kernel backend, `step_mode="direct"`).
 - `align_fused.align_fused` (csrc/align_fused.cu): the whole align loop,
   one launch per align.
 
@@ -12,8 +14,10 @@ it launches its kernel or raises.  `wrapper.launches` counts launches.
 """
 
 from cvo_rgbd_torch.ops.align_fused import align_fused
+from cvo_rgbd_torch.ops.flow import fused_flow, fused_step_coeffs
 from cvo_rgbd_torch.ops.gram import color_gram
 from cvo_rgbd_torch.ops.moments import fused_moments
 from cvo_rgbd_torch.ops.wsq import fused_wsq
 
-__all__ = ["align_fused", "color_gram", "fused_moments", "fused_wsq"]
+__all__ = ["align_fused", "color_gram", "fused_flow", "fused_moments",
+           "fused_step_coeffs", "fused_wsq"]

@@ -19,7 +19,8 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
-KERNELS = ("color_gram", "fused_moments", "fused_wsq", "align_fused")
+KERNELS = ("color_gram", "fused_moments", "fused_wsq", "align_fused",
+           "fused_flow")
 
 # No --use_fast_math: it turns expf into __expf and flushes denormals,
 # and the Gram needs the accurate exp (csrc/pair_tile.cuh).
@@ -35,7 +36,7 @@ _I = ctypes.c_int
 SIGNATURES = {
     "color_gram": ("color_gram_launch", [_P] * 6 + [_I, _I, _P]),
     "fused_moments": (
-        "fused_moments_launch", [_P] * 14 + [_I, _I, _I, _I, _P]
+        "fused_moments_launch", [_P] * 14 + [_I] * 5 + [_P]
     ),
     "fused_wsq": ("fused_wsq_launch", [_P] * 12 + [_I, _I, _I, _I, _P]),
     "align_fused_tiled": (
@@ -44,11 +45,14 @@ SIGNATURES = {
     "align_fused_resident": (
         "align_fused_resident_launch", [_P] * 23 + [_I] * 6 + [_P]
     ),
+    "fused_flow": ("fused_flow_launch", [_P] * 11 + [_I] * 5 + [_P]),
+    "fused_step_coeffs": ("fused_step_launch", [_P] * 11 + [_I] * 5 + [_P]),
 }
 # entry points that live in another source's library
 LIBRARY = {
     "align_fused_tiled": "align_fused",
     "align_fused_resident": "align_fused",
+    "fused_step_coeffs": "fused_flow",
 }
 
 

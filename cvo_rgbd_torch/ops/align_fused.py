@@ -23,7 +23,10 @@ each mode:
   `p.tile_skip` is on.
 
 Both modes take the line-search coefficients from the moment matrix
-Mom = A^T Phi(x - c0) (:556-605, 1056-1119).  The color kernel is
+Mom = A^T Phi(x - c0) (:556-605, 1056-1119).  In MATLAB's linear color
+mode (cvo only, 3 color features in the kernel's 5 planes, the rest
+zero) A = ci * k with ci = color_scale * (xf . yf) formed per pair and
+the gate k >= sp_thres (:413-415, 477-479, 811-816).  The color kernel is
 recomputed in the kernel and the self sums are always swept exactly, so
 `ck_cache` and `self_mode` do not apply here.
 """
@@ -61,7 +64,8 @@ OUT_LEN = 33
 # per-align constants (csrc/align_fused.cu enum Const)
 (C_S2, C_CS2, C_INV2CL2, C_D2_C_THRES, C_THRES_C, C_SP_THRES, C_INV_C,
  C_INV_D, C_EPS, C_EPS_2, C_MIN_STEP, C_MAX_STEP, C_MAX_ITER, C_DL_STEP,
- C_ELL_MIN, C_ELL_SHRINK, C_ELL_MAX_INIT, N_CONST) = range(18)
+ C_ELL_MIN, C_ELL_SHRINK, C_ELL_MAX_INIT, C_COLOR_SCALE, C_LINEAR,
+ N_CONST) = range(20)
 
 
 def _shift_table():
@@ -85,12 +89,12 @@ SHIFT_TABLE = _shift_table()
 
 def fused_mode(p, fixed: PointCloud, moving: PointCloud):
     """None (not eligible), "resident" or "tiled", with the thresholds
-    of the JAX package's `_fused_mode` (pallas_align.py:1201-1234)."""
+    of the JAX package's `_fused_mode` (pallas_align.py:1201-1234) but
+    its feature count, which `fused_eligible` checks on the clouds align
+    is given (it pads them before the launch)."""
     n, m = fixed.positions.shape[0], moving.positions.shape[0]
     adaptive = isinstance(p, AcvoParams)
     if adaptive and (p.yy_quirk or p.color_mode != "se"):
-        return None
-    if p.color_mode == "linear" and fixed.features.shape[1] != 3:
         return None
     if adaptive:
         if n % 128 == 0 and m % 128 == 0 and (
@@ -105,7 +109,11 @@ def fused_mode(p, fixed: PointCloud, moving: PointCloud):
 
 
 def fused_eligible(p, fixed: PointCloud, moving: PointCloud) -> bool:
-    """True when `align_fused` can run this problem (see `fused_mode`)."""
+    """True when `align_fused` can run this problem (see `fused_mode`).
+    In linear color mode the clouds must carry the 3 colors the kernel
+    forms the CI from, as in the JAX package's `_fused_mode`."""
+    if p.color_mode == "linear" and fixed.features.shape[1] != 3:
+        return False
     return fused_mode(p, fixed, moving) is not None
 
 
@@ -114,7 +122,8 @@ def constants(p) -> list:
     package's order (pallas_align.py:362-386).  The ell-dependent
     thresholds 1/(2 ell^2) and thres_c ell^2 are formed every iteration
     from the current ell, in the kernel as in the plain version.  cvo's
-    ell schedule, of any length, goes to the kernel as its own array."""
+    ell schedule, of any length, goes to the kernel as its own array.
+    Linear color mode sets C_LINEAR and C_COLOR_SCALE."""
     adaptive = isinstance(p, AcvoParams)
     s2 = float(p.sigma) ** 2
     cs2 = float(p.c_sigma) ** 2
@@ -135,12 +144,22 @@ def constants(p) -> list:
         c[C_ELL_MAX_INIT] = float(p.ell_max_init)
     else:
         c[C_ELL_MAX_INIT] = 1e9
+    if p.color_mode == "linear":
+        c[C_COLOR_SCALE], c[C_LINEAR] = float(p.color_scale), 1.0
     return c
 
 
 def _gated(k, xp, xf, xm, yp, yf, ym, ell):
     """(A, d2) of the gated Gram at `ell` (pallas_align.py:805-824)."""
     d2 = pairwise_sqdist(xp, yp)
+    if k[C_LINEAR]:
+        ci = k[C_COLOR_SCALE] * (xf[:, None, 0] * yf[None, :, 0]
+                                 + xf[:, None, 1] * yf[None, :, 1]
+                                 + xf[:, None, 2] * yf[None, :, 2])
+        kmat = k[C_S2] * exp_neg(d2 * (1.0 / (2.0 * ell * ell)))
+        gate = ((kmat >= k[C_SP_THRES]) & (xm[:, None] > 0)
+                & (ym[None, :] > 0))
+        return torch.where(gate, ci * kmat, 0.0), d2
     d2c = pairwise_sqdist(xf, yf)
     ck = k[C_CS2] * exp_neg(d2c * k[C_INV2CL2])
     a = k[C_S2] * exp_neg(d2 * (1.0 / (2.0 * ell * ell))) * ck

@@ -67,6 +67,25 @@ def color_gram_plain(xf, xm, yf, ym, scal):
     return torch.where(gate, ck, 0.0)
 
 
+def pad_feat(feat):
+    """Features zero-padded to the kernels' NFEAT planes (the JAX
+    package's _pad_feat), once per align (`core.registration.align`):
+    linear-mode clouds carry 3 color features."""
+    k = feat.shape[-1]
+    if k == NFEAT:
+        return feat
+    return torch.cat([feat, feat.new_zeros(feat.shape[:-1] + (NFEAT - k,))],
+                     dim=-1)
+
+
+def linear_mode(name, p, ck) -> bool:
+    """True in MATLAB's linear color mode, which needs the ci cache."""
+    linear = p.color_mode == "linear"
+    if linear and ck is None:
+        raise ValueError(f"{name}: linear color mode requires the ci cache")
+    return linear
+
+
 def check_inputs(name, tensors, device):
     for t in tensors:
         if t.device != device or t.dtype != torch.float32 or not t.is_contiguous():

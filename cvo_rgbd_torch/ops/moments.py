@@ -5,7 +5,9 @@
     Mom[j, k] = sum_i A_ij Phi[i, k]     [M, 35]
     nnz       = #{A_ij > 0}
 
-with A the gated Gram of the centered clouds.  Every reduction of an
+with A the gated Gram of the centered clouds (se color mode), or in
+MATLAB's linear color mode A = ci * k gated on k >= sp_thres, with `ck`
+holding the masked ci of the pair.  Every reduction of an
 iteration (flow, line-search coefficients) is then an O(M) epilogue
 (core/moments.py).  On a CUDA tensor the wrapper launches the
 hand-written kernel `csrc/fused_moments.cu` (or raises); on a CPU tensor
@@ -33,6 +35,7 @@ from cvo_rgbd_torch.ops.gram import (
     check_cloud,
     check_inputs,
     color_terms,
+    linear_mode,
     scalars,
 )
 
@@ -48,17 +51,26 @@ SKIP_MARGIN = 1e-5
 TARGET_BLOCKS = 1024
 
 
-def pair_weights(xp, xf, xm, yp, yf, ym, scal, ck=None):
+def pair_weights(xp, xf, xm, yp, yf, ym, scal, ck=None, linear=False):
     """The gated [N,M] Gram A (port of pallas_gram.py:_pair_tile),
     per-component d2 in difference form.  The exponentials are taken
-    only where the position gate d2 < d2_thres passes: every other entry
-    is zero in any case, and the values kept are the same bits."""
+    only where the position gate can pass: every other entry is zero in
+    any case, and the values kept are the same bits.  In linear mode (ck
+    the masked ci) the gate is k >= sp_thres alone, which a pair a hair
+    beyond d2_thres can pass in fp32, so k is taken out to d2_thres +
+    SKIP_MARGIN, where it is far below sp_thres."""
     d2 = pairwise_sqdist(xp, yp)
-    near = d2 < scal[S_D2_THRES]
+    if linear:
+        near = d2 <= scal[S_D2_THRES] + SKIP_MARGIN
+    else:
+        near = d2 < scal[S_D2_THRES]
     ii, jj = near.nonzero(as_tuple=True)
     d2n = d2[ii, jj]
     k = scal[S_S2] * exp_neg(d2n * scal[S_INV_2L2])
-    if ck is not None:
+    if linear:
+        a = ck[ii, jj] * k
+        gate = k >= scal[S_SP_THRES]
+    elif ck is not None:
         a = k * ck[ii, jj]
         gate = a > scal[S_SP_THRES]
     else:
@@ -76,10 +88,10 @@ def pair_weights(xp, xf, xm, yp, yf, ym, scal, ck=None):
 
 
 def fused_moments_plain(xp, xf, xm, yp, yf, ym, phi, scal, ck=None,
-                        min_d2=None):
+                        min_d2=None, linear=False):
     """Plain torch version of the kernel: the dense gated A, tiles the
     bound rules out set to zero, then A^T Phi and the nonzero count."""
-    A = pair_weights(xp, xf, xm, yp, yf, ym, scal, ck)
+    A = pair_weights(xp, xf, xm, yp, yf, ym, scal, ck, linear)
     if min_d2 is not None:
         keep = min_d2 <= scal[S_D2_THRES] + SKIP_MARGIN
         keep = keep.repeat_interleave(TILE_I, 0).repeat_interleave(TILE_J, 1)
@@ -101,8 +113,10 @@ def fused_moments(xp, xf, xm, yp, yf, ym, phi, ell, ck=None, min_d2=None,
 
     `xp`/`yp` are the CENTERED positions (x - c0, y - c0); `phi` is
     core.step_factored.monomial_features(x - c0) [N, 35]; `ell` a 0-dim
-    f32 tensor; `ck` the color_gram cache or None (recompute);
-    `min_d2` [N/TILE_I, M/TILE_J] tile bounds or None (no skip)."""
+    f32 tensor; `ck` the color_gram cache or None (recompute), in linear
+    color mode the masked ci (required); `min_d2` [N/TILE_I, M/TILE_J]
+    tile bounds or None (no skip)."""
+    linear = linear_mode("fused_moments", p, ck)
     check_cloud("fused_moments", xp, xf, xm)
     check_cloud("fused_moments", yp, yf, ym)
     n, m = xp.shape[0], yp.shape[0]
@@ -123,14 +137,15 @@ def fused_moments(xp, xf, xm, yp, yf, ym, phi, ell, ck=None, min_d2=None,
     scal = scalars(ell, p)
     if dev.type == "cpu":
         return fused_moments_plain(xp, xf, xm, yp, yf, ym, phi, scal, ck,
-                                   min_d2)
+                                   min_d2, linear)
     if dev.type != "cuda":
         raise ValueError(f"fused_moments: unsupported device {dev}")
-    return fused_moments_cuda(xp, xf, xm, yp, yf, ym, phi, scal, ck, min_d2)
+    return fused_moments_cuda(xp, xf, xm, yp, yf, ym, phi, scal, ck, min_d2,
+                              linear)
 
 
 def fused_moments_cuda(xp, xf, xm, yp, yf, ym, phi, scal, ck=None,
-                       min_d2=None):
+                       min_d2=None, linear=False):
     """Launch csrc/fused_moments.cu on CUDA tensors (shapes checked by
     `fused_moments`); counts one launch in `fused_moments.launches`."""
     dev = xp.device
@@ -152,7 +167,7 @@ def fused_moments_cuda(xp, xf, xm, yp, yf, ym, phi, scal, ck=None,
         None if ck is None else ck.data_ptr(),
         None if min_d2 is None else min_d2.data_ptr(),
         scal.data_ptr(), part.data_ptr(), nnz_part.data_ptr(),
-        mom.data_ptr(), nnz.data_ptr(), n, m, per, n_chunks,
+        mom.data_ptr(), nnz.data_ptr(), n, m, per, n_chunks, int(linear),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check("fused_moments", err)

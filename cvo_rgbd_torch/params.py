@@ -1,7 +1,7 @@
 """Frozen hyperparameter sets for CVO and Adaptive CVO.
 
-Every field and default of the JAX package's `params.py`, so one kwargs
-set builds both.  Defaults reproduce the reference constants:
+Every field and default of the JAX package's `params.py`, so its kwargs
+build these.  Defaults reproduce the reference constants:
 - CvoParams     <- cvo.cpp:25-41
 - AcvoParams    <- adaptive_cvo.cpp:25-43
 
@@ -42,13 +42,16 @@ class CvoParams:
     # ell schedule: k>2 -> 0.10, k>9 -> 0.06, k>19 -> 0.03 (cvo.cpp:408-410)
     ell_sched: tuple = ((2, 0.10), (9, 0.06), (19, 0.03))
     # "se": squared-exponential on 5-dim features (cvo.cpp:143-153);
-    # "linear": MATLAB's linear color inner product (not ported yet)
+    # "linear": MATLAB's linear color inner product CI = color_scale *
+    # Cx Cz^T, once per pair (rkhs_se3_registration.m:40-53, 125-127)
     color_mode: str = "se"
     backend: str = "kernel"
     # kernel backend: cache the loop-invariant color kernel as an [N,M]
     # f32 tensor per pair; False recomputes it inside the moment kernel
     ck_cache: bool = True
-    # dense backend only: "factored" or "direct" line-search reduction
+    # "factored": the line search (and, on the kernel backend, the flow)
+    # from moments of the Gram; "direct": per-pair fields (cvo.cpp:164-289)
+    # -- on the kernel backend the two sweeps fused_flow, fused_step_coeffs
     step_mode: str = "factored"
     # "precise": the accurate exp_neg of core/numerics.py, required for
     # the C++ stops; "fast" (hardware exp) is not ported yet
@@ -85,6 +88,8 @@ class AcvoParams:
     eps: float = 5e-5           # (adaptive_cvo.cpp:42)
     eps_2: float = 1e-5         # (adaptive_cvo.cpp:43)
     ell_shrink: float = 0.7     # ceiling shrink factor (adaptive_cvo.cpp:542-543)
+    # "linear" (MATLAB's CI, scaled by ACVO_COLOR_SCALE): dense backend
+    # only (the fused one routes it there, the kernel one refuses it)
     color_mode: str = "se"
     # reference quirk (adaptive_cvo.cpp:190, 256): Ayy rows i < num_fixed
     # read a zero buffer; dense backend only
@@ -98,6 +103,17 @@ class AcvoParams:
     # interpolates per-align Chebyshev tables of the four reductions
     self_mode: str = "exact"
     self_cheb_k: int = 12
+
+
+# linear color mode's CI scale in acvo.  The JAX package's AcvoParams has
+# no color_scale field, so its linear acvo stops on the missing field
+# (ROADMAP queue 3); the port takes cvo's reference value (cvo.cpp:30).
+ACVO_COLOR_SCALE = 1e-5
+
+
+def color_scale(p) -> float:
+    """The linear color-kernel scale of a CvoParams or AcvoParams."""
+    return ACVO_COLOR_SCALE if isinstance(p, AcvoParams) else p.color_scale
 
 
 # MATLAB prototype parameter set (rkhs_se3_registration.m:7-36).

@@ -1,0 +1,5 @@
+"""Host-side point-cloud preprocessing (numpy)."""
+
+from cvo_rgbd_torch.utils.downsample import grid_downsample, range_filter
+
+__all__ = ["grid_downsample", "range_filter"]

@@ -91,7 +91,6 @@ def test_empty_moving_cloud_converges_at_iteration_zero():
 
 @pytest.mark.parametrize("params", [
     ct.AcvoParams(exp_mode="fast"),
-    ct.MATLAB_PARAMS,
     ct.CvoParams(exp_mode="fast"),
 ])
 def test_unported_configurations_raise(params):
@@ -121,3 +120,10 @@ def test_params_from_jax_dict_maps_backends():
         assert got == ct.CvoParams(backend=tb, eps=1e-4)
     got = params_from_jax_dict(dataclasses.asdict(JA(backend="pallas")))
     assert got == ct.AcvoParams()
+    # MATLAB_PARAMS maps to the port's, the backend renamed
+    from cvo_rgbd_tpu.params import MATLAB_PARAMS as J_MATLAB
+
+    for jb, tb in (("xla", "dense"), ("pallas", "kernel"), ("fused", "fused")):
+        got = params_from_jax_dict(
+            dataclasses.asdict(dataclasses.replace(J_MATLAB, backend=jb)))
+        assert got == dataclasses.replace(ct.MATLAB_PARAMS, backend=tb)

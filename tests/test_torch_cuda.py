@@ -303,3 +303,157 @@ def test_fused_align_on_card_matches_cpu(dev, algo, mode):
     assert (gpu.tf.cpu() - cpu.tf).abs().max().item() <= 3e-4
     it_g, it_c = int(gpu.iterations), int(cpu.iterations)
     assert abs(it_g - it_c) <= max(2, 0.25 * it_c)
+
+
+def _linear_clouds(dev, n=1000, cap=1024, seed=5):
+    """A kd-sorted pair with 3 color features (MATLAB's linear mode) and
+    the pair's masked ci, as the kernel backend builds it."""
+    from cvo_rgbd_torch import pad_cloud
+    from cvo_rgbd_torch.core.cloud import kd_sort
+    from cvo_rgbd_torch.core.registration import prepare_ci
+    from cvo_rgbd_torch.params import MATLAB_PARAMS
+
+    rng = np.random.default_rng(seed)
+    pos = rng.random((n, 3)) * np.array([2.0, 1.5, 1.0]) + np.array(
+        [-1.0, -0.7, 1.0])
+    col = rng.random((n, 3)) * 255.0
+    y = pos + rng.normal(0.0, 0.01, pos.shape)
+    x = kd_sort(pad_cloud(pos, col, cap, device=dev))
+    y = kd_sort(pad_cloud(y, col, cap, device=dev))
+    return x, y, prepare_ci(MATLAB_PARAMS, x, y)
+
+
+def _padded(cloud):
+    """The cloud's features zero-padded to the kernels' 5 planes, as
+    `align` pads them."""
+    from cvo_rgbd_torch.ops.gram import pad_feat
+
+    return cloud._replace(features=pad_feat(cloud.features))
+
+
+def _flow_inputs(dev, mode):
+    """(fixed, moving, ck, params) of a sweep in `mode`."""
+    from cvo_rgbd_torch.ops import gram
+    from cvo_rgbd_torch.params import MATLAB_PARAMS, CvoParams
+
+    if mode == "linear":
+        x, y, ci = _linear_clouds(dev)
+        return _padded(x), _padded(y), ci, MATLAB_PARAMS
+    x, y = _clouds(dev)
+    p = CvoParams()
+    return x, y, gram.color_gram(*x, *y, p=p) if mode == "se_ck" else None, p
+
+
+def _close(got, ref, tol=1e-4):
+    """|got - ref| within tol of |ref| (the norm for a vector)."""
+    return (got - ref).norm().item() <= tol * ref.norm().item()
+
+
+@pytest.mark.parametrize("ell", [0.1, 0.03])
+@pytest.mark.parametrize("mode", ["se", "se_ck", "linear"])
+def test_fused_flow_kernel_matches_plain(dev, mode, ell):
+    from cvo_rgbd_torch.ops import flow, gram
+
+    x, y, ck, p = _flow_inputs(dev, mode)
+    scal = gram.scalars(torch.full((), ell, device=dev), p)
+    args = (*x, *y, scal, ck, mode == "linear")
+    launches = flow.fused_flow.launches
+    out = flow.fused_flow_cuda(*args)
+    assert flow.fused_flow.launches == launches + 1
+    ref = flow.fused_flow_plain(*args)
+    # fp32 sums in another order: omega*c, v*d, sum A d2 and sum A within
+    # 1e-4 of their magnitude; the gates agree pair by pair
+    assert out[8].item() == ref[8].item() > 0
+    for sl in (slice(0, 3), slice(3, 6), slice(6, 7), slice(7, 8)):
+        assert _close(out[sl], ref[sl]), (sl, out, ref)
+
+
+@pytest.mark.parametrize("ell", [0.1, 0.03])
+@pytest.mark.parametrize("mode", ["se", "se_ck", "linear"])
+def test_fused_step_coeffs_kernel_matches_plain(dev, mode, ell):
+    from cvo_rgbd_torch.ops import flow, gram
+
+    x, y, ck, p = _flow_inputs(dev, mode)
+    ell_t = torch.full((), ell, device=dev)
+    om, v, *_ = flow.fused_flow(*x, *y, ell_t, ck, p=p)
+    scal = gram.scalars(ell_t, p)
+    wv = torch.cat([om, v])
+    args = (*x, *y, scal, wv, ck, mode == "linear")
+    launches = flow.fused_step_coeffs.launches
+    out = flow.fused_step_coeffs_cuda(*args)
+    assert flow.fused_step_coeffs.launches == launches + 1
+    ref = flow.fused_step_coeffs_plain(*args)
+    for q in range(4):   # B, C, D, E: one fp32 sum in another order
+        assert _close(out[q], ref[q]), (q, out, ref)
+
+
+@pytest.mark.parametrize("ell", [0.15, 0.03])
+def test_fused_moments_linear_kernel_matches_plain(dev, ell):
+    from cvo_rgbd_torch.core.cloud import aabb_min_d2, block_bounds
+    from cvo_rgbd_torch.core.registration import build_moments_pre
+    from cvo_rgbd_torch.ops import gram, moments
+    from cvo_rgbd_torch.params import MATLAB_PARAMS
+
+    x, y, ci = _linear_clouds(dev)
+    x, y = _padded(x), _padded(y)
+    c0, xc, phi = build_moments_pre(x)
+    yc = y.positions - c0
+    md = aabb_min_d2(*block_bounds(x.positions, x.mask, moments.TILE_I),
+                     *block_bounds(y.positions, y.mask, moments.TILE_J))
+    ell_t = torch.full((), ell, device=dev)
+    ref, ref_nnz = moments.fused_moments_plain(
+        xc, x.features, x.mask, yc, y.features, y.mask, phi,
+        gram.scalars(ell_t, MATLAB_PARAMS), ci, None, True)
+    out = {}
+    for skip in (None, md):
+        mom, nnz = moments.fused_moments(xc, x.features, x.mask, yc,
+                                         y.features, y.mask, phi, ell_t, ci,
+                                         skip, p=MATLAB_PARAMS)
+        out[skip is None] = (mom, float(nnz))
+        scale = ref.abs().amax(dim=0).clamp_min(1e-30)
+        assert ((mom - ref).abs() / scale).max().item() <= 1e-4
+        assert float(nnz) == float(ref_nnz) > 0
+    assert torch.equal(out[True][0], out[False][0])
+    assert out[True][1] == out[False][1]
+
+
+@pytest.mark.parametrize("max_iter", [1, 3, 10])
+@pytest.mark.parametrize("mode,cap", [("resident", 1024), ("tiled", 1152)])
+def test_align_fused_linear_kernel_matches_plain(dev, mode, cap, max_iter):
+    import dataclasses
+
+    import cvo_rgbd_torch as ct
+    from cvo_rgbd_torch.ops.align_fused import (
+        align_fused_cuda,
+        align_fused_plain,
+        fused_mode,
+    )
+
+    x, y, _ = _linear_clouds(dev, n=cap - 24, cap=cap, seed=6)
+    p = dataclasses.replace(ct.MATLAB_PARAMS, backend="fused",
+                            max_iter=max_iter, eps=0.0, eps_2=0.0)
+    assert fused_mode(p, x, y) == mode
+    x, y = _padded(x), _padded(y)
+    row = align_fused_cuda(p, x, y)
+    ref = align_fused_plain(p, x, y)
+    assert row[24].item() == ref[24].item() == max_iter
+    tol = 1e-5 if max_iter <= 3 else 1e-4
+    assert (row[12:] - ref[12:]).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("backend,step_mode", [
+    ("kernel", "factored"), ("kernel", "direct"), ("dense", "factored"),
+    ("fused", "factored")])
+def test_matlab_align_on_card_matches_cpu(dev, backend, step_mode):
+    import dataclasses
+
+    import cvo_rgbd_torch as ct
+
+    x, y, _ = _linear_clouds(dev, n=500, cap=512, seed=7)
+    p = dataclasses.replace(ct.MATLAB_PARAMS, backend=backend,
+                            step_mode=step_mode)
+    gpu = ct.align(p, x, y)
+    cpu = ct.align(p, x.to("cpu"), y.to("cpu"), device="cpu")
+    assert bool(gpu.converged) and bool(cpu.converged)
+    # the JAX suite's stop-skew tolerance (tests/test_parallel.py:217)
+    assert (gpu.tf.cpu() - cpu.tf).abs().max().item() <= 3e-4

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 import cvo_rgbd_torch
-from cvo_rgbd_torch.ops import _build, gram, moments, wsq
+from cvo_rgbd_torch.ops import _build, flow, gram, moments, wsq
 from cvo_rgbd_torch.ops.align_fused import align_fused, align_fused_cuda
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -103,11 +103,16 @@ def test_wrappers_never_fall_back():
     a launch, and any device that is neither CPU nor CUDA is refused."""
     for fn in (gram.color_gram, gram.color_gram_cuda, moments.fused_moments,
                moments.fused_moments_cuda, wsq.fused_wsq, wsq.fused_wsq_cuda,
-               align_fused, align_fused_cuda, _build.entry, _build.check):
+               align_fused, align_fused_cuda, flow.fused_flow,
+               flow.fused_flow_cuda, flow.fused_step_coeffs,
+               flow.fused_step_coeffs_cuda, _build.entry, _build.check):
         tree = ast.parse(inspect.getsource(fn).lstrip())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), fn
     meta = [torch.empty((128, k), device="meta") for k in (3, 5)]
     mask = torch.empty(128, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         gram.color_gram(meta[0], meta[1], mask, meta[0], meta[1], mask,
+                        p=cvo_rgbd_torch.CvoParams())
+    with pytest.raises(ValueError, match="unsupported device"):
+        flow.fused_flow(meta[0], meta[1], mask, meta[0], meta[1], mask, 0.1,
                         p=cvo_rgbd_torch.CvoParams())
