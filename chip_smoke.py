@@ -49,11 +49,34 @@ and prints no result line):
    `step_mode="direct"` (`fused_flow` and `fused_step_coeffs` each
    iteration), each scored against the exact relative ground truth; one
    small linear pair on the card and on the CPU; `cli stitch`.  3d and
-   3e take the linear pairs at the batch's capacity for the grid.
+   3e take the linear pairs at the batch's capacity for the grid;
+7. the construct probes: `python -m cvo_rgbd_torch.probes` (its `main`)
+   with the launch counts read around it, then each toy case of
+   `csrc/construct_probe.cu` against its plain version (exact; e within
+   1e-6 relative) and its closed form, each timed, and the four tiled
+   aligns against `align_fused_plain(mode="tiled")` (equal iterations, tf
+   within 1e-5);
+8. batched fused registration: the 9 pcd pairs of 6 stacked 7 times (63
+   lanes) at both grids through `parallel.align_batched`: exactly one
+   `align_fused` launch a batch, every lane the bits of `align` on its
+   pair alone, pairs/s batched against the same 63 aligns one by one,
+   device busy share and launches from a profile of one batch, and the
+   batched launch against the plain version lane by lane (after 1
+   iteration every output within 1e-5; after 10 R, T and ell within
+   1e-4, and the 10th iteration's tf, R, T, omega and v within 1e-5 of
+   one plain step from the kernel's state after 9);
+   8b. `run_odometry_batched(batch=9)` over the render on
+   the fused backend (cvo and acvo, 3072, tiled) and on the kernel
+   backend (cvo), each against `run_odometry_frames(warm_start=False)`
+   in the same run, and `run_multiseq` over the render written as a TUM
+   folder and a 2-frame prefix of it (ragged lanes), each lane against
+   its solo run.
 
 The line before last is a JSON object with each kernel's launches on
 the main paths together, its error against the plain version, its
-time, the plain version's time and its bound; the last line is
+time, the plain version's time and its bound (the batched rows of
+`align_fused`: a 63-lane launch of exactly 10 iterations, and their
+launches those of phases 8 and 8b); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -97,6 +120,9 @@ OPS_STEP_COLUMN = 80
 PER_ITER = ("color_gram", "fused_moments", "fused_wsq")
 KERNELS = PER_ITER + ("fused_flow", "fused_step_coeffs")
 FUSED = ("align_fused_tiled", "align_fused_resident")
+PROBE = "construct_probe"
+# the batched launches of the fused kernel, one row each in the kernel line
+BATCHED = ("align_fused_tiled_batched", "align_fused_resident_batched")
 FUSED_ITERS = (1, 3, 10)
 # capacity of the resident-mode odometry run: N = M = 1024 is within
 # both resident budgets (cvo N*M <= 2^20, acvo N*M + N^2 + M^2 <= 3*2^20)
@@ -117,6 +143,30 @@ ALIGN_SPIN_CYCLES = 20_000_000
 # the MATLAB batch runner's grid (rgbddataset_rkhs.m:40-47), and a finer
 # one whose clouds run tiled on the fused backend
 BATCH_GRID, FINE_GRID = 0.05, 0.015
+# phase 8: the 9 pcd pairs stacked 7 times, 63 lanes
+LANE_REPEAT = 7
+# phase 8b: pairs per batched call (the render's 9 pairs in one batch)
+ODOM_BATCH = 9
+# fp32 operations of each toy probe case (csrc/construct_probe.cu): e's
+# 3 x [8, 128] dots of depth 256 (an FMA is 2), j's 256 x 256
+# difference, square and sum (4 with the scaling), one or two for the rest
+PROBE_OPS = {"e": 3 * 8 * 128 * 256 * 2, "j": 256 * 256 * 4}
+# the parts of its inputs each probe's [8, 128] result depends on (the
+# plain versions of probes.py), as (input, (rows, columns)): what the
+# function must read, whatever the kernel reads besides
+_ALL, _ROW0 = slice(None), slice(0, 1)
+_OUT_BLOCK = (0, (slice(0, 8), slice(0, 128)))
+PROBE_READS = {
+    "a": (_OUT_BLOCK,), "b": (_OUT_BLOCK,), "b2": (_OUT_BLOCK,),
+    "c": ((0, (_ROW0, _ROW0)), (0, (_ROW0, slice(159, 160)))),
+    "d": ((0, (_ROW0, _ROW0)),),
+    "e": ((0, (_ROW0, _ROW0)), (1, (_ALL, slice(0, 8))),
+          (2, (_ALL, slice(0, 128)))),
+    "h": ((0, (slice(256, 512), _ALL)),),
+    "i": ((0, (_ALL, slice(256, 512))),),
+    "j": ((0, (slice(256, 512), _ALL)), (1, (_ALL, slice(256, 512)))),
+    "k": (),
+}
 
 
 def log(msg):
@@ -337,12 +387,13 @@ def phase_wsq(fixed, moving, p):
     return out
 
 
-def fused_bound(counts, x, y):
+def fused_bound(counts, x, y, lanes=1):
     """(bound ms, bound_by) of align_fused over the pairs its plain
-    version counted: each pair the function needs, once an iteration
-    (the flow and the line search both come from momT), its color kernel
-    recomputed.  Resident mode's second sweep over the same pairs is the
-    kernel's cost, not the function's, and is not counted."""
+    version counted (over every lane): each pair the function needs, once
+    an iteration (the flow and the line search both come from momT), its
+    color kernel recomputed; each lane's clouds and result moved once.
+    Resident mode's second sweep over the same pairs is the kernel's
+    cost, not the function's, and is not counted."""
     from cvo_rgbd_torch.ops.align_fused import OUT_LEN
     from cvo_rgbd_torch.ops.moments import NUM_MONO
 
@@ -351,7 +402,7 @@ def fused_bound(counts, x, y):
             + counts.get("self_pairs", 0) * per_pair
             + counts.get("self_gated", 0) * OPS_WSQ_GATED)
     n, m = x.capacity, y.capacity
-    nbytes = ((n + m) * 9 + n * NUM_MONO + OUT_LEN) * 4
+    nbytes = ((n + m) * 9 + n * NUM_MONO + OUT_LEN) * 4 * lanes
     return bound(nbytes, nops)
 
 
@@ -642,7 +693,7 @@ def phase_matlab(root, frames):
 
     gt = relative_gt(frames)
     n = len(gt)
-    total = {k: 0 for k in KERNELS + FUSED}
+    total = {k: 0 for k in KERNELS + FUSED + (PROBE,)}
     routes = (
         ("kernel", None),
         ("fused", dataclasses.replace(MATLAB_PARAMS, backend="fused")),
@@ -705,17 +756,20 @@ def fused_by_mode(launches, mode):
 
 
 def reset_launches():
-    from cvo_rgbd_torch import ops
+    from cvo_rgbd_torch import ops, probes
 
     for name in KERNELS + ("align_fused",):
         getattr(ops, name).launches = 0
+    probes.construct_probe.launches = 0
 
 
 def read_launches():
-    from cvo_rgbd_torch import ops
+    from cvo_rgbd_torch import ops, probes
 
-    return {name: getattr(ops, name).launches
-            for name in KERNELS + ("align_fused",)}
+    out = {name: getattr(ops, name).launches
+           for name in KERNELS + ("align_fused",)}
+    out["construct_probe"] = probes.construct_probe.launches
+    return out
 
 
 def phase_align(fixed, moving, p, small=None, skew=0.1):
@@ -839,9 +893,6 @@ def phase_fused_timing(fixed, moving, p, kernel_ms_iter):
     kernel backend's host ms/iteration; then one whole align (kd-sort
     and precompute included) on CUDA events and under torch.profiler:
     launches per align and the device's busy share."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
     from cvo_rgbd_torch import align
     from cvo_rgbd_torch.core.cloud import kd_sort
     from cvo_rgbd_torch.ops.align_fused import align_fused_cuda
@@ -854,23 +905,10 @@ def phase_fused_timing(fixed, moving, p, kernel_ms_iter):
                         spin=ALIGN_SPIN_CYCLES)
     slope = (t[60] - t[10]) / 50
     whole_ms = time_ms(lambda: align(p, fixed, moving))
-    align(p, fixed, moving)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        res = align(p, fixed, moving)
-        torch.cuda.synchronize()
-        host_ms = (time.perf_counter() - t0) * 1e3
-    launches = sum(e.count for e in prof.key_averages()
-                   if e.key.startswith("cudaLaunch"))
-    gpu = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    check(gpu, "the profiler recorded no device activity")
-    dev_ms = sum(e.time_range.elapsed_us() for e in gpu) / 1e3
-    kern_ms = sum(e.time_range.elapsed_us() for e in gpu
-                  if "align_kernel" in e.name) / 1e3
-    its = int(res.iterations.item()) + 1
+    res = []
+    host_ms, dev_ms, launches, kern_ms = profile_share(
+        lambda: res.append(align(p, fixed, moving)), "align_kernel")
+    its = int(res[-1].iterations.item()) + 1
     log(f"fused {type(p).__name__} N=M={fixed.capacity}: {t[10]:.4f} ms at "
         f"10 iterations, {t[60]:.4f} ms at 60, slope {slope:.4f} "
         f"ms/iteration (kernel backend: {kernel_ms_iter:.3f} ms/iteration, "
@@ -946,6 +984,379 @@ def phase_odometry(frames, p, adaptive, num_want=NUM_WANT):
           f"the {name} main path launched another kernel: {launches}")
     check(n_fused == 0, f"the {name} main path launched align_fused")
     return launches
+
+
+def phase_probes():
+    """7: the probes' entry point as a user runs it, with the launch
+    counts read around it; then each toy case against its plain version
+    and its closed form, timed, and the tiled aligns against the plain
+    version.  Returns (the probe kernel's row, the entry point's
+    launches)."""
+    import torch
+
+    from cvo_rgbd_torch import probes
+    from cvo_rgbd_torch.ops.align_fused import (
+        align_fused_cuda,
+        align_fused_plain,
+    )
+
+    dev = torch.device("cuda")
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = probes.main([])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+    lines = buf.getvalue().splitlines()
+    recs = [json.loads(ln) for ln in lines if ln.startswith("{")]
+    log(f"python -m cvo_rgbd_torch.probes: rc {rc}, {dt:.3f} s, "
+        + " ".join(f"{r['case']}={r['val']:g}" for r in recs)
+        + f"; launches {launches}")
+    check(rc == 0 and lines[-1] == "DONE" and all(r["ok"] for r in recs)
+          and len(recs) == len(probes.CASES) + len(probes.ALIGNS),
+          f"the probes' entry point failed: {lines}")
+    check(launches[PROBE] == len(probes.CASES)
+          and launches["align_fused"] == len(probes.ALIGNS)
+          and not any(launches[k] for k in KERNELS),
+          f"the probes launched {launches}")
+
+    err = ms_sum = plain_sum = bound_sum = 0.0
+    by = {"bytes": 0.0, "operations": 0.0}
+    for case in probes.CASES:
+        ins = probes.inputs(case, dev)
+        got = probes.construct_probe_cuda(case, *ins)
+        ref = probes.construct_probe_plain(case, *ins)
+        torch.cuda.synchronize()
+        e = (got - ref).abs().max().item()
+        val = got[0, 0].item()
+        if case == "e":
+            # fp32 sums of 256 products in another order: 1e-6 relative
+            check(e <= 1e-6 * probes.CLOSED["e"],
+                  f"probe e: kernel and plain version differ by {e}")
+        else:
+            check(torch.equal(got, ref), f"probe {case}: kernel and plain "
+                  f"version differ by {e}")
+        check(probes.closed_form_ok(case, val),
+              f"probe {case}: {val}, closed form {probes.CLOSED[case]}")
+        ms = time_ms(lambda: probes.construct_probe_cuda(case, *ins))
+        plain_ms = time_ms(lambda: probes.construct_probe_plain(case, *ins))
+        nbytes = (sum(ins[i][s].numel() for i, s in PROBE_READS[case])
+                  + got.numel()) * 4
+        b_ms, b_by = bound(nbytes, PROBE_OPS.get(case, 2 * got.numel()))
+        log(f"probe {case}: {val!r} (closed form {probes.CLOSED[case]!r}), "
+            f"max |kernel - plain| {e:.3e}; {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+        err = max(err, e)
+        ms_sum, plain_sum, bound_sum = (ms_sum + ms, plain_sum + plain_ms,
+                                        bound_sum + b_ms)
+        by[b_by] += b_ms
+    for case in probes.ALIGNS:
+        p, x, y = probes.tiled_problem(case, dev)
+        row = align_fused_cuda(p, x, y, mode="tiled")
+        ref = align_fused_plain(p, x, y, mode="tiled")
+        dtf = (row[:12] - ref[:12]).abs().max().item()
+        ms = time_ms(lambda: align_fused_cuda(p, x, y, mode="tiled"),
+                     spin=ALIGN_SPIN_CYCLES)
+        log(f"probe {case} tiled N={x.capacity} M={y.capacity}: iterations "
+            f"{row[24].item() - 1:.0f} vs {ref[24].item() - 1:.0f}, max |dtf| "
+            f"{dtf:.3e} (tolerance 1e-5); {ms:.4f} ms")
+        check(row[24].item() == ref[24].item(),
+              f"probe {case}: iteration counts differ")
+        check(dtf <= 1e-5, f"probe {case}: tf differs by {dtf}")
+    log(f"construct_probe, the ten cases together: {ms_sum:.4f} ms, plain "
+        f"{plain_sum:.4f} ms, bound {bound_sum:.6f} ms")
+    row = dict(max_abs_err=err, ms=ms_sum, plain_ms=plain_sum,
+               bound_ms=bound_sum, bound_by=max(by, key=by.get))
+    return row, launches
+
+
+def profile_share(fn, kernel=None):
+    """(host ms, device busy ms, launches) of one fn() under
+    torch.profiler, after one untimed call; given `kernel`, also the
+    device ms of the kernels whose name holds it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.key.startswith("cudaLaunch"))
+    gpu = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(gpu, "the profiler recorded no device activity")
+    dev_ms = sum(e.time_range.elapsed_us() for e in gpu) / 1e3
+    if kernel is None:
+        return host_ms, dev_ms, launches
+    kern_ms = sum(e.time_range.elapsed_us() for e in gpu
+                  if kernel in e.name) / 1e3
+    return host_ms, dev_ms, launches, kern_ms
+
+
+def phase_batched_fused(sets):
+    """8: the 9 pcd pairs at each grid, stacked LANE_REPEAT times, on the
+    fused backend through align_batched.  Returns (the batched rows of the
+    kernel line, launches by row)."""
+    import torch
+
+    from cvo_rgbd_torch import align
+    from cvo_rgbd_torch.batch import pad_clouds
+    from cvo_rgbd_torch.core.cloud import kd_sort, stack_clouds
+    from cvo_rgbd_torch.ops.align_fused import (
+        align_fused_batched_cuda,
+        align_fused_plain,
+        fused_mode,
+    )
+    from cvo_rgbd_torch.ops.gram import pad_feat
+    from cvo_rgbd_torch.parallel import align_batched
+    from cvo_rgbd_torch.params import MATLAB_PARAMS
+
+    dev = torch.device("cuda")
+    p = dataclasses.replace(MATLAB_PARAMS, backend="fused")
+    rows, launches = {}, {k: 0 for k in BATCHED}
+    for grid in (BATCH_GRID, FINE_GRID):
+        padded = pad_clouds(sets[grid], dev)
+        n_pairs = len(padded) - 1
+        fixed = stack_clouds(padded[:-1], repeat=LANE_REPEAT)
+        moving = stack_clouds(padded[1:], repeat=LANE_REPEAT)
+        lanes = fixed.positions.shape[0]
+        mode = fused_mode(p, fixed, moving)
+        label = f"batched fused {mode} grid={grid} N={fixed.capacity}"
+        torch.cuda.synchronize()
+        reset_launches()
+        res = align_batched(p, fixed, moving)
+        torch.cuda.synchronize()
+        got = read_launches()
+        check(got["align_fused"] == 1
+              and not any(got[k] for k in KERNELS + (PROBE,)),
+              f"{label}: not one align_fused launch a batch: {got}")
+        launches[f"align_fused_{mode}_batched"] += 1
+        singles = [align(p, padded[i], padded[i + 1]) for i in range(n_pairs)]
+        same = [all(torch.equal(getattr(res, f)[k], getattr(
+            singles[k % n_pairs], f)) for f in res._fields)
+            for k in range(lanes)]
+        its = res.iterations.tolist()
+        log(f"{label}: {lanes} lanes, one launch, iterations {its[:n_pairs]}"
+            f" (x{LANE_REPEAT}); lanes bit-identical to align on their pair "
+            f"alone: {sum(same)}/{lanes}")
+        check(all(same), f"{label}: lanes differ from their single-pair "
+              f"align: {[k for k, v in enumerate(same) if not v]}")
+        check(bool(res.converged.all()) and bool(torch.isfinite(res.tf).all()),
+              f"{label}: a lane did not converge")
+
+        def batched():
+            align_batched(p, fixed, moving)
+            torch.cuda.synchronize()
+
+        def sequential():
+            for k in range(lanes):
+                i = k % n_pairs
+                align(p, padded[i], padded[i + 1])
+            torch.cuda.synchronize()
+
+        # in turns: sequential, batched, batched, sequential
+        t = {"sequential": [], "batched": []}
+        for name in ("sequential", "batched", "batched", "sequential"):
+            t0 = time.perf_counter()
+            {"sequential": sequential, "batched": batched}[name]()
+            t[name].append(time.perf_counter() - t0)
+        pps = {k: lanes / min(v) for k, v in t.items()}
+        host_ms, dev_ms, n_launch = profile_share(batched)
+        log(f"{label}: {pps['batched']:.3f} pairs/s batched against "
+            f"{pps['sequential']:.3f} one align at a time (host clock, best "
+            f"of 2, {pps['batched'] / pps['sequential']:.2f}x); profiled "
+            f"batch {host_ms:.3f} ms host, device busy {dev_ms:.3f} ms "
+            f"({100 * dev_ms / host_ms:.1f}%), {n_launch} kernel launches a "
+            f"batch ({n_launch / lanes:.2f} a pair)")
+
+        # the batched launch against the plain version lane by lane; the
+        # 10-iteration launch timed, with its bound.  The lanes repeat the
+        # 9 pairs (and repeat their bits, checked above), so the errors and
+        # the pair counts come from the first 9 lanes.  Absolute errors,
+        # the tolerances of phase 3c:
+        # - 1 iteration from the same start: every output within 1e-5;
+        # - 10 iterations: the state R, T, ell within 1e-4 of the plain
+        #   version's own 10 iterations; omega and v there are the flow
+        #   at a state that already differs (the linear sums cancel: 1e-5
+        #   in T moved omega 1.75e-4 on one lane in an earlier run), so
+        #   they are logged, and the 10th iteration is held instead as
+        #   one step of the plain version from the kernel's own state
+        #   after 9 (R, T, ell of a 9-iteration launch): omega, v, tf, R
+        #   and T within 1e-5.
+        xs, ys = (kd_sort(c._replace(features=pad_feat(c.features)))
+                  for c in (fixed, moving))
+
+        def run(it):
+            return dataclasses.replace(p, max_iter=it, eps=0.0, eps_2=0.0)
+
+        def errors(out, ref, fields):
+            e = (out[:n_pairs] - ref).abs()
+            cols = {"tf": slice(0, 12), "R": slice(12, 21),
+                    "T": slice(21, 24), "ell": slice(26, 27),
+                    "omega": slice(27, 30), "v": slice(30, 33)}
+            return {f: e[:, cols[f]].max().item() for f in fields}
+
+        def held(what, errs, gated, tol):
+            log(f"{label} {what}: max |err| " + ", ".join(
+                f"{k} {v:.2e}" for k, v in errs.items())
+                + f" (tolerance {tol:g} on {', '.join(gated)})")
+            check(max(errs[k] for k in gated) <= tol,
+                  f"{label}: batched kernel and plain version differ, "
+                  f"{what}: {errs}")
+            return max(errs[k] for k in gated)
+
+        flow = ["R", "T", "ell", "omega", "v"]
+        out1 = align_fused_batched_cuda(run(1), xs, ys)
+        ref1 = torch.stack([align_fused_plain(run(1), xs.lane(k), ys.lane(k))
+                            for k in range(n_pairs)])
+        err = held("1 iteration, kernel against the plain version lane by "
+                   "lane", errors(out1, ref1, flow), flow, 1e-5)
+        out9 = align_fused_batched_cuda(run(9), xs, ys)
+        out10 = align_fused_batched_cuda(run(10), xs, ys)
+        counts = {}
+        ref10 = torch.stack([align_fused_plain(run(10), xs.lane(k),
+                                               ys.lane(k), counts=counts)
+                             for k in range(n_pairs)])
+        err = max(err, held(
+            "10 iterations, kernel against the plain version lane by lane "
+            f"(omega, v magnitudes up to {ref10[:, 27:33].abs().max():.3e})",
+            errors(out10, ref10, flow), ["R", "T", "ell"], 1e-4))
+        step = torch.stack([align_fused_plain(
+            run(1), xs.lane(k), ys.lane(k), R0=out9[k, 12:21].reshape(3, 3),
+            T0=out9[k, 21:24], ell0=out9[k, 26]) for k in range(n_pairs)])
+        err = max(err, held(
+            "10th iteration, kernel against one plain step from the "
+            "kernel's state after 9", errors(out10, step,
+                                             ["tf", "R", "T", "omega", "v"]),
+            ["tf", "R", "T", "omega", "v"], 1e-5))
+        check(bool((out1[:, 24] == 1).all() & (out9[:, 24] == 9).all()
+                   & (out10[:, 24] == 10).all()),
+              f"{label}: the batched launch ran the wrong iteration count")
+        q = run(10)
+        counts = {k: v * LANE_REPEAT for k, v in counts.items()}
+        ms = time_ms(lambda: align_fused_batched_cuda(q, xs, ys),
+                     spin=ALIGN_SPIN_CYCLES)
+        t0 = time.perf_counter()
+        for k in range(lanes):
+            align_fused_plain(q, xs.lane(k), ys.lane(k))
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        b_ms, b_by = fused_bound(counts, padded[0], padded[1], lanes)
+        log(f"{label} 10 iterations: {ms:.4f} ms for {lanes} lanes "
+            f"({ms / lanes:.4f} ms a lane), plain {plain_ms:.1f} ms (lane by "
+            f"lane, one run), bound {b_ms:.4f} ms ({b_by})")
+        rows[f"align_fused_{mode}_batched"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by)
+    return rows, launches
+
+
+def phase_batched_odometry(frames, p, adaptive, root=None):
+    """8b: run_odometry_batched over the render against
+    run_odometry_frames(warm_start=False) in the same run; on the fused
+    backend one launch a batch.  Given `root`, the render as a TUM folder
+    and a 2-frame prefix of it also run through run_multiseq (ragged
+    lanes), each lane against its solo cold run.  Returns the launches
+    of the batched runs, by kernel."""
+    import numpy as np
+    import torch
+
+    from cvo_rgbd_torch.evaluation import ate_rmse
+    from cvo_rgbd_torch.io.tum import parse_trajectory, read_trajectory
+    from cvo_rgbd_torch.multiseq import run_multiseq
+    from cvo_rgbd_torch.odometry import (
+        run_odometry_batched_frames,
+        run_odometry_frames,
+    )
+
+    fused = p.backend == "fused"
+    name = ("acvo" if adaptive else "cvo") + f" {p.backend}"
+    gt = {float(nm): pose for _, nm, _, _, pose in frames}
+
+    def drive(fn, **kw):
+        traj = io.StringIO()
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        recs = fn(((i, nm, rgb, dep) for i, nm, rgb, dep, _ in frames), 1,
+                  adaptive=adaptive, params=p, traj=traj,
+                  num_want=NUM_WANT, log=lambda *a: None, **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        est = parse_trajectory(traj.getvalue().splitlines())
+        return recs, est, dt, read_launches()
+
+    recs, est, dt, launches = drive(run_odometry_batched_frames,
+                                    batch=ODOM_BATCH)
+    seq_recs, seq_est, seq_dt, _ = drive(run_odometry_frames,
+                                         warm_start=False)
+    ate, ate_seq = ate_rmse(gt, est)["rmse"], ate_rmse(gt, seq_est)["rmse"]
+    n = len(recs)
+    log(f"batched odometry {name} batch={ODOM_BATCH}: {n} pairs, "
+        f"{sum(r.converged for r in recs)}/{n} converged, {n / dt:.3f} "
+        f"frames/s (sequential cold {len(seq_recs) / seq_dt:.3f}), "
+        f"iterations {[r.iterations for r in recs]} (sequential "
+        f"{[r.iterations for r in seq_recs]}), ATE {ate:.5f} m (sequential "
+        f"cold {ate_seq:.5f} m), launches {launches}")
+    check(n == len(frames) - 1 and all(r.converged for r in recs)
+          and not any(r.failed for r in recs),
+          f"batched odometry {name}: a pair failed or did not converge")
+    check(abs(ate - ate_seq) <= 0.002,
+          f"batched odometry {name}: ATE {ate} against {ate_seq}")
+    if fused:
+        check(launches["align_fused"] == -(-n // ODOM_BATCH)
+              and not any(launches[k] for k in KERNELS),
+              f"batched odometry {name}: not one launch a batch: {launches}")
+    else:
+        check(launches["fused_moments"] > 0 and launches["align_fused"] == 0,
+              f"batched odometry {name} launched {launches}")
+    if root is None:
+        return launches
+
+    from cvo_rgbd_torch.synth import BandScene, make_tum_dataset, revisit_path
+
+    full, short = os.path.join(root, "render"), os.path.join(root, "prefix")
+    make_tum_dataset(full, revisit_path(FRAMES, period=33), BandScene(*SIZE))
+    os.makedirs(short)
+    for d in ("rgb", "depth"):
+        os.symlink(os.path.join(full, d), os.path.join(short, d))
+    with open(os.path.join(full, "assoc.txt")) as f:
+        head = f.read().splitlines()[:2]
+    with open(os.path.join(short, "assoc.txt"), "w") as f:
+        f.write("\n".join(head) + "\n")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    outs = run_multiseq([full, short], 1, adaptive=adaptive, params=p,
+                        num_want=NUM_WANT, warm_start=False,
+                        log=lambda *a: None)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    ms_launches = read_launches()
+    long_b, short_b = (read_trajectory(outs[d]) for d in (full, short))
+    worst = max(float(np.abs(long_b[t] - seq_est[t]).max()) for t in seq_est)
+    worst_s = max(float(np.abs(short_b[t] - seq_est[t]).max())
+                  for t in short_b)
+    log(f"multiseq {name}: lanes of {len(long_b)} and {len(short_b)} frames, "
+        f"{(len(long_b) + len(short_b) - 2) / dt:.3f} pairs/s, max |pose - "
+        f"solo| {worst:.2e} / {worst_s:.2e} (tolerance 5e-3), launches "
+        f"{ms_launches}")
+    check(set(long_b) == set(seq_est) and len(short_b) == 2,
+          f"multiseq {name}: trajectories of the wrong length")
+    check(worst <= 5e-3 and worst_s <= 5e-3,
+          f"multiseq {name}: a lane is off its solo run")
+    if fused:
+        check(ms_launches["align_fused"] == FRAMES - 1,
+              f"multiseq {name}: not one launch a step: {ms_launches}")
+    return {k: v + ms_launches[k] for k, v in launches.items()}
 
 
 def main():
@@ -1070,7 +1481,7 @@ def main():
     phase_fused_timing(a0, a1, paf, ms_iter_a)
     mark("4c")
 
-    launches = {k: 0 for k in KERNELS + FUSED}
+    launches = {k: 0 for k in KERNELS + FUSED + BATCHED + (PROBE,)}
     runs = [(p, False, NUM_WANT), (pa, True, NUM_WANT)]
     runs += [(q, adaptive, nw) for nw in (NUM_WANT, RESIDENT_NUM_WANT)
              for q, adaptive in ((pf, False), (paf, True))]
@@ -1089,6 +1500,31 @@ def main():
     tmp.cleanup()
     mark("6 (MATLAB batch)")
 
+    # 7. the construct probes; their tiled aligns are row 4's launches
+    kernels[PROBE], got = phase_probes()
+    launches[PROBE] += got[PROBE]
+    launches["align_fused_tiled"] += got["align_fused"]
+    mark("7 (probes)")
+
+    # 8. batched fused registration of the pcd pairs, 63 lanes a launch
+    rows, got = phase_batched_fused(sets)
+    kernels.update(rows)
+    for k, v in got.items():
+        launches[k] += v
+    mark("8 (batched fused)")
+
+    # 8b. batched odometry and multiseq over the render; the fused runs
+    # are tiled (3072)
+    tmp8 = tempfile.TemporaryDirectory()
+    for q, adaptive, root in ((pf, False, tmp8.name), (paf, True, None),
+                              (p, False, None)):
+        got = phase_batched_odometry(frames, q, adaptive, root)
+        launches["align_fused_tiled_batched"] += got.pop("align_fused")
+        for k in KERNELS:
+            launches[k] += got[k]
+    tmp8.cleanup()
+    mark("8b (batched odometry)")
+
     sources = {
         "color_gram": ("cvo_rgbd_torch/csrc/color_gram.cu",
                        "cvo_rgbd_tpu/ops/pallas_gram.py:401"),
@@ -1104,9 +1540,16 @@ def main():
                        "cvo_rgbd_tpu/ops/pallas_gram.py:437"),
         "fused_step_coeffs": ("cvo_rgbd_torch/csrc/fused_flow.cu",
                               "cvo_rgbd_tpu/ops/pallas_gram.py:470"),
+        "align_fused_tiled_batched": ("cvo_rgbd_torch/csrc/align_fused.cu",
+                                      "cvo_rgbd_tpu/ops/pallas_align.py:1351"),
+        "align_fused_resident_batched": (
+            "cvo_rgbd_torch/csrc/align_fused.cu",
+            "cvo_rgbd_tpu/ops/pallas_align.py:1379"),
+        PROBE: ("cvo_rgbd_torch/csrc/construct_probe.cu",
+                "scripts/tpu_construct_probe.py:24"),
     }
     rows = []
-    for name in KERNELS + FUSED:
+    for name in KERNELS + FUSED + BATCHED + (PROBE,):
         k = kernels[name]
         src, rep = sources[name]
         rows.append({

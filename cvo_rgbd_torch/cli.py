@@ -1,6 +1,9 @@
 """Command-line interface.
 
     python -m cvo_rgbd_torch.cli run <folder> <seq> [--adaptive]
+        [--backend kernel|dense|fused] [--batch N [--motion-prior]]
+        [--device cpu]
+    python -m cvo_rgbd_torch.cli multiseq <seq> <folder>... [--adaptive]
         [--backend kernel|dense|fused] [--device cpu]
     python -m cvo_rgbd_torch.cli batch <pcd dir> [--grid 0.05]
         [--output f.npz] [--device cpu]
@@ -10,7 +13,9 @@
     python -m cvo_rgbd_torch.cli evaluate-rpe <groundtruth> <estimate>
 
 `run` mirrors the reference executables (`./cvo $data_path $tum_seq`,
-and the adaptive one with `--adaptive`); `batch` and `stitch` the MATLAB
+and the adaptive one with `--adaptive`), or with `--batch N` registers N
+pairs per batched call offline; `multiseq` runs several folders in
+lockstep, one pair of each per batched call; `batch` and `stitch` the MATLAB
 batch runner (MATLAB_PARAMS: linear color mode, MATLAB stops).  All run
 on the CUDA device unless `--device cpu` is given.
 """
@@ -38,10 +43,25 @@ def _make_params(args):
     return (AcvoParams if args.adaptive else CvoParams)(**kw)
 
 
-def _cmd_run(args):
-    from cvo_rgbd_torch.odometry import run_odometry
+def _seq(args):
+    return int(args.seq) if args.seq.isdigit() else args.seq
 
-    seq = int(args.seq) if args.seq.isdigit() else args.seq
+
+def _cmd_run(args):
+    from cvo_rgbd_torch.odometry import run_odometry, run_odometry_batched
+
+    seq = _seq(args)
+    if args.batch > 1:
+        if args.checkpoint:
+            raise SystemExit("--batch does not support checkpointing")
+        run_odometry_batched(
+            args.folder, seq, adaptive=args.adaptive,
+            params=_make_params(args), output=args.output,
+            max_frames=args.max_frames, num_want=args.num_want,
+            batch=args.batch, motion_prior=args.motion_prior,
+            device=args.device,
+        )
+        return
     run_odometry(
         args.folder,
         seq,
@@ -53,6 +73,17 @@ def _cmd_run(args):
         num_want=args.num_want,
         warm_start=not args.cold_start,
         fetch_every=args.fetch_every,
+        device=args.device,
+    )
+
+
+def _cmd_multiseq(args):
+    from cvo_rgbd_torch.multiseq import run_multiseq
+
+    run_multiseq(
+        args.folders, _seq(args), adaptive=args.adaptive,
+        params=_make_params(args), num_want=args.num_want,
+        max_frames=args.max_frames, warm_start=not args.cold_start,
         device=args.device,
     )
 
@@ -157,7 +188,37 @@ def main(argv=None):
     pr.add_argument("--fetch-every", type=int, default=8,
                     help="frames between device->host result flushes "
                     "(the trajectory is identical for any value)")
+    pr.add_argument("--batch", type=int, default=1,
+                    help="register this many pairs per batched call, "
+                    "offline (cold-start pairs; on --backend fused, one "
+                    "kernel launch a batch)")
+    pr.add_argument("--motion-prior", action="store_true",
+                    help="with --batch: warm-start each chunk with the "
+                    "previous chunk's last relative transform "
+                    "(constant-velocity approximation)")
     pr.set_defaults(fn=_cmd_run)
+
+    pm = sub.add_parser(
+        "multiseq",
+        help="batched odometry over several TUM folders in lockstep "
+        "(one batched call registers one pair from every sequence)",
+    )
+    pm.add_argument("seq", help="camera key shared by all folders")
+    pm.add_argument("folders", nargs="+")
+    pm.add_argument("--device", default=None,
+                    help="torch device (default: cuda; 'cpu' to run on the CPU)")
+    pm.add_argument("--adaptive", action="store_true")
+    pm.add_argument("--backend", default="kernel",
+                    choices=["kernel", "dense", "fused"])
+    pm.add_argument("--num-want", type=int, default=3000)
+    pm.add_argument("--max-frames", type=int)
+    pm.add_argument("--matlab-tol", action="store_true",
+                    help="MATLAB stop set (see `run --matlab-tol`)")
+    pm.add_argument("--eps", type=float)
+    pm.add_argument("--eps-2", type=float, dest="eps_2")
+    pm.add_argument("--cold-start", action="store_true",
+                    help="disable the per-lane across-pair warm start")
+    pm.set_defaults(fn=_cmd_multiseq)
 
     pb = sub.add_parser("batch", help="pairwise registration over a pcd dir")
     pb.add_argument("directory")

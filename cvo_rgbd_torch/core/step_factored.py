@@ -75,15 +75,15 @@ class Poly:
 
 
 def monomial_features(x: torch.Tensor) -> torch.Tensor:
-    """[N,3] -> [N,35] monomial features.  Powers are explicit products
-    in the JAX order (x^3 = x*(x*x), x^4 = (x*x)*(x*x))."""
+    """[..., N, 3] -> [..., N, 35] monomial features.  Powers are
+    explicit products in the JAX order (x^3 = x*(x*x), x^4 = (x*x)*(x*x))."""
     def pows(v):
         v2 = v * v
         return [torch.ones_like(v), v, v2, v * v2, v2 * v2]
 
-    p0, p1, p2 = pows(x[:, 0]), pows(x[:, 1]), pows(x[:, 2])
+    p0, p1, p2 = pows(x[..., 0]), pows(x[..., 1]), pows(x[..., 2])
     return torch.stack(
-        [p0[e[0]] * p1[e[1]] * p2[e[2]] for e in MONOMIALS], dim=1
+        [p0[e[0]] * p1[e[1]] * p2[e[2]] for e in MONOMIALS], dim=-1
     )
 
 

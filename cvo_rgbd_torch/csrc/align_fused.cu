@@ -41,9 +41,21 @@
 //           the same bits, so no fourth barrier is needed; each leaves the
 //           loop at the same iteration, because each reads the same state.
 //
+// Lanes (align_fused_batched, the JAX package's vmap of align_fused): one
+// launch registers B independent pairs.  Every block keeps every lane's
+// loop state in dynamic shared memory and computes each live lane's top of
+// iteration, flow scalars and tail on one thread per lane, so the scalar
+// tail does not grow B-fold.  Phase 1-3 work items run over (lane, item);
+// every input, partial and result has a leading lane axis the wrapper
+// allocates.  A lane that has converged or run max_iter iterations is
+// frozen: its items are skipped and its state no longer changes.  The loop
+// runs while any lane is live, and every block reads the same lane states,
+// so all blocks leave it together.
+//
 // Determinism: no float atomics; every partial has its own slot and is
 // summed in a fixed order; counts are ints.  The work split does not
-// depend on the grid size, so results are the same on any card.
+// depend on the grid size or on the number of lanes, so a lane's results
+// are the same bits as its pair's single-pair launch, on any card.
 //
 // The line-search polynomials are products of four affine forms in the
 // centered fixed point (:577-593).  Rather than expanding them, the kernel
@@ -79,6 +91,8 @@ constexpr int NW = NT / 32;
 constexpr int NMOM = 35;
 constexpr int NSH = 4;
 constexpr int NFLOW = 8;    // flow partial stride
+constexpr int NINIT = 16;   // init row: R0 9, T0 3, c0 3, ell0
+constexpr int NOUT = 33;    // result row; ops/align_fused.py OUT_LEN
 constexpr int BLOCKS_PER_SM = 4;
 constexpr float SKIP_MARGIN = 1e-5f;
 
@@ -106,6 +120,7 @@ enum Const {
   N_CONST
 };
 
+// Pointers of lane 0; lane L's slices follow at the strides of at_lane.
 struct Args {
   const float *xp, *xf, *xm, *yp, *yf, *ym, *phi;
   const int* shift;                    // [35, 4] monomial shift table
@@ -121,7 +136,7 @@ struct Args {
   float* red;                          // [8] counts and self sums
   float* bcde_part;                    // [nbj, 4]
   float* out;                          // [33] result row
-  int n, m, per, n_chunks, n_sched;
+  int n, m, per, n_chunks, n_sched, lanes;
 };
 
 // the block's copy of the loop state and per-iteration scalars
@@ -132,8 +147,16 @@ struct State {
   int k, conv;
 };
 
-struct Shared {
+// a lane's loop state and its ell-dependent scalar row
+struct Lane {
   State st;
+  float scal[cvo::N_SCAL];
+};
+
+struct Shared {
+  // the ell-dependent scalar row of the lane whose items the block runs
+  // in phase 1, copied from its Lane: the sweeps read it at a fixed
+  // address, which keeps it in registers through their inner loops
   float scal[cvo::N_SCAL];
   float c[N_CONST];
   int sh[NMOM * NSH];
@@ -150,6 +173,41 @@ struct Shared {
   float tw[NT];
   long long tc[NT];
 };
+
+__device__ __forceinline__ bool live(const Lane& ln, int max_iter) {
+  return ln.st.k < max_iter && ln.st.conv == 0;
+}
+
+// The slices of lane L (scratch strides as ops/align_fused.py allocates).
+template <bool RESIDENT, bool ADAPTIVE>
+__device__ Args at_lane(const Args& a, int L) {
+  const size_t l = L, n = a.n, m = a.m;
+  const int nbj = a.m / TJ, nbx = a.n / TW, nby = a.m / TW;
+  const int n_flow = RESIDENT ? a.n / ROWS : nbj;
+  const int n_self = ADAPTIVE ? nbx * (nbx + 1) / 2 + nby * (nby + 1) / 2 : 0;
+  Args o = a;
+  o.xp += l * n * 3;
+  o.xf += l * n * cvo::NFEAT;
+  o.xm += l * n;
+  o.yp += l * m * 3;
+  o.yf += l * m * cvo::NFEAT;
+  o.ym += l * m;
+  o.phi += l * n * NMOM;
+  if (o.xb != nullptr) o.xb += l * (a.n / TI) * 6;
+  if (o.md_xx != nullptr) o.md_xx += l * nbx * nbx;
+  if (o.md_yy != nullptr) o.md_yy += l * nby * nby;
+  o.init += l * NINIT;
+  o.mom_part += l * a.n_chunks * NMOM * m;
+  o.cnt_part += l * a.n_chunks * nbj;
+  o.mom += l * NMOM * m;
+  o.flow_part += l * max(n_flow, 1) * NFLOW;
+  o.self_w += l * max(n_self, 1);
+  o.self_c += l * max(n_self, 1);
+  o.red += l * 8;
+  o.bcde_part += l * nbj * 4;
+  o.out += l * NOUT;
+  return o;
+}
 
 __device__ __forceinline__ void transform(const State& s, const float* p,
                                           float* o) {
@@ -287,11 +345,12 @@ __device__ __forceinline__ float pair_weight(bool linear, float d2,
 }
 
 template <bool RESIDENT>
-__device__ void moment_item(const Args& a, Shared& S, int jb, int chunk) {
+__device__ void moment_item(const Args& a, Shared& S, const Lane& ln, int jb,
+                            int chunk) {
   const int nbi = a.n / TI, nbj = a.m / TJ;
   const int j = jb * TJ + threadIdx.x;
   float ty[3];
-  transform(S.st, a.yp + 3 * j, ty);
+  transform(ln.st, a.yp + 3 * j, ty);
   float fy[cvo::NFEAT];
 #pragma unroll
   for (int c = 0; c < cvo::NFEAT; ++c) fy[c] = a.yf[cvo::NFEAT * j + c];
@@ -323,7 +382,8 @@ __device__ void moment_item(const Args& a, Shared& S, int jb, int chunk) {
     for (int ii = 0; ii < TI; ++ii) {
       const float d2 =
           cvo::sqdist3(S.x[0][ii], S.x[1][ii], S.x[2][ii], ty[0], ty[1], ty[2]);
-      const float w = pair_weight(linear, d2, S.f[ii], S.xm[ii], fy, ymj, S);
+      const float w =
+          pair_weight(linear, d2, S.f[ii], S.xm[ii], fy, ymj, S);
       // a linear weight may be negative: it enters the sums, and only
       // w > 0 is counted
       if (w != 0.0f) {
@@ -342,7 +402,7 @@ __device__ void moment_item(const Args& a, Shared& S, int jb, int chunk) {
 
 // Resident mode: ROWS rows of x over all of y, the direct-form flow.
 template <bool ADAPTIVE>
-__device__ void row_item(const Args& a, Shared& S, int rb) {
+__device__ void row_item(const Args& a, Shared& S, const Lane& ln, int rb) {
   const int i = rb * ROWS + threadIdx.x;
   const float x0 = a.xp[3 * i], x1 = a.xp[3 * i + 1], x2 = a.xp[3 * i + 2];
   float fx[cvo::NFEAT];
@@ -356,7 +416,7 @@ __device__ void row_item(const Args& a, Shared& S, int rb) {
     {
       const int j = j0 + threadIdx.x;
       float ty[3];
-      transform(S.st, a.yp + 3 * j, ty);
+      transform(ln.st, a.yp + 3 * j, ty);
       for (int r = 0; r < 3; ++r) S.y[r][threadIdx.x] = ty[r];
       for (int c = 0; c < cvo::NFEAT; ++c)
         S.yf[threadIdx.x][c] = a.yf[cvo::NFEAT * j + c];
@@ -366,7 +426,8 @@ __device__ void row_item(const Args& a, Shared& S, int rb) {
     for (int jj = 0; jj < TJ; ++jj) {
       const float d2 = cvo::sqdist3(x0, x1, x2, S.y[0][jj], S.y[1][jj],
                                     S.y[2][jj]);
-      const float w = pair_weight(linear, d2, fx, xmi, S.yf[jj], S.ym[jj], S);
+      const float w =
+          pair_weight(linear, d2, fx, xmi, S.yf[jj], S.ym[jj], S);
       if (w != 0.0f) {
         sA += w;
         s0 = fmaf(w, S.y[0][jj], s0);
@@ -386,7 +447,8 @@ __device__ void row_item(const Args& a, Shared& S, int rb) {
 
 // acvo: one upper-triangle TW-square tile of a self-Gram.
 template <bool RESIDENT>
-__device__ void self_item(const Args& a, Shared& S, int item, int t) {
+__device__ void self_item(const Args& a, Shared& S, const Lane& ln, int item,
+                          int t) {
   const int nbx = a.n / TW;
   const int tri_x = nbx * (nbx + 1) / 2;
   const bool on_y = t >= tri_x;
@@ -419,7 +481,7 @@ __device__ void self_item(const Args& a, Shared& S, int item, int t) {
     float p[3] = {P[3 * i], P[3 * i + 1], P[3 * i + 2]};
     if (moved) {
       float q[3];
-      transform(S.st, p, q);
+      transform(ln.st, p, q);
       p[0] = q[0], p[1] = q[1], p[2] = q[2];
     }
     for (int c = 0; c < 3; ++c) S.x[c][r] = p[c];
@@ -432,7 +494,7 @@ __device__ void self_item(const Args& a, Shared& S, int item, int t) {
   float py[3] = {P[3 * j], P[3 * j + 1], P[3 * j + 2]};
   if (moved) {
     float q[3];
-    transform(S.st, py, q);
+    transform(ln.st, py, q);
     py[0] = q[0], py[1] = q[1], py[2] = q[2];
   }
   float fy[cvo::NFEAT];
@@ -463,7 +525,7 @@ __device__ void self_item(const Args& a, Shared& S, int item, int t) {
 // Tiled mode, per j: momT from the chunk partials and the moment-form
 // flow terms (core/moments.py:flow_from_moments).
 template <bool RESIDENT>
-__device__ void column_item(const Args& a, Shared& S, int jb) {
+__device__ void column_item(const Args& a, Shared& S, const Lane& ln, int jb) {
   const int j = jb * TJ + threadIdx.x;
   for (int k = 0; k < NMOM; ++k) {
     float s = 0.0f;
@@ -480,8 +542,8 @@ __device__ void column_item(const Args& a, Shared& S, int jb) {
   const float S2tr = mj[sh[sh[1] * NSH + 1] * m] + mj[sh[sh[2] * NSH + 2] * m] +
                      mj[sh[sh[3] * NSH + 3] * m];
   float ty[3], tyc[3];
-  transform(S.st, a.yp + 3 * j, ty);
-  for (int r = 0; r < 3; ++r) tyc[r] = ty[r] - S.st.c0[r];
+  transform(ln.st, a.yp + 3 * j, ty);
+  for (int r = 0; r < 3; ++r) tyc[r] = ty[r] - ln.st.c0[r];
   float v[7];
   for (int r = 0; r < 3; ++r) v[r] = S0 * tyc[r] - S1[r];
   v[3] = S1[1] * tyc[2] - S1[2] * tyc[1];
@@ -515,22 +577,23 @@ __device__ __forceinline__ void shift(const float* L, const float* m, int ne,
 
 // Per j: B..E of the quartic line search (cvo.cpp:249-289) contracted
 // against momT[:, j] (pallas_align.py:1059-1119).
-__device__ void contract_item(const Args& a, Shared& S, int jb) {
+__device__ void contract_item(const Args& a, Shared& S, const Lane& ln,
+                              int jb) {
   const int j = jb * TJ + threadIdx.x;
   const int* sh = S.sh;
   float mv[NMOM];
   for (int k = 0; k < NMOM; ++k) mv[k] = a.mom[static_cast<size_t>(k) * a.m + j];
   float ty[3], tyc[3];
-  transform(S.st, a.yp + 3 * j, ty);
-  for (int r = 0; r < 3; ++r) tyc[r] = ty[r] - S.st.c0[r];
-  const float* w = S.st.om;
+  transform(ln.st, a.yp + 3 * j, ty);
+  for (int r = 0; r < 3; ++r) tyc[r] = ty[r] - ln.st.c0[r];
+  const float* w = ln.st.om;
   float xiz[3], xi2z[3], xi3z[3], xi4z[3];
   wcross(w, ty, xiz);
-  for (int r = 0; r < 3; ++r) xiz[r] += S.st.v[r];
+  for (int r = 0; r < 3; ++r) xiz[r] += ln.st.v[r];
   wcross(w, xiz, xi2z);
   wcross(w, xi2z, xi3z);
   wcross(w, xi3z, xi4z);
-  const float tc = S.scal[cvo::S_INV_2L2];
+  const float tc = ln.scal[cvo::S_INV_2L2];
   const float normxiz2 = cvo::dot3(xiz, xiz);
   const float xzx2 = -cvo::dot3(xiz, xi2z);
   const float eps_c = cvo::dot3(xi2z, xi2z) + 2.0f * cvo::dot3(xiz, xi3z);
@@ -563,9 +626,9 @@ __device__ void contract_item(const Args& a, Shared& S, int jb) {
     for (int q = 0; q < 4; ++q) a.bcde_part[jb * 4 + q] = v[q];
 }
 
-// Thread 0: tf and the ell-dependent scalar row from the state.
-__device__ void top_of_iteration(Shared& S) {
-  State& s = S.st;
+// One thread a lane: tf and the ell-dependent scalar row from the state.
+__device__ void top_of_iteration(Lane& ln, const float* c) {
+  State& s = ln.st;
   for (int r = 0; r < 3; ++r)
     for (int c = 0; c < 3; ++c) s.Rt[3 * r + c] = s.R[3 * c + r];
   for (int r = 0; r < 3; ++r)
@@ -573,25 +636,26 @@ __device__ void top_of_iteration(Shared& S) {
                                   __fmul_rn(s.Rt[3 * r + 1], s.T[1])),
                         __fmul_rn(s.Rt[3 * r + 2], s.T[2]));
   const float ell = s.ell;
-  S.scal[cvo::S_ELL] = ell;
-  S.scal[cvo::S_S2] = S.c[C_S2];
-  S.scal[cvo::S_CS2] = S.c[C_CS2];
-  S.scal[cvo::S_INV_2L2] = 1.0f / (2.0f * ell * ell);
-  S.scal[cvo::S_INV_2CL2] = S.c[C_INV2CL2];
-  S.scal[cvo::S_D2_THRES] = S.c[C_THRES_C] * ell * ell;
-  S.scal[cvo::S_D2_C_THRES] = S.c[C_D2_C_THRES];
-  S.scal[cvo::S_SP_THRES] = S.c[C_SP_THRES];
+  float* scal = ln.scal;
+  scal[cvo::S_ELL] = ell;
+  scal[cvo::S_S2] = c[C_S2];
+  scal[cvo::S_CS2] = c[C_CS2];
+  scal[cvo::S_INV_2L2] = 1.0f / (2.0f * ell * ell);
+  scal[cvo::S_INV_2CL2] = c[C_INV2CL2];
+  scal[cvo::S_D2_THRES] = c[C_THRES_C] * ell * ell;
+  scal[cvo::S_D2_C_THRES] = c[C_D2_C_THRES];
+  scal[cvo::S_SP_THRES] = c[C_SP_THRES];
 }
 
-// Thread 0: omega, v (and acvo's dl) from the flow partials.
+// One thread a lane: omega, v (and acvo's dl) from the flow partials.
 template <bool RESIDENT, bool ADAPTIVE>
-__device__ void flow_scalars(const Args& a, Shared& S) {
+__device__ void flow_scalars(const Args& a, Lane& ln, const float* c) {
   const int n_flow = RESIDENT ? a.n / ROWS : a.m / TJ;
   float acc[7] = {0, 0, 0, 0, 0, 0, 0};
   for (int b = 0; b < n_flow; ++b)
     for (int q = 0; q < 7; ++q) acc[q] += a.flow_part[b * NFLOW + q];
-  State& s = S.st;
-  const float inv_c = S.c[C_INV_C], inv_d = S.c[C_INV_D];
+  State& s = ln.st;
+  const float inv_c = c[C_INV_C], inv_d = c[C_INV_D];
   const float* c0 = s.c0;
   if (RESIDENT) {
     for (int r = 0; r < 3; ++r) s.om[r] = acc[3 + r] * inv_c;
@@ -610,15 +674,14 @@ __device__ void flow_scalars(const Args& a, Shared& S) {
   }
 }
 
-// Thread 0: the step, the update, both stops and the ell update.
+// One thread a lane: the step, the update, both stops and the ell update.
 template <bool ADAPTIVE>
-__device__ void tail(const Args& a, Shared& S) {
+__device__ void tail(const Args& a, Lane& ln, const float* c) {
   const int nbj = a.m / TJ;
   float bc[4] = {0, 0, 0, 0};
   for (int b = 0; b < nbj; ++b)
     for (int q = 0; q < 4; ++q) bc[q] += a.bcde_part[b * 4 + q];
-  State& s = S.st;
-  const float* c = S.c;
+  State& s = ln.st;
   const float step = cvo::cubic_step(4.0f * bc[3], 3.0f * bc[2], 2.0f * bc[1],
                                      bc[0], c[C_MIN_STEP], c[C_MAX_STEP]);
   // stop 1 BEFORE the update (cvo.cpp:380)
@@ -661,15 +724,19 @@ template <bool RESIDENT, bool ADAPTIVE>
 __global__ void __launch_bounds__(NT) align_kernel(Args a) {
   cg::grid_group grid = cg::this_grid();
   __shared__ Shared S;
+  // every lane's state: a.lanes Lane records
+  extern __shared__ __align__(16) unsigned char lane_mem[];
+  Lane* lanes = reinterpret_cast<Lane*>(lane_mem);
   const int tid = threadIdx.x;
   for (int t = tid; t < NMOM * NSH; t += NT) S.sh[t] = a.shift[t];
   for (int t = tid; t < N_CONST; t += NT) S.c[t] = a.consts[t];
-  if (tid == 0) {
-    State& s = S.st;
-    for (int i = 0; i < 9; ++i) s.R[i] = a.init[i];
-    for (int i = 0; i < 3; ++i) s.T[i] = a.init[9 + i];
-    for (int i = 0; i < 3; ++i) s.c0[i] = a.init[12 + i];
-    s.ell = a.init[15];
+  for (int L = tid; L < a.lanes; L += NT) {
+    State& s = lanes[L].st;
+    const float* init = a.init + static_cast<size_t>(L) * NINIT;
+    for (int i = 0; i < 9; ++i) s.R[i] = init[i];
+    for (int i = 0; i < 3; ++i) s.T[i] = init[9 + i];
+    for (int i = 0; i < 3; ++i) s.c0[i] = init[12 + i];
+    s.ell = init[15];
     s.ell_max = a.consts[C_ELL_MAX_INIT];
     for (int i = 0; i < 9; ++i) s.Rt[i] = (i % 4 == 0) ? 1.0f : 0.0f;
     for (int i = 0; i < 3; ++i) s.tT[i] = s.om[i] = s.v[i] = 0.0f;
@@ -687,95 +754,134 @@ __global__ void __launch_bounds__(NT) align_kernel(Args a) {
   const int n_self = ADAPTIVE ? tri_x + nby * (nby + 1) / 2 : 0;
   const int n_items = n_mom + n_rows + n_self;
   const int max_iter = static_cast<int>(S.c[C_MAX_ITER]);
-  const bool reducer = blockIdx.x == gridDim.x - 1;
 
-  while (S.st.k < max_iter && S.st.conv == 0) {
-    if (tid == 0) top_of_iteration(S);
-    __syncthreads();
+  while (true) {
+    int any_live = 0;
+    for (int L = tid; L < a.lanes; L += NT)
+      if (live(lanes[L], max_iter)) {
+        top_of_iteration(lanes[L], S.c);
+        any_live = 1;
+      }
+    // every block reads the same lane states: all leave together
+    if (!__syncthreads_or(any_live)) break;
 
-    // ---- phase 1: the sweeps ----
-    for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
-      if (item < n_mom) {
-        moment_item<RESIDENT>(a, S, item % nbj, item / nbj);
-      } else if (item < n_mom + n_rows) {
-        row_item<ADAPTIVE>(a, S, item - n_mom);
+    // ---- phase 1: the sweeps, items over (lane, item) ----
+    int staged = -1;  // the lane whose scalar row S.scal holds
+    for (int item = blockIdx.x; item < a.lanes * n_items; item += gridDim.x) {
+      const int L = item / n_items, i = item % n_items;
+      const Lane& ln = lanes[L];
+      if (!live(ln, max_iter)) continue;  // block-uniform
+      if (L != staged) {
+        // no thread reads the last lane's row any more
+        __syncthreads();
+        for (int t = tid; t < cvo::N_SCAL; t += NT) S.scal[t] = ln.scal[t];
+        __syncthreads();
+        staged = L;
+      }
+      const Args la = at_lane<RESIDENT, ADAPTIVE>(a, L);
+      if (i < n_mom) {
+        moment_item<RESIDENT>(la, S, ln, i % nbj, i / nbj);
+      } else if (i < n_mom + n_rows) {
+        row_item<ADAPTIVE>(la, S, ln, i - n_mom);
       } else {
-        const int t = item - n_mom - n_rows;
-        self_item<RESIDENT>(a, S, t, t);
+        const int t = i - n_mom - n_rows;
+        self_item<RESIDENT>(la, S, ln, t, t);
       }
     }
     grid.sync();
 
-    // ---- phase 2: momT, tiled flow terms, counts and self sums ----
-    for (int jb = blockIdx.x; jb < nbj; jb += gridDim.x)
-      column_item<RESIDENT>(a, S, jb);
-    if (reducer) {
+    // ---- phase 2: momT, tiled flow terms; per lane, counts and self sums
+    for (int item = blockIdx.x; item < a.lanes * (nbj + 1);
+         item += gridDim.x) {
+      const int L = item / (nbj + 1), jb = item % (nbj + 1);
+      const Lane& ln = lanes[L];
+      if (!live(ln, max_iter)) continue;
+      const Args la = at_lane<RESIDENT, ADAPTIVE>(a, L);
+      if (jb < nbj) {
+        column_item<RESIDENT>(la, S, ln, jb);
+        continue;
+      }
       float w;
       long long cnt;
-      block_range_sum(nullptr, a.cnt_part, 0, n_mom, S, &w, &cnt);
-      if (tid == 0) a.red[0] = static_cast<float>(cnt);
+      block_range_sum(nullptr, la.cnt_part, 0, n_mom, S, &w, &cnt);
+      if (tid == 0) la.red[0] = static_cast<float>(cnt);
       if (ADAPTIVE) {
-        block_range_sum(a.self_w, a.self_c, 0, tri_x, S, &w, &cnt);
+        block_range_sum(la.self_w, la.self_c, 0, tri_x, S, &w, &cnt);
         if (tid == 0) {
-          a.red[1] = w;
-          a.red[2] = static_cast<float>(cnt);
+          la.red[1] = w;
+          la.red[2] = static_cast<float>(cnt);
         }
-        block_range_sum(a.self_w, a.self_c, tri_x, n_self, S, &w, &cnt);
+        block_range_sum(la.self_w, la.self_c, tri_x, n_self, S, &w, &cnt);
         if (tid == 0) {
-          a.red[3] = w;
-          a.red[4] = static_cast<float>(cnt);
+          la.red[3] = w;
+          la.red[4] = static_cast<float>(cnt);
         }
       }
     }
     grid.sync();
 
     // ---- phase 3: omega, v, dl; the line-search contraction ----
-    if (tid == 0) flow_scalars<RESIDENT, ADAPTIVE>(a, S);
+    for (int L = tid; L < a.lanes; L += NT)
+      if (live(lanes[L], max_iter))
+        flow_scalars<RESIDENT, ADAPTIVE>(at_lane<RESIDENT, ADAPTIVE>(a, L),
+                                         lanes[L], S.c);
     __syncthreads();
-    for (int jb = blockIdx.x; jb < nbj; jb += gridDim.x)
-      contract_item(a, S, jb);
+    for (int item = blockIdx.x; item < a.lanes * nbj; item += gridDim.x) {
+      const int L = item / nbj;
+      const Lane& ln = lanes[L];
+      if (!live(ln, max_iter)) continue;
+      contract_item(at_lane<RESIDENT, ADAPTIVE>(a, L), S, ln, item % nbj);
+    }
     grid.sync();
 
-    // ---- tail: every block, the same bits ----
-    if (tid == 0) tail<ADAPTIVE>(a, S);
+    // ---- tail: every block, one thread a lane, the same bits ----
+    for (int L = tid; L < a.lanes; L += NT)
+      if (live(lanes[L], max_iter))
+        tail<ADAPTIVE>(at_lane<RESIDENT, ADAPTIVE>(a, L), lanes[L], S.c);
     __syncthreads();
   }
 
-  if (blockIdx.x == 0 && tid == 0) {
-    const State& s = S.st;
-    float* o = a.out;
-    for (int r = 0; r < 3; ++r) {
-      for (int c = 0; c < 3; ++c) o[4 * r + c] = s.Rt[3 * r + c];
-      o[4 * r + 3] = -s.tT[r];
+  if (blockIdx.x == 0)
+    for (int L = tid; L < a.lanes; L += NT) {
+      const State& s = lanes[L].st;
+      float* o = a.out + static_cast<size_t>(L) * NOUT;
+      for (int r = 0; r < 3; ++r) {
+        for (int c = 0; c < 3; ++c) o[4 * r + c] = s.Rt[3 * r + c];
+        o[4 * r + 3] = -s.tT[r];
+      }
+      for (int i = 0; i < 9; ++i) o[12 + i] = s.R[i];
+      for (int i = 0; i < 3; ++i) o[21 + i] = s.T[i];
+      o[24] = static_cast<float>(s.k);
+      o[25] = static_cast<float>(s.conv);
+      o[26] = s.ell;
+      for (int i = 0; i < 3; ++i) o[27 + i] = s.om[i];
+      for (int i = 0; i < 3; ++i) o[30 + i] = s.v[i];
     }
-    for (int i = 0; i < 9; ++i) o[12 + i] = s.R[i];
-    for (int i = 0; i < 3; ++i) o[21 + i] = s.T[i];
-    o[24] = static_cast<float>(s.k);
-    o[25] = static_cast<float>(s.conv);
-    o[26] = s.ell;
-    for (int i = 0; i < 3; ++i) o[27 + i] = s.om[i];
-    for (int i = 0; i < 3; ++i) o[30 + i] = s.v[i];
-  }
 }
 
 template <bool RESIDENT, bool ADAPTIVE>
 int launch(Args a, cudaStream_t stream) {
   const void* fn = reinterpret_cast<const void*>(align_kernel<RESIDENT, ADAPTIVE>);
+  // the lanes' states; above 48 KB only after opting in
+  const size_t dyn = static_cast<size_t>(a.lanes) * sizeof(Lane);
   int dev = 0, sms = 0, coop = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err == cudaSuccess && dyn > 48 * 1024)
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(dyn));
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, align_kernel<RESIDENT, ADAPTIVE>, NT, 0);
+        &per_sm, align_kernel<RESIDENT, ADAPTIVE>, NT, dyn);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (!coop) return static_cast<int>(cudaErrorNotSupported);
   if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
   const int grid = sms * (per_sm < BLOCKS_PER_SM ? per_sm : BLOCKS_PER_SM);
   void* params[] = {&a};
-  err = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(NT), params, 0,
+  err = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(NT), params, dyn,
                                     stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
@@ -788,7 +894,7 @@ Args pack(const float* xp, const float* xf, const float* xm, const float* yp,
           const float* sched, float* mom_part, int* cnt_part, float* mom,
           float* flow_part, float* self_w, int* self_c, float* red,
           float* bcde_part, float* out, int n, int m, int per, int n_chunks,
-          int n_sched) {
+          int n_sched, int lanes) {
   Args a;
   a.xp = xp, a.xf = xf, a.xm = xm, a.yp = yp, a.yf = yf, a.ym = ym;
   a.phi = phi, a.shift = shift, a.xb = xb, a.md_xx = md_xx, a.md_yy = md_yy;
@@ -796,7 +902,7 @@ Args pack(const float* xp, const float* xf, const float* xm, const float* yp,
   a.cnt_part = cnt_part, a.mom = mom, a.flow_part = flow_part;
   a.self_w = self_w, a.self_c = self_c, a.red = red, a.bcde_part = bcde_part;
   a.out = out, a.n = n, a.m = m, a.per = per, a.n_chunks = n_chunks;
-  a.n_sched = n_sched;
+  a.n_sched = n_sched, a.lanes = lanes;
   return a;
 }
 
@@ -810,16 +916,18 @@ Args pack(const float* xp, const float* xf, const float* xm, const float* yp,
       float *mom_part, int *cnt_part, float *mom, float *flow_part,          \
       float *self_w, int *self_c, float *red, float *bcde_part, float *out,  \
       int n, int m, int per, int n_chunks, int n_sched, int adaptive,        \
-      cudaStream_t stream
+      int lanes, cudaStream_t stream
 
 #define ALIGN_FUSED_PACK                                                     \
   pack(xp, xf, xm, yp, yf, ym, phi, shift, xb, md_xx, md_yy, consts, init,   \
        sched, mom_part, cnt_part, mom, flow_part, self_w, self_c, red,       \
-       bcde_part, out, n, m, per, n_chunks, n_sched)
+       bcde_part, out, n, m, per, n_chunks, n_sched, lanes)
 
-// Tiled mode: xb [n / 64, 6] tile boxes or null (no skip); for acvo,
-// md_xx / md_yy the self bounds at 64 or null.  Scratch shapes are those
-// of ops/align_fused.py:align_fused_cuda.  Returns a cudaError_t.
+// Tiled mode: xb [lanes, n / 64, 6] tile boxes or null (no skip); for
+// acvo, md_xx / md_yy the self bounds at 64 or null.  Every array has a
+// leading axis of `lanes`, but consts and sched, which all lanes share;
+// scratch shapes are those of ops/align_fused.py:_launch.  Returns a
+// cudaError_t.
 extern "C" int align_fused_tiled_launch(ALIGN_FUSED_ARGS) {
   const Args a = ALIGN_FUSED_PACK;
   return adaptive ? launch<false, true>(a, stream)

@@ -15,6 +15,11 @@ and its failure reset stay on the device, so
 the host dispatches frame i+1 without waiting for frame i.  Results come
 back every `fetch_every` frames in one `.cpu()` copy; pose chaining
 happens on the host in float64 from those per-pair transforms.
+
+`run_odometry_batched[_frames]` is the offline form (the JAX package's
+`odometry.py:run_odometry_batched`): the frame pairs are independent,
+so `batch` of them are registered per `parallel.align_batched` call (on
+the fused backend, one kernel launch) and chained afterwards.
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ import time
 import numpy as np
 import torch
 
-from cvo_rgbd_torch.core.cloud import cloud_ok
+from cvo_rgbd_torch.core.cloud import cloud_ok, stack_clouds
 from cvo_rgbd_torch.core.registration import align, check_supported
 from cvo_rgbd_torch.device import pin_fp32, resolve_device
 from cvo_rgbd_torch.frontend import make_frontend
@@ -242,6 +247,184 @@ def run_odometry_frames(
         total = time.time() - total_t0
         log(f"processed {n} pairs in {total:.1f}s ({n / total:.2f} frames/s)")
     return records
+
+
+def run_odometry_batched_frames(
+    frames,
+    dataset_seq,
+    adaptive=False,
+    params=None,
+    traj=None,
+    num_want=3000,
+    batch=8,
+    motion_prior=False,
+    min_valid=64,
+    log=print,
+    device=None,
+):
+    """Offline odometry over `frames` (as `run_odometry_frames` takes
+    them) with batched pair registration: `batch` pairs per
+    `parallel.align_batched` call, the last chunk padded by repeating its
+    last pair, then the poses chained on the host.  Every pair starts
+    cold (identity, ell_init).  Returns list[FrameRecord]; the TUM lines
+    go to `traj` (an open text file, or None).
+
+    `motion_prior` (default False): warm-start every lane of chunk k+1
+    with the last sane relative transform of chunk k, a constant-velocity
+    stand-in for the reference's across-pair warm start (lane j's true
+    predecessor is lane j-1 of the same chunk).  The optimum is the same
+    within tolerance and the iterations drop on smooth sequences; off by
+    default, so the result does not depend on the chunking.
+
+    `min_valid`: a pair touching a degenerate cloud (core.cloud.cloud_ok)
+    is marked failed, as in `run_odometry_frames`, and never seeds the
+    prior.  Without `motion_prior` the chunks are independent, so their
+    results are read back four chunks at a time, in one copy."""
+    from cvo_rgbd_torch.parallel import align_batched
+
+    params = params or (AcvoParams() if adaptive else CvoParams())
+    check_supported(params)
+    dev = resolve_device(device)
+    pin_fp32()
+    frontend = make_frontend(dataset_seq, num_want, 0 if adaptive else 1,
+                             device=str(dev))
+    total_t0 = time.time()
+    names, clouds = [], []
+    for _, name, rgb, dep in frames:
+        names.append(name)
+        clouds.append(frontend(rgb, dep))
+    if len(clouds) < 2:
+        raise ValueError("need at least 2 frames")
+    n_pairs = len(clouds) - 1
+    # one cloud_ok a cloud, read back in one copy; the AND on the host
+    oks = torch.stack([cloud_ok(c, min_valid) for c in clouds]).cpu().numpy()
+    pair_ok = oks[:-1] & oks[1:]
+
+    rels, iters, conv, pair_secs = [], [], [], []
+    prior = None          # (R0 [3,3], T0 [3], ell0) from the last chunk
+    pending = []          # (pair indices, [B, 18] results on the device)
+    flush_chunks = 4
+    group_t0 = time.time()
+
+    def packed(res):
+        b = res.tf.shape[0]
+        return torch.cat([res.tf.reshape(b, 16),
+                          res.iterations.to(torch.float32)[:, None],
+                          res.converged.to(torch.float32)[:, None]], dim=1)
+
+    def collect(idxs, rows, secs):
+        for k, _ in enumerate(idxs):
+            rels.append(rows[k, :16].reshape(4, 4).astype(np.float64))
+            iters.append(int(rows[k, 16]))
+            conv.append(bool(rows[k, 17]))
+            pair_secs.append(secs)
+        log(f"pairs {idxs[0]}..{idxs[-1]} registered")
+
+    def flush_pending():
+        nonlocal group_t0
+        if not pending:
+            return
+        flat = torch.cat([rows for _, rows in pending]).cpu().numpy()
+        per = (time.time() - group_t0) / sum(len(i) for i, _ in pending)
+        at = 0
+        for idxs, rows in pending:
+            collect(idxs, flat[at:at + rows.shape[0]], per)
+            at += rows.shape[0]
+        pending.clear()
+        group_t0 = time.time()
+
+    for start in range(0, n_pairs, batch):
+        chunk_t0 = time.time()
+        idxs = list(range(start, min(start + batch, n_pairs)))
+        pad = idxs + [idxs[-1]] * (batch - len(idxs))
+        fb = stack_clouds([clouds[i] for i in pad])
+        mb = stack_clouds([clouds[i + 1] for i in pad])
+        kw = {}
+        if motion_prior and prior is not None:
+            kw = dict(
+                R0=np.broadcast_to(prior[0], (batch, 3, 3)).copy(),
+                T0=np.broadcast_to(prior[1], (batch, 3)).copy(),
+                ell0=np.full((batch,), prior[2], np.float32),
+            )
+        res = align_batched(params, fb, mb, device=dev, **kw)
+        if not motion_prior:
+            pending.append((idxs, packed(res)))
+            if len(pending) >= flush_chunks:
+                flush_pending()
+            continue
+        # the prior needs this chunk's transforms before the next dispatch
+        b = len(pad)
+        flat = torch.cat([packed(res), res.R.reshape(b, 9), res.T,
+                          res.ell[:, None]], dim=1).cpu().numpy()
+        # the seed must come from a lane whose inputs were sane, not one
+        # whose transform is merely finite (a degenerate cloud converges
+        # to a finite identity)
+        fin = np.isfinite(flat[:, :16]).all(axis=1) & pair_ok[np.array(pad)]
+        if fin.any():
+            last = int(np.max(np.nonzero(fin)[0]))
+            prior = (flat[last, 18:27].reshape(3, 3), flat[last, 27:30],
+                     params.ell_init if adaptive else float(flat[last, 30]))
+        else:
+            prior = None
+        collect(idxs, flat, (time.time() - chunk_t0) / len(idxs))
+    flush_pending()
+
+    records = []
+    accum = np.eye(4)
+    if traj is not None:
+        write_trajectory_line(traj, names[0], accum)
+    for i, rel in enumerate(rels):
+        failed = not (bool(pair_ok[i]) and bool(np.isfinite(rel).all()))
+        if not failed:
+            accum = accum @ rel
+        if traj is not None:
+            write_trajectory_line(traj, names[i + 1], accum)
+        records.append(FrameRecord(
+            index=i + 1, name=names[i + 1], iterations=iters[i],
+            converged=conv[i], failed=failed, seconds=pair_secs[i],
+        ))
+    total = time.time() - total_t0
+    log(f"{n_pairs} pairs in {total:.1f}s ({n_pairs / total:.2f} pairs/s, "
+        f"batch={batch})")
+    return records
+
+
+def run_odometry_batched(
+    folder,
+    dataset_seq,
+    adaptive=False,
+    params=None,
+    output=None,
+    max_frames=None,
+    num_want=3000,
+    batch=8,
+    motion_prior=False,
+    min_valid=64,
+    log=print,
+    device=None,
+):
+    """`run_odometry_batched_frames` over a TUM-format folder, the
+    trajectory written to `output` (default as `run_odometry`).  Returns
+    list[FrameRecord]."""
+    entries = load_assoc(os.path.join(folder, "assoc.txt"))
+    if max_frames:
+        entries = entries[:max_frames]
+    if output is None:
+        output = os.path.join(
+            folder, "acvo_poses_qt.txt" if adaptive else "cvo_poses_qt.txt"
+        )
+
+    def frames():
+        for i, e in enumerate(entries):
+            yield (i, e.name, *load_image_pair(folder, e))
+
+    with open(output, "w") as traj:
+        return run_odometry_batched_frames(
+            frames(), dataset_seq, adaptive=adaptive, params=params,
+            traj=traj, num_want=num_want, batch=batch,
+            motion_prior=motion_prior, min_valid=min_valid, log=log,
+            device=device,
+        )
 
 
 def load_image_pair(folder, entry):

@@ -20,7 +20,7 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 KERNELS = ("color_gram", "fused_moments", "fused_wsq", "align_fused",
-           "fused_flow")
+           "fused_flow", "construct_probe")
 
 # No --use_fast_math: it turns expf into __expf and flushes denormals,
 # and the Gram needs the accurate exp (csrc/pair_tile.cuh).
@@ -40,13 +40,14 @@ SIGNATURES = {
     ),
     "fused_wsq": ("fused_wsq_launch", [_P] * 12 + [_I, _I, _I, _I, _P]),
     "align_fused_tiled": (
-        "align_fused_tiled_launch", [_P] * 23 + [_I] * 6 + [_P]
+        "align_fused_tiled_launch", [_P] * 23 + [_I] * 7 + [_P]
     ),
     "align_fused_resident": (
-        "align_fused_resident_launch", [_P] * 23 + [_I] * 6 + [_P]
+        "align_fused_resident_launch", [_P] * 23 + [_I] * 7 + [_P]
     ),
     "fused_flow": ("fused_flow_launch", [_P] * 11 + [_I] * 5 + [_P]),
     "fused_step_coeffs": ("fused_step_launch", [_P] * 11 + [_I] * 5 + [_P]),
+    "construct_probe": ("construct_probe_launch", [_I] + [_P] * 6),
 }
 # entry points that live in another source's library
 LIBRARY = {

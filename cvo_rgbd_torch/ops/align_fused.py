@@ -9,8 +9,15 @@ flow, the line-search coefficients, the cubic, the SE(3) update, both
 stops and the length-scale update, with no host round trip and one
 launch per align.
 
+`align_fused_batched` registers B pairs stacked on a leading lane axis
+(`core.cloud.stack_clouds`) in ONE launch of the same kernel, as the JAX
+package's vmap of align_fused does (its bench.py headline path): every
+lane runs its own loop, stops on its own and freezes once converged, and
+each lane's results are the bits of its pair's single-pair launch.  The
+single-pair wrapper is the batched launch with one lane.
+
 On a CUDA tensor the wrapper launches `csrc/align_fused.cu` (or raises);
-on a CPU tensor it runs `align_fused_plain`, a Python loop over
+on a CPU tensor it runs `align_fused_plain` (lane by lane), a Python loop over
 iterations on dense [N, M] tensors that follows the kernel's algebra for
 each mode:
 
@@ -91,8 +98,9 @@ def fused_mode(p, fixed: PointCloud, moving: PointCloud):
     """None (not eligible), "resident" or "tiled", with the thresholds
     of the JAX package's `_fused_mode` (pallas_align.py:1201-1234) but
     its feature count, which `fused_eligible` checks on the clouds align
-    is given (it pads them before the launch)."""
-    n, m = fixed.positions.shape[0], moving.positions.shape[0]
+    is given (it pads them before the launch).  Stacked clouds are
+    judged by their lanes' shapes."""
+    n, m = fixed.positions.shape[-2], moving.positions.shape[-2]
     adaptive = isinstance(p, AcvoParams)
     if adaptive and (p.yy_quirk or p.color_mode != "se"):
         return None
@@ -112,7 +120,7 @@ def fused_eligible(p, fixed: PointCloud, moving: PointCloud) -> bool:
     """True when `align_fused` can run this problem (see `fused_mode`).
     In linear color mode the clouds must carry the 3 colors the kernel
     forms the CI from, as in the JAX package's `_fused_mode`."""
-    if p.color_mode == "linear" and fixed.features.shape[1] != 3:
+    if p.color_mode == "linear" and fixed.features.shape[-1] != 3:
         return False
     return fused_mode(p, fixed, moving) is not None
 
@@ -201,13 +209,26 @@ def _self_bounds(cloud):
     return aabb_min_d2(lo, hi, lo, hi)
 
 
+def _pairwise_sum(t):
+    """Sum over dim -2 by halving, in an order fixed by the length alone:
+    a lane's sum is the same bits whatever the lanes beside it (a torch
+    reduction may split its order by the size of the whole tensor)."""
+    while t.shape[-2] > 1:
+        if t.shape[-2] % 2:
+            t = torch.cat([t, torch.zeros_like(t[..., :1, :])], dim=-2)
+        half = t.shape[-2] // 2
+        t = t[..., :half, :] + t[..., half:, :]
+    return t[..., 0, :]
+
+
 def moments_center(fixed: PointCloud):
-    """(c0, Phi(x - c0) [N, 35]): the masked centroid of the fixed cloud
-    centers the moment basis (pallas_align.py:1286-1294)."""
+    """(c0 [..., 3], Phi(x - c0) [..., N, 35]): the masked centroid of
+    the fixed cloud centers the moment basis (pallas_align.py:1286-1294);
+    a leading lane axis passes through."""
     w = fixed.mask
-    c0 = torch.sum(fixed.positions * w[:, None], dim=0) / torch.clamp_min(
-        torch.sum(w), 1.0)
-    return c0, monomial_features(fixed.positions - c0)
+    c0 = _pairwise_sum(fixed.positions * w[..., None]) / torch.clamp_min(
+        torch.sum(w, dim=-1, keepdim=True), 1.0)
+    return c0, monomial_features(fixed.positions - c0[..., None, :])
 
 
 def _transform(R, T, pos):
@@ -340,21 +361,41 @@ def align_fused_plain(p, fixed: PointCloud, moving: PointCloud, R0=None,
 
 
 def result_from_row(row):
-    """AlignResult from the [33] row, with no host sync."""
+    """AlignResult from the [..., 33] rows (a leading lane axis passes
+    through), with no host sync."""
     from cvo_rgbd_torch.core.registration import AlignResult
 
+    lead = row.shape[:-1]
     bottom = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=row.dtype,
-                          device=row.device)
+                          device=row.device).expand(*lead, 1, 4)
     return AlignResult(
-        tf=torch.cat([row[0:12].reshape(3, 4), bottom]),
-        R=row[12:21].reshape(3, 3),
-        T=row[21:24],
-        iterations=row[24].to(torch.int32) - 1,
-        converged=row[25] > 0,
-        ell=row[26],
-        omega=row[27:30],
-        v=row[30:33],
+        tf=torch.cat([row[..., 0:12].reshape(*lead, 3, 4), bottom], dim=-2),
+        R=row[..., 12:21].reshape(*lead, 3, 3),
+        T=row[..., 21:24],
+        iterations=row[..., 24].to(torch.int32) - 1,
+        converged=row[..., 25] > 0,
+        ell=row[..., 26],
+        omega=row[..., 27:30],
+        v=row[..., 30:33],
     )
+
+
+def _check(name, p, fixed: PointCloud, moving: PointCloud):
+    """The mode of an eligible problem with NFEAT feature planes."""
+    mode = fused_mode(p, fixed, moving)
+    if mode is None:
+        raise ValueError(
+            f"{name}: problem not eligible for the fused kernel "
+            "(capacity alignment, pair budget, or yy_quirk); use "
+            "backend='kernel' or 'dense'"
+        )
+    for c in (fixed, moving):
+        if c.features.shape != c.positions.shape[:-1] + (NFEAT,):
+            raise ValueError(f"{name}: features must be [..., N, {NFEAT}]")
+    dev = fixed.positions.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    return mode
 
 
 def align_fused(p, fixed: PointCloud, moving: PointCloud, R0=None, T0=None,
@@ -363,34 +404,45 @@ def align_fused(p, fixed: PointCloud, moving: PointCloud, R0=None, T0=None,
     AlignResult (tf from the top of the last executed iteration,
     iterations = k - 1, cvo.cpp:413-415).  `R0`/`T0`/`ell0` seed the
     state as in core.registration.align."""
-    mode = fused_mode(p, fixed, moving)
-    if mode is None:
-        raise ValueError(
-            "align_fused: problem not eligible for the fused kernel "
-            "(capacity alignment, pair budget, or yy_quirk); use "
-            "backend='kernel' or 'dense'"
-        )
-    for c in (fixed, moving):
-        if c.features.shape != (c.positions.shape[0], NFEAT):
-            raise ValueError(f"align_fused: features must be [N, {NFEAT}]")
-    dev = fixed.positions.device
-    if dev.type == "cpu":
+    mode = _check("align_fused", p, fixed, moving)
+    if fixed.positions.device.type == "cpu":
         return result_from_row(
             align_fused_plain(p, fixed, moving, R0, T0, ell0, mode))
-    if dev.type != "cuda":
-        raise ValueError(f"align_fused: unsupported device {dev}")
     return result_from_row(
         align_fused_cuda(p, fixed, moving, R0, T0, ell0, mode))
 
 
+def align_fused_batched(p, fixed: PointCloud, moving: PointCloud, R0=None,
+                        T0=None, ell0=None):
+    """B aligns of (already kd-sorted) clouds stacked on a leading lane
+    axis, in one launch; returns a batched AlignResult.  `R0` [B,3,3],
+    `T0` [B,3] and `ell0` [B] seed each lane's state.  On the CPU the
+    plain version runs lane by lane."""
+    mode = _check("align_fused_batched", p, fixed, moving)
+    if fixed.positions.device.type == "cuda":
+        return result_from_row(
+            align_fused_batched_cuda(p, fixed, moving, R0, T0, ell0, mode))
+    rows = []
+    for i in range(fixed.positions.shape[0]):
+        warm = [None if w is None else w[i] for w in (R0, T0, ell0)]
+        rows.append(align_fused_plain(p, fixed.lane(i), moving.lane(i),
+                                      *warm, mode))
+    return result_from_row(torch.stack(rows))
+
+
 def _pad_rows(cloud: PointCloud, n: int) -> PointCloud:
     """Masked zero rows up to capacity n: they gate to A = 0."""
-    extra = n - cloud.positions.shape[0]
+    ax = cloud.mask.dim() - 1
+    extra = n - cloud.mask.shape[ax]
     if extra == 0:
         return cloud
-    return PointCloud(*(
-        torch.cat([t, t.new_zeros((extra,) + t.shape[1:])]) for t in cloud
-    ))
+
+    def pad(t):
+        shape = list(t.shape)
+        shape[ax] = extra
+        return torch.cat([t, t.new_zeros(shape)], dim=ax)
+
+    return PointCloud(*(pad(t) for t in cloud))
 
 
 def _upload(values, dev):
@@ -406,42 +458,73 @@ def _shift_table_on(dev):
     return SHIFT_TABLE.to(dev)
 
 
+def _init_rows(p, dev, b, R0, T0, ell0, c0):
+    """[b, 16] init rows (R0 9 | T0 3 | c0 3 | ell0): identity and
+    p.ell_init unless R0 [b,3,3] / T0 [b,3] / ell0 [b] (or one pair's,
+    for every lane) say otherwise, as core.registration.init_state."""
+    f32 = torch.float32
+
+    def given(v, default):
+        return (default if v is None
+                else torch.as_tensor(v, dtype=f32).to(dev))
+
+    R = given(R0, torch.eye(3, dtype=f32, device=dev)).expand(b, 3, 3)
+    T = given(T0, torch.zeros(3, dtype=f32, device=dev)).expand(b, 3)
+    ell = given(ell0, torch.full((), p.ell_init, dtype=f32, device=dev))
+    return torch.cat([R.reshape(b, 9), T.reshape(b, 3), c0.reshape(b, 3),
+                      ell.expand(b).reshape(b, 1)], dim=1).contiguous()
+
+
 def align_fused_cuda(p, fixed: PointCloud, moving: PointCloud, R0=None,
                      T0=None, ell0=None, mode=None):
-    """Launch csrc/align_fused.cu on CUDA tensors; returns the [33]
-    result row and counts one launch in `align_fused.launches`.  A
-    refused cooperative launch raises."""
+    """Launch csrc/align_fused.cu on one pair of CUDA tensors: the
+    batched launch with one lane.  Returns the [33] result row."""
+    one = [None if w is None else torch.as_tensor(w)[None]
+           for w in (R0, T0, ell0)]
+    return align_fused_batched_cuda(
+        p, PointCloud(*(t[None] for t in fixed)),
+        PointCloud(*(t[None] for t in moving)), *one, mode)[0]
+
+
+def align_fused_batched_cuda(p, fixed: PointCloud, moving: PointCloud,
+                             R0=None, T0=None, ell0=None, mode=None):
+    """Launch csrc/align_fused.cu once on B stacked pairs of CUDA tensors
+    ([B, N, ...]); returns the [B, 33] result rows and counts one launch
+    in `align_fused.launches`.  A refused cooperative launch raises.
+    The per-align constants and the ell schedule are uploaded once for
+    the batch; every other input and scratch has a leading lane axis."""
     mode = mode or fused_mode(p, fixed, moving)
     adaptive = isinstance(p, AcvoParams)
     dev = fixed.positions.device
     f32 = torch.float32
     resident = mode == "resident"
+    b = fixed.positions.shape[0]
     # a resident fixed cloud whose capacity is a multiple of 8 only is
     # padded to whole row items; the padding rows are masked out
-    fixed_k = _pad_rows(fixed, -(-fixed.positions.shape[0] // ROWS) * ROWS)
+    n = -(-fixed.positions.shape[1] // ROWS) * ROWS
+    fixed_k = _pad_rows(fixed, n)
     c0, phi = moments_center(fixed)
-    phi = torch.cat([phi, phi.new_zeros(
-        (fixed_k.positions.shape[0] - phi.shape[0], NUM_MONO))])
-    R, T, ell = _initial(p, dev, R0, T0, ell0)
-    init = torch.cat([R.reshape(9), T.reshape(3), c0.reshape(3),
-                      ell.reshape(1)]).contiguous()
+    phi = torch.cat([phi, phi.new_zeros((b, n - phi.shape[1], NUM_MONO))],
+                    dim=1)
+    init = _init_rows(p, dev, b, R0, T0, ell0, c0)
     consts = _upload(constants(p), dev)
     sched = () if adaptive else tuple(p.ell_sched)
     # (after k, ell) pairs; one unused slot when there are none
     sched_t = _upload([float(v) for step in sched for v in step] or [0.0],
                       dev)
     table = _shift_table_on(dev)
-    n, m = fixed_k.positions.shape[0], moving.positions.shape[0]
+    m = moving.positions.shape[1]
     use_skip = (not resident) and p.tile_skip
     xb = md_xx = md_yy = None
     if use_skip:
         lo, hi = block_bounds(fixed_k.positions, fixed_k.mask, TILE_I)
-        xb = torch.cat([lo, hi], dim=1).contiguous()
+        xb = torch.cat([lo, hi], dim=-1).contiguous()
         if adaptive:
             md_xx = _self_bounds(fixed_k).contiguous()
             md_yy = _self_bounds(moving).contiguous()
     opt = tuple(t for t in (xb, md_xx, md_yy) if t is not None)
-    clouds = (*fixed_k, *moving)
+    clouds = tuple(t.contiguous() for t in (*fixed_k, *moving))
+    phi = phi.contiguous()
     check_inputs("align_fused",
                  clouds + (phi, init, consts, sched_t) + opt, dev)
 
@@ -453,8 +536,9 @@ def align_fused_cuda(p, fixed: PointCloud, moving: PointCloud, R0=None,
     n_flow = n_rows if resident else nbj
 
     def buf(shape, dtype=f32):
-        return torch.empty(shape, dtype=dtype, device=dev)
+        return torch.empty((b,) + shape, dtype=dtype, device=dev)
 
+    # per-lane scratch, the strides of csrc/align_fused.cu:at_lane
     mom_part = buf((n_chunks, NUM_MONO, m))
     cnt_part = buf((n_chunks * nbj,), torch.int32)
     mom = buf((NUM_MONO, m))
@@ -476,7 +560,7 @@ def align_fused_cuda(p, fixed: PointCloud, moving: PointCloud, R0=None,
         sched_t.data_ptr(), mom_part.data_ptr(), cnt_part.data_ptr(),
         mom.data_ptr(), flow_part.data_ptr(), self_w.data_ptr(),
         self_c.data_ptr(), red.data_ptr(), bcde_part.data_ptr(),
-        out.data_ptr(), n, m, per, n_chunks, len(sched), int(adaptive),
+        out.data_ptr(), n, m, per, n_chunks, len(sched), int(adaptive), b,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(name, err)

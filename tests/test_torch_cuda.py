@@ -457,3 +457,79 @@ def test_matlab_align_on_card_matches_cpu(dev, backend, step_mode):
     assert bool(gpu.converged) and bool(cpu.converged)
     # the JAX suite's stop-skew tolerance (tests/test_parallel.py:217)
     assert (gpu.tf.cpu() - cpu.tf).abs().max().item() <= 3e-4
+
+
+@pytest.mark.parametrize("case", ["a", "b", "b2", "c", "d", "e", "h", "i",
+                                  "j", "k"])
+def test_construct_probe_kernel_matches_plain(dev, case):
+    from cvo_rgbd_torch import probes
+
+    ins = probes.inputs(case, dev)
+    launches = probes.construct_probe.launches
+    got = probes.construct_probe(case, *ins)
+    assert probes.construct_probe.launches == launches + 1
+    ref = probes.construct_probe_plain(case, *ins)
+    if case == "e":
+        # fp32 sums of 256 products in another order
+        assert (got - ref).abs().max().item() <= 1e-6 * probes.CLOSED["e"]
+    else:
+        assert torch.equal(got, ref)
+    assert probes.closed_form_ok(case, got[0, 0].item())
+
+
+@pytest.mark.parametrize("case", ["f", "g", "g2_x2_y1", "g3_x1_y2"])
+def test_probe_tiled_align_matches_plain(dev, case):
+    from cvo_rgbd_torch import probes
+    from cvo_rgbd_torch.ops.align_fused import (
+        align_fused_cuda,
+        align_fused_plain,
+    )
+
+    p, x, y = probes.tiled_problem(case, dev)
+    row = align_fused_cuda(p, x, y, mode="tiled")
+    ref = align_fused_plain(p, x, y, mode="tiled")
+    assert row[24].item() == ref[24].item()
+    assert (row[:12] - ref[:12]).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("mode,cap", [("resident", 256), ("tiled", 1152)])
+@pytest.mark.parametrize("algo", ["cvo", "acvo"])
+def test_align_fused_batched_lanes_are_single_launches(dev, algo, mode, cap):
+    """One launch for the batch; each lane the bits of its pair's
+    single-pair launch, a retired (empty) lane and ragged clouds
+    included."""
+    from cvo_rgbd_torch import pad_cloud
+    from cvo_rgbd_torch.core.cloud import kd_sort, stack_clouds
+    from cvo_rgbd_torch.ops.align_fused import (
+        align_fused,
+        align_fused_batched_cuda,
+        align_fused_cuda,
+        fused_mode,
+    )
+    from cvo_rgbd_torch.params import AcvoParams, CvoParams
+
+    cls = CvoParams if algo == "cvo" else AcvoParams
+    p = cls(backend="fused", eps=5e-4, eps_2=1e-4, max_iter=60)
+
+    def pair(k):
+        # a shifted copy of a compact cloud: every lane iterates
+        rng = np.random.default_rng(k)
+        n = cap - 100 * k
+        pos = rng.standard_normal((n + 30, 3)) * 0.4
+        feat = rng.random((n + 30, 5)) * np.array([255, 255, 255, 60, 60])
+        y = pos[20:20 + n] + np.array([0.02, -0.01, 0.015])
+        return (kd_sort(pad_cloud(pos[:n], feat[:n], cap, device=dev)),
+                kd_sort(pad_cloud(y, feat[20:20 + n], cap, device=dev)))
+
+    pairs = [pair(k) for k in range(3)]
+    pairs.append((pairs[0][0], pad_cloud(np.zeros((0, 3)), capacity=cap,
+                                         device=dev)))
+    fb = stack_clouds([x for x, _ in pairs])
+    mb = stack_clouds([y for _, y in pairs])
+    assert fused_mode(p, fb, mb) == mode
+    launches = align_fused.launches
+    rows = align_fused_batched_cuda(p, fb, mb)
+    assert align_fused.launches == launches + 1
+    for k, (x, y) in enumerate(pairs):
+        assert torch.equal(rows[k], align_fused_cuda(p, x, y)), k
+    assert rows[3, 24].item() == 1 and rows[:3, 24].gt(1).all()
