@@ -33,11 +33,12 @@ def _eval(a, b, c, d, t):
     return ((a * t + b) * t + c) * t + d
 
 
-def cubic_roots(a, b, c, d):
-    """Real roots of a t^3 + b t^2 + c t + d, degenerate-degree safe.
+def cubic_roots(a, b, c, d, dtype=torch.float32):
+    """Real roots of a t^3 + b t^2 + c t + d, degenerate-degree safe,
+    computed in `dtype` (float32 but for a float64 reference).
 
     Returns (roots [..,3], valid [..,3]); invalid slots hold +inf."""
-    a, b, c, d = (v.to(torch.float32) for v in (a, b, c, d))
+    a, b, c, d = (v.to(dtype) for v in (a, b, c, d))
     coef_scale = torch.maximum(
         torch.maximum(torch.abs(a), torch.abs(b)),
         torch.maximum(torch.abs(c), torch.abs(d)),
@@ -77,7 +78,7 @@ def cubic_roots(a, b, c, d):
                    denom)
     acos_arg = torch.clamp(3.0 * qs / denom, -1.0, 1.0)
     phi = torch.acos(acos_arg)
-    k = torch.arange(3, dtype=torch.float32, device=a.device)
+    k = torch.arange(3, dtype=dtype, device=a.device)
     s_triple = m[..., None] * torch.cos(
         (phi[..., None] - 2.0 * math.pi * k) / 3.0
     )

@@ -5,20 +5,22 @@
 // and _make_tiled_kernel (mode "tiled", the Gram swept in tiles with the
 // exact AABB skip).  The TPU kernel is one core running a while_loop on
 // scalar carries; here it is one persistent cooperative grid whose blocks
-// run every iteration together, separated by grid-wide barriers:
+// run every iteration together, separated by two grid-wide barriers:
 //
 //   top     every block reads R, T, ell from its own copy of the state
 //           and forms tf = [R', -R'T] and the ell-dependent thresholds
 //           1/(2 ell^2) and thres_c ell^2 in the JAX order (:475, :856-857);
 //   phase 1 work items over the grid, each writing its own partial:
-//           - moment items (j-block of TJ, chunk of i-tiles): momT =
-//             Phi(x - c0)^T A and an int nnz, A recomputed per pair with
-//             its color kernel (pair_tile.cuh), or in MATLAB's linear color
-//             mode (cvo only) with ci = color_scale * (xf . yf) over
-//             features 0-2 and the gate k >= sp_thres (:413-415, :811-816);
-//             tiled mode skips tiles by
-//             the fixed cloud's tile boxes against the box of the item's
-//             transformed y, reduced in the block every iteration;
+//           - moment items (a j-quarter of an i-tile of TI by a j-block
+//             of TJ): the item's momT = Phi(x - c0)^T A and an int nnz
+//             (moment_tile.cuh), A recomputed per pair with its color
+//             kernel (pair_tile.cuh), or in MATLAB's linear color mode
+//             (cvo only) with ci = color_scale * (xf . yf) over features
+//             0-2 and the gate k >= sp_thres (:413-415, :811-816); tiled
+//             mode skips a tile by its box in the fixed cloud against a
+//             box that holds the j-block's transformed points (its
+//             untransformed box through tf, moved_box), a few flops an
+//             item, so a skipped item costs no barrier and no load of y;
 //           - resident only, row items (ROWS rows of x, one per thread,
 //             over all of y): the difference-form flow r_i = sum_j A_ij y_j
 //             - (sum_j A_ij) x_i (:507-528) and sum A d2;
@@ -26,10 +28,15 @@
 //             of x against x and of y against y, off-diagonal tiles counted
 //             twice (:947-1054); y is transformed in tiled mode and not in
 //             resident mode (the self distances are rigid-invariant);
-//   barrier
-//   phase 2 per j-block: momT = sum of the chunk partials in chunk order;
-//           tiled mode also forms the moment-form flow terms per j
-//           (:915-945).  The last block sums the counts and self partials;
+//   phase 2 inside phase 1, by tickets: the block that runs the last
+//           moment item of a j-block's kept tiles (an int ticket per
+//           j-block, taken after a __threadfence, against the kept count
+//           every block derives by the same rule), or its first item when
+//           it keeps none, sums that j-block's kept partials in i-tile
+//           order; tiled mode also forms the moment-form flow terms per j
+//           (:915-945).  For acvo the last column or self item of a lane
+//           (a ticket of its own) sums the counts and self sums.  Items
+//           run in a scrambled order, so kept tiles spread over blocks;
 //   barrier
 //   phase 3 every block sums the flow partials in a fixed order (omega,
 //           v, and acvo's dl), then per j-block contracts the line-search
@@ -38,7 +45,7 @@
 //   tail    every block sums the B..E partials in a fixed order and runs
 //           the scalar tail on its own thread 0: cubic, Exp_SEK3, the two
 //           stops, the ell schedule or the acvo dl step.  All blocks compute
-//           the same bits, so no fourth barrier is needed; each leaves the
+//           the same bits, so no third barrier is needed; each leaves the
 //           loop at the same iteration, because each reads the same state.
 //
 // Lanes (align_fused_batched, the JAX package's vmap of align_fused): one
@@ -68,14 +75,16 @@
 // (the Gram with its color kernel; chip_smoke.py's OPS_PAIR + OPS_COLOR),
 // each pair once an iteration (the linear color weight costs ~8 where the
 // se color kernel costs 44), plus 70 per gated pair of the moment sweep
-// (35 FMAs); the clouds (a few hundred KB) stay in L2, so the sweep is
-// bound by operations.  Resident mode evaluates each pair twice (the row
-// sweep, then the moment sweep), which the bound does not count.  Three
-// grid barriers per iteration are the fixed cost.
+// (35 FMAs); the clouds (a few hundred KB)
+// stay in L2, so the sweep is bound by operations.  Resident mode
+// evaluates each pair twice (the row sweep, then the moment sweep), which
+// the bound does not count.  Two grid barriers per iteration are the
+// fixed cost.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "align_scalar.cuh"
+#include "moment_tile.cuh"
 #include "pair_tile.cuh"
 
 namespace cg = cooperative_groups;
@@ -83,12 +92,12 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int NT = 128;     // threads per block
-constexpr int TJ = 128;     // j per moment item; ops/moments.py TILE_J
-constexpr int TI = 64;      // i per staged x tile; ops/moments.py TILE_I
+constexpr int TJ = cvo::mt::TJ;  // j per moment item; ops/moments.py TILE_J
+constexpr int TI = cvo::mt::TI;  // i per moment item; ops/moments.py TILE_I
 constexpr int TW = 64;      // self-sweep tile; ops/wsq.py TILE_W
 constexpr int ROWS = 128;   // rows per row item; ops/align_fused.py ROWS
 constexpr int NW = NT / 32;
-constexpr int NMOM = 35;
+constexpr int NMOM = cvo::mt::NMOM;
 constexpr int NSH = 4;
 constexpr int NFLOW = 8;    // flow partial stride
 constexpr int NINIT = 16;   // init row: R0 9, T0 3, c0 3, ell0
@@ -124,11 +133,14 @@ enum Const {
 struct Args {
   const float *xp, *xf, *xm, *yp, *yf, *ym, *phi;
   const int* shift;                    // [35, 4] monomial shift table
-  const float *xb, *md_xx, *md_yy;     // tile boxes / self bounds, or null
+  const float *xb, *yb;                // x and untransformed y tile boxes
+  const float *md_xx, *md_yy;          // self bounds, or null
   const float *consts, *init;          // [N_CONST], [R0 9, T0 3, c0 3, ell0]
   const float* sched;                  // [n_sched, 2] (after k, ell) pairs
-  float* mom_part;                     // [n_chunks, 35, m]
-  int* cnt_part;                       // [n_chunks * nbj]
+  float* mom_part;                     // [n / TI, 35, m] item partials
+  int* cnt_part;                       // [n / TI, nbj] kept tiles' counts
+  int* cnt_col;                        // [nbj] a j-block's kept count
+  int* ticket;                         // [nbj + 1], zero at launch
   float* mom;                          // [35, m]
   float* flow_part;                    // [n_flow, NFLOW]
   float* self_w;                       // [n_self]
@@ -136,7 +148,7 @@ struct Args {
   float* red;                          // [8] counts and self sums
   float* bcde_part;                    // [nbj, 4]
   float* out;                          // [33] result row
-  int n, m, per, n_chunks, n_sched, lanes;
+  int n, m, n_sched, lanes;
 };
 
 // the block's copy of the loop state and per-iteration scalars
@@ -160,19 +172,68 @@ struct Shared {
   float scal[cvo::N_SCAL];
   float c[N_CONST];
   int sh[NMOM * NSH];
-  float box[6];
-  float x[3][TI];
-  float f[TI][cvo::NFEAT];
-  float xm[TI];
-  float phi[TI][NMOM];
-  float y[3][TJ];
-  float yf[TJ][cvo::NFEAT];
-  float ym[TJ];
+  union {
+    // a moment item's i-tile; a self item stages its rows in t.x and t.f
+    cvo::mt::Tile t;
+    // a row item's transformed j-block
+    cvo::mt::Cols rows;
+  };
+  cvo::mt::ColumnScratch cs;
   float red[8 * NW];
   int redi[NW];
+  int last;
   float tw[NT];
   long long tc[NT];
 };
+
+#ifdef ALIGN_PHASE_TIMERS
+// Per-phase timers, compiled in only for the timing tool's own build
+// (cvo_rgbd_torch/time_fused.py --phases; the main library has none):
+// thread 0 of block 0 reads %globaltimer at the top of every iteration
+// and after each barrier, and sums the spans here, in ns, with the
+// number of iterations in the last slot.
+constexpr int NPHASE = 4;
+__device__ unsigned long long g_phase_ns[NPHASE + 1];
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+#define PHASE_TOP()                                          \
+  if (blockIdx.x == 0 && threadIdx.x == 0) t_phase = global_ns();
+#define PHASE_MARK(slot)                                     \
+  if (blockIdx.x == 0 && threadIdx.x == 0) {                 \
+    const unsigned long long now = global_ns();              \
+    g_phase_ns[slot] += now - t_phase;                       \
+    if ((slot) == NPHASE - 1) g_phase_ns[NPHASE] += 1;       \
+    t_phase = now;                                           \
+  }
+// Phase 1's work by kind (moment item of a kept tile, moment item of a
+// skipped tile, column sum, counts, row item, self item): ns and items
+// over all blocks, and each block's busy ns; thread 0 of each block
+// reads the timer around each.
+constexpr int NKIND = 6;
+constexpr int MAX_TIMED_GRID = 4096;
+__device__ unsigned long long g_kind_ns[2 * NKIND];
+__device__ unsigned long long g_busy_ns[MAX_TIMED_GRID];
+#define ITEM_START()                                            \
+  unsigned long long t_item = threadIdx.x == 0 ? global_ns() : 0;
+#define ITEM_DONE(kind)                                          \
+  if (threadIdx.x == 0) {                                        \
+    const unsigned long long now = global_ns();                  \
+    atomicAdd(&g_kind_ns[kind], now - t_item);                   \
+    atomicAdd(&g_kind_ns[NKIND + (kind)], 1ull);                 \
+    if (blockIdx.x < MAX_TIMED_GRID)                             \
+      g_busy_ns[blockIdx.x] += now - t_item;                     \
+    t_item = now;                                                \
+  }
+#else
+#define PHASE_TOP()
+#define PHASE_MARK(slot)
+#define ITEM_START()
+#define ITEM_DONE(kind)
+#endif
 
 __device__ __forceinline__ bool live(const Lane& ln, int max_iter) {
   return ln.st.k < max_iter && ln.st.conv == 0;
@@ -194,11 +255,14 @@ __device__ Args at_lane(const Args& a, int L) {
   o.ym += l * m;
   o.phi += l * n * NMOM;
   if (o.xb != nullptr) o.xb += l * (a.n / TI) * 6;
+  if (o.yb != nullptr) o.yb += l * nbj * 6;
   if (o.md_xx != nullptr) o.md_xx += l * nbx * nbx;
   if (o.md_yy != nullptr) o.md_yy += l * nby * nby;
   o.init += l * NINIT;
-  o.mom_part += l * a.n_chunks * NMOM * m;
-  o.cnt_part += l * a.n_chunks * nbj;
+  o.mom_part += l * (a.n / TI) * NMOM * m;
+  o.cnt_part += l * (a.n / TI) * nbj;
+  o.cnt_col += l * nbj;
+  o.ticket += l * (nbj + 1);
   o.mom += l * NMOM * m;
   o.flow_part += l * max(n_flow, 1) * NFLOW;
   o.self_w += l * max(n_self, 1);
@@ -260,14 +324,14 @@ __device__ __forceinline__ int block_count(int c, Shared& S) {
 }
 
 // (sum of w[lo:hi], sum of c[lo:hi]) over the block in a fixed order,
-// valid in thread 0; w may be null.
+// valid in thread 0; w may be null.  Other blocks wrote them.
 __device__ void block_range_sum(const float* w, const int* c, int lo, int hi,
                                 Shared& S, float* out_w, long long* out_c) {
   float sw = 0.0f;
   long long sc = 0;
   for (int t = lo + threadIdx.x; t < hi; t += NT) {
-    if (w != nullptr) sw += w[t];
-    sc += c[t];
+    if (w != nullptr) sw += __ldcg(w + t);
+    sc += __ldcg(c + t);
   }
   __syncthreads();
   S.tw[threadIdx.x] = sw;
@@ -284,41 +348,35 @@ __device__ void block_range_sum(const float* w, const int* c, int lo, int hi,
   *out_c = S.tc[0];
 }
 
-// Box (lo 3, hi 3) of the valid transformed points of a block into S.box,
-// +inf / -inf when none is valid (core/cloud.py:block_bounds).
-__device__ void block_box(const float* ty, bool valid, Shared& S) {
-  float v[6];
-#pragma unroll
-  for (int r = 0; r < 3; ++r) {
-    v[r] = valid ? ty[r] : INFINITY;
-    v[3 + r] = valid ? ty[r] : -INFINITY;
+// A box holding j-block jb's valid transformed points: the untransformed
+// tile box yb (core/cloud.py:block_bounds) mapped through tf = [Rt, -tT]
+// as its center and |Rt| times its half-widths, widened by far more than
+// the rounding of `transform`.  Every block computes the same bits; an
+// empty block (lo > hi) gives an empty box, which no tile reaches.
+__device__ __forceinline__ void moved_box(const State& st, const float* yb,
+                                          float* box) {
+  if (!(yb[0] <= yb[3])) {
+    for (int r = 0; r < 3; ++r) box[r] = INFINITY, box[3 + r] = -INFINITY;
+    return;
   }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-#pragma unroll
-    for (int r = 0; r < 3; ++r) {
-      v[r] = fminf(v[r], __shfl_down_sync(0xffffffffu, v[r], off));
-      v[3 + r] = fmaxf(v[3 + r], __shfl_down_sync(0xffffffffu, v[3 + r], off));
-    }
-  __syncthreads();
-  if (lane == 0)
-    for (int r = 0; r < 6; ++r) S.red[r * NW + warp] = v[r];
-  __syncthreads();
-  if (threadIdx.x == 0)
-    for (int r = 0; r < 3; ++r) {
-      float lo = S.red[r * NW], hi = S.red[(3 + r) * NW];
-      for (int w = 1; w < NW; ++w) {
-        lo = fminf(lo, S.red[r * NW + w]);
-        hi = fmaxf(hi, S.red[(3 + r) * NW + w]);
-      }
-      S.box[r] = lo;
-      S.box[3 + r] = hi;
-    }
-  __syncthreads();
+  float c[3], h[3];
+  for (int r = 0; r < 3; ++r) {
+    c[r] = 0.5f * (yb[r] + yb[3 + r]);
+    h[r] = 0.5f * (yb[3 + r] - yb[r]);
+  }
+  for (int r = 0; r < 3; ++r) {
+    const float* R = st.Rt + 3 * r;
+    const float cc = R[0] * c[0] + R[1] * c[1] + R[2] * c[2] - st.tT[r];
+    const float hh = fabsf(R[0]) * h[0] + fabsf(R[1]) * h[1] +
+                     fabsf(R[2]) * h[2];
+    const float slack =
+        1e-4f + 1e-5f * (fabsf(cc) + hh + fabsf(st.tT[r]));
+    box[r] = cc - hh - slack;
+    box[3 + r] = cc + hh + slack;
+  }
 }
 
-// Lower bound on d2 between a fixed-cloud tile box [lo 3, hi 3] and S.box.
+// Lower bound on d2 between a fixed-cloud tile box [lo 3, hi 3] and yb.
 __device__ __forceinline__ float box_gap(const float* xb, const float* yb) {
   float md = 0.0f;
 #pragma unroll
@@ -335,69 +393,95 @@ __device__ __forceinline__ float box_gap(const float* xb, const float* yb) {
 __device__ __forceinline__ float pair_weight(bool linear, float d2,
                                              const float* fx, float xm,
                                              const float* fy, float ym,
-                                             const Shared& S) {
-  if (!linear) return cvo::pair_full(d2, fx, xm, fy, ym, S.scal);
+                                             const float* scal,
+                                             float color_scale) {
+  if (!linear) return cvo::pair_full(d2, fx, xm, fy, ym, scal);
   if (!(xm > 0.0f && ym > 0.0f)) return 0.0f;
   const float dot = __fadd_rn(
       __fadd_rn(__fmul_rn(fx[0], fy[0]), __fmul_rn(fx[1], fy[1])),
       __fmul_rn(fx[2], fy[2]));
-  return cvo::pair_linear(d2, __fmul_rn(S.c[C_COLOR_SCALE], dot), S.scal);
+  return cvo::pair_linear(d2, __fmul_rn(color_scale, dot), scal);
 }
 
-template <bool RESIDENT>
-__device__ void moment_item(const Args& a, Shared& S, const Lane& ln, int jb,
-                            int chunk) {
-  const int nbi = a.n / TI, nbj = a.m / TJ;
-  const int j = jb * TJ + threadIdx.x;
-  float ty[3];
-  transform(ln.st, a.yp + 3 * j, ty);
+// A_ij of the thread's j and a tile row (moment_tile.cuh).
+struct AlignWeight {
+  bool linear;
+  float color_scale;
+  const float* s;
+  float y[3];
   float fy[cvo::NFEAT];
-#pragma unroll
-  for (int c = 0; c < cvo::NFEAT; ++c) fy[c] = a.yf[cvo::NFEAT * j + c];
-  const float ymj = a.ym[j];
-  const bool use_skip = !RESIDENT && a.xb != nullptr;
-  const bool linear = S.c[C_LINEAR] != 0.0f;
-  if (use_skip) block_box(ty, ymj > 0.0f, S);
-  const float skip_thres = S.scal[cvo::S_D2_THRES] + SKIP_MARGIN;
+  float ym;
 
+  __device__ __forceinline__ float operator()(int ii, float4 xi,
+                                              const float* fi) const {
+    const float d2 = cvo::sqdist3(xi.x, xi.y, xi.z, y[0], y[1], y[2]);
+    return pair_weight(linear, d2, fi, xi.w, fy, ym, s, color_scale);
+  }
+};
+
+// The tile skip (tiled mode): i-tile c of lane a against the box of a
+// j-block's transformed points is kept unless its lower bound on d2
+// passes the gate; every tile is kept without boxes (resident mode).  A
+// box that holds the points keeps every tile the exact box keeps, and
+// the tiles it keeps besides hold only zero weights.
+__device__ __forceinline__ bool kept_tile(const float* xb, const float* box,
+                                          float thres, int c) {
+  return xb == nullptr || !(box_gap(xb + 6 * c, box) > thres);
+}
+
+// The number of i-tiles kept against a j-block's box, in every thread.
+__device__ int kept_tiles(const Args& a, const float* box, float thres) {
+  const int nbi = a.n / TI;
+  int k = 0;
+  for (int c0 = 0; c0 < nbi; c0 += NT) {
+    const int c = c0 + threadIdx.x;
+    k += __syncthreads_count(c < nbi && kept_tile(a.xb, box, thres, c));
+  }
+  return k;
+}
+
+// One moment item, a kept tile: i-tile ib against j-block jb, its
+// partial momT and count.
+__device__ void moment_item(const Args& a, Shared& S, const Lane& ln, int jb,
+                            int ib) {
+  const int nbj = a.m / TJ;
+  const int j = jb * TJ + threadIdx.x;
+  __syncthreads();  // the last item no longer reads S.t
+  cvo::mt::stage_begin(S.t, a.xp, a.xf, a.xm, a.phi, ib * TI, true);
+  AlignWeight w;
+  w.linear = S.c[C_LINEAR] != 0.0f;
+  w.color_scale = S.c[C_COLOR_SCALE];
+  w.s = S.scal;
+  transform(ln.st, a.yp + 3 * j, w.y);
+#pragma unroll
+  for (int c = 0; c < cvo::NFEAT; ++c) w.fy[c] = a.yf[cvo::NFEAT * j + c];
+  w.ym = a.ym[j];
+  cvo::mt::stage_end();
   float acc[NMOM];
 #pragma unroll
   for (int k = 0; k < NMOM; ++k) acc[k] = 0.0f;
-  int cnt = 0;
-  const int ib0 = chunk * a.per;
-  const int ib1 = min(nbi, ib0 + a.per);
-  for (int ib = ib0; ib < ib1; ++ib) {
-    // block-uniform: S.box and the bounds are the same for every thread
-    if (use_skip && box_gap(a.xb + 6 * ib, S.box) > skip_thres) continue;
-    __syncthreads();
-    const int i0 = ib * TI;
-    for (int t = threadIdx.x; t < TI * NMOM; t += NT)
-      S.phi[t / NMOM][t % NMOM] = a.phi[static_cast<size_t>(i0) * NMOM + t];
-    for (int t = threadIdx.x; t < TI * 3; t += NT)
-      S.x[t % 3][t / 3] = a.xp[3 * i0 + t];
-    for (int t = threadIdx.x; t < TI * cvo::NFEAT; t += NT)
-      S.f[t / cvo::NFEAT][t % cvo::NFEAT] = a.xf[cvo::NFEAT * i0 + t];
-    for (int t = threadIdx.x; t < TI; t += NT) S.xm[t] = a.xm[i0 + t];
-    __syncthreads();
-    for (int ii = 0; ii < TI; ++ii) {
-      const float d2 =
-          cvo::sqdist3(S.x[0][ii], S.x[1][ii], S.x[2][ii], ty[0], ty[1], ty[2]);
-      const float w =
-          pair_weight(linear, d2, S.f[ii], S.xm[ii], fy, ymj, S);
-      // a linear weight may be negative: it enters the sums, and only
-      // w > 0 is counted
-      if (w != 0.0f) {
-        cnt += w > 0.0f;
-#pragma unroll
-        for (int k = 0; k < NMOM; ++k) acc[k] = fmaf(w, S.phi[ii][k], acc[k]);
-      }
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < NMOM; ++k)
-    a.mom_part[(static_cast<size_t>(chunk) * NMOM + k) * a.m + j] = acc[k];
+  const int cnt = cvo::mt::sweep(S.t, w, acc);
+  cvo::mt::store(acc, a.mom_part + static_cast<size_t>(ib) * NMOM * a.m, a.m,
+                 jb * TJ);
   const int tot = block_count(cnt, S);
-  if (threadIdx.x == 0) a.cnt_part[chunk * nbj + jb] = tot;
+  if (threadIdx.x == 0) a.cnt_part[ib * nbj + jb] = tot;
+}
+
+// After an item's writes: true in every thread of the block whose item
+// is the last of `total` to take a ticket at *ticket, which it resets
+// for the next iteration.  The writes of the items before it are then
+// visible to the block (read them at L2, __ldcg).
+__device__ bool last_arrival(int* ticket, int total, Shared& S) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    S.last = atomicAdd(ticket, 1) == total - 1;
+    if (S.last) atomicExch(ticket, 0);
+  }
+  __syncthreads();
+  const bool last = S.last;
+  if (last) __threadfence();
+  return last;
 }
 
 // Resident mode: ROWS rows of x over all of y, the direct-form flow.
@@ -417,22 +501,22 @@ __device__ void row_item(const Args& a, Shared& S, const Lane& ln, int rb) {
       const int j = j0 + threadIdx.x;
       float ty[3];
       transform(ln.st, a.yp + 3 * j, ty);
-      for (int r = 0; r < 3; ++r) S.y[r][threadIdx.x] = ty[r];
+      for (int r = 0; r < 3; ++r) S.rows.y[r][threadIdx.x] = ty[r];
       for (int c = 0; c < cvo::NFEAT; ++c)
-        S.yf[threadIdx.x][c] = a.yf[cvo::NFEAT * j + c];
-      S.ym[threadIdx.x] = a.ym[j];
+        S.rows.f[threadIdx.x][c] = a.yf[cvo::NFEAT * j + c];
+      S.rows.m[threadIdx.x] = a.ym[j];
     }
     __syncthreads();
     for (int jj = 0; jj < TJ; ++jj) {
-      const float d2 = cvo::sqdist3(x0, x1, x2, S.y[0][jj], S.y[1][jj],
-                                    S.y[2][jj]);
-      const float w =
-          pair_weight(linear, d2, fx, xmi, S.yf[jj], S.ym[jj], S);
+      const float d2 = cvo::sqdist3(x0, x1, x2, S.rows.y[0][jj],
+                                    S.rows.y[1][jj], S.rows.y[2][jj]);
+      const float w = pair_weight(linear, d2, fx, xmi, S.rows.f[jj],
+                                  S.rows.m[jj], S.scal, S.c[C_COLOR_SCALE]);
       if (w != 0.0f) {
         sA += w;
-        s0 = fmaf(w, S.y[0][jj], s0);
-        s1 = fmaf(w, S.y[1][jj], s1);
-        s2 = fmaf(w, S.y[2][jj], s2);
+        s0 = fmaf(w, S.rows.y[0][jj], s0);
+        s1 = fmaf(w, S.rows.y[1][jj], s1);
+        s2 = fmaf(w, S.rows.y[2][jj], s2);
         if (ADAPTIVE) sxy = fmaf(w, d2, sxy);
       }
     }
@@ -484,9 +568,8 @@ __device__ void self_item(const Args& a, Shared& S, const Lane& ln, int item,
       transform(ln.st, p, q);
       p[0] = q[0], p[1] = q[1], p[2] = q[2];
     }
-    for (int c = 0; c < 3; ++c) S.x[c][r] = p[c];
-    for (int c = 0; c < cvo::NFEAT; ++c) S.f[r][c] = F[cvo::NFEAT * i + c];
-    S.xm[r] = M[i];
+    S.t.x[r] = make_float4(p[0], p[1], p[2], M[i]);
+    for (int c = 0; c < cvo::NFEAT; ++c) S.t.f[r][c] = F[cvo::NFEAT * i + c];
   }
   __syncthreads();
   const int jj = threadIdx.x % TW;
@@ -504,9 +587,9 @@ __device__ void self_item(const Args& a, Shared& S, const Lane& ln, int item,
   float acc = 0.0f;
   int cnt = 0;
   for (int ii = threadIdx.x / TW; ii < TW; ii += NT / TW) {
-    const float d2 =
-        cvo::sqdist3(S.x[0][ii], S.x[1][ii], S.x[2][ii], py[0], py[1], py[2]);
-    const float w = cvo::pair_full(d2, S.f[ii], S.xm[ii], fy, ymj, S.scal);
+    const float4 xi = S.t.x[ii];
+    const float d2 = cvo::sqdist3(xi.x, xi.y, xi.z, py[0], py[1], py[2]);
+    const float w = cvo::pair_full(d2, S.t.f[ii], xi.w, fy, ymj, S.scal);
     if (w > 0.0f) {
       ++cnt;
       acc = fmaf(w, d2, acc);
@@ -522,17 +605,32 @@ __device__ void self_item(const Args& a, Shared& S, const Lane& ln, int item,
   }
 }
 
-// Tiled mode, per j: momT from the chunk partials and the moment-form
-// flow terms (core/moments.py:flow_from_moments).
+// Per j of a j-block whose moment items have all run: momT, the kept
+// tiles' partials summed in i-tile order (a skipped tile's partial is
+// zero and unwritten), the j-block's count of A > 0, and in tiled mode
+// the moment-form flow terms (core/moments.py:flow_from_moments).
 template <bool RESIDENT>
-__device__ void column_item(const Args& a, Shared& S, const Lane& ln, int jb) {
+__device__ void column_item(const Args& a, Shared& S, const Lane& ln, int jb,
+                            const float* box) {
   const int j = jb * TJ + threadIdx.x;
-  for (int k = 0; k < NMOM; ++k) {
-    float s = 0.0f;
-    for (int c = 0; c < a.n_chunks; ++c)
-      s += a.mom_part[(static_cast<size_t>(c) * NMOM + k) * a.m + j];
-    a.mom[static_cast<size_t>(k) * a.m + j] = s;
-  }
+  const int nbj = a.m / TJ;
+  const float thres = S.scal[cvo::S_D2_THRES] + SKIP_MARGIN;
+  float sum[NMOM];
+#pragma unroll
+  for (int k = 0; k < NMOM; ++k) sum[k] = 0.0f;
+  cvo::mt::column_sum(
+      a.mom_part, a.n / TI, a.m, j, 0,
+      [&](int c) { return kept_tile(a.xb, box, thres, c); }, S.cs, sum);
+#pragma unroll
+  for (int k = 0; k < NMOM; ++k)
+    a.mom[static_cast<size_t>(k) * a.m + j] = sum[k];
+  // the kept tiles' item counts (n / TI <= NT, as fused_mode gives n <=
+  // 8192: column_sum's one window left them in S.cs.list)
+  int cnt = 0;
+  if (threadIdx.x < S.cs.n)
+    cnt = __ldcg(a.cnt_part + S.cs.list[threadIdx.x] * nbj + jb);
+  const int tot = block_count(cnt, S);
+  if (threadIdx.x == 0) a.cnt_col[jb] = tot;
   if (RESIDENT) return;
   const int* sh = S.sh;
   const float* mj = a.mom + j;
@@ -624,6 +722,34 @@ __device__ void contract_item(const Args& a, Shared& S, const Lane& ln,
   block_sum<4>(v, S);
   if (threadIdx.x == 0)
     for (int q = 0; q < 4; ++q) a.bcde_part[jb * 4 + q] = v[q];
+}
+
+// Copies lane L's scalar row into S.scal, where the sweeps read it at a
+// fixed address that keeps it in registers through their inner loops.
+__device__ __forceinline__ void stage(Shared& S, const Lane& ln, int& staged,
+                                      int L) {
+  // no thread reads the last lane's row any more
+  __syncthreads();
+  for (int t = threadIdx.x; t < cvo::N_SCAL; t += NT) S.scal[t] = ln.scal[t];
+  __syncthreads();
+  staged = L;
+}
+
+// A permutation of [0, total): odd multiplies and xor-shifts, each a
+// bijection of the `bits`-bit integers, walked until the value falls
+// below total.  It scatters runs of neighbouring items, whatever the
+// grid and the lane count.
+__device__ __forceinline__ int scramble(int k, int total, int bits) {
+  const unsigned mask = (bits >= 32 ? 0u : 1u << bits) - 1u;
+  const int sh = bits / 2 + 1;
+  unsigned x = static_cast<unsigned>(k);
+  do {
+    x = (x * 0x9E3779B1u) & mask;
+    x ^= x >> sh;
+    x = (x * 0x85EBCA6Bu) & mask;
+    x ^= x >> sh;
+  } while (x >= static_cast<unsigned>(total));
+  return static_cast<int>(x);
 }
 
 // One thread a lane: tf and the ell-dependent scalar row from the state.
@@ -721,7 +847,7 @@ __device__ void tail(const Args& a, Lane& ln, const float* c) {
 }
 
 template <bool RESIDENT, bool ADAPTIVE>
-__global__ void __launch_bounds__(NT) align_kernel(Args a) {
+__global__ void __launch_bounds__(NT, 3) align_kernel(Args a) {
   cg::grid_group grid = cg::this_grid();
   __shared__ Shared S;
   // every lane's state: a.lanes Lane records
@@ -747,15 +873,20 @@ __global__ void __launch_bounds__(NT) align_kernel(Args a) {
   __syncthreads();
 
   const int nbj = a.m / TJ;
-  const int n_mom = nbj * a.n_chunks;
+  const int nbi = a.n / TI;
+  const int n_mom = nbi * nbj;
   const int n_rows = RESIDENT ? a.n / ROWS : 0;
   const int nbx = a.n / TW, nby = a.m / TW;
   const int tri_x = nbx * (nbx + 1) / 2;
   const int n_self = ADAPTIVE ? tri_x + nby * (nby + 1) / 2 : 0;
   const int n_items = n_mom + n_rows + n_self;
   const int max_iter = static_cast<int>(S.c[C_MAX_ITER]);
+#ifdef ALIGN_PHASE_TIMERS
+  unsigned long long t_phase = 0;
+#endif
 
   while (true) {
+    PHASE_TOP();
     int any_live = 0;
     for (int L = tid; L < a.lanes; L += NT)
       if (live(lanes[L], max_iter)) {
@@ -765,60 +896,72 @@ __global__ void __launch_bounds__(NT) align_kernel(Args a) {
     // every block reads the same lane states: all leave together
     if (!__syncthreads_or(any_live)) break;
 
-    // ---- phase 1: the sweeps, items over (lane, item) ----
+    // ---- phases 1-2: the sweeps, items over (lane, item) in a scrambled
+    // order, so that the kept tiles, which cluster in item order, spread
+    // over the blocks; a skipped tile's item costs its box test.  A
+    // j-block's last kept moment item (by its ticket) or, when it keeps
+    // none, its first item sums the j-block's partials; acvo's last
+    // column or self item of a lane sums the counts and self sums ----
     int staged = -1;  // the lane whose scalar row S.scal holds
-    for (int item = blockIdx.x; item < a.lanes * n_items; item += gridDim.x) {
+    const int total = a.lanes * n_items;
+    const int bits = 32 - __clz(total);
+    for (int k = blockIdx.x; k < total; k += gridDim.x) {
+      const int item = scramble(k, total, bits);
       const int L = item / n_items, i = item % n_items;
       const Lane& ln = lanes[L];
       if (!live(ln, max_iter)) continue;  // block-uniform
-      if (L != staged) {
-        // no thread reads the last lane's row any more
-        __syncthreads();
-        for (int t = tid; t < cvo::N_SCAL; t += NT) S.scal[t] = ln.scal[t];
-        __syncthreads();
-        staged = L;
-      }
       const Args la = at_lane<RESIDENT, ADAPTIVE>(a, L);
+      ITEM_START();
+      if (L != staged && i >= n_mom) stage(S, ln, staged, L);
       if (i < n_mom) {
-        moment_item<RESIDENT>(la, S, ln, i % nbj, i / nbj);
+        const int ib = i / nbj, jb = i % nbj;
+        float box[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+        if (la.yb != nullptr) moved_box(ln.st, la.yb + 6 * jb, box);
+        const float thres = ln.scal[cvo::S_D2_THRES] + SKIP_MARGIN;
+        const bool kept = kept_tile(la.xb, box, thres, ib);
+        if (!kept && ib != 0) {  // block-uniform
+          ITEM_DONE(1);
+          continue;
+        }
+        if (L != staged) stage(S, ln, staged, L);
+        const int n_kept = kept_tiles(la, box, thres);
+        if (kept) {
+          moment_item(la, S, ln, jb, ib);
+          ITEM_DONE(0);
+        }
+        if (kept ? !last_arrival(la.ticket + jb, n_kept, S) : n_kept != 0)
+          continue;
+        column_item<RESIDENT>(la, S, ln, jb, box);
+        ITEM_DONE(2);
       } else if (i < n_mom + n_rows) {
         row_item<ADAPTIVE>(la, S, ln, i - n_mom);
+        ITEM_DONE(4);
+        continue;
       } else {
         const int t = i - n_mom - n_rows;
         self_item<RESIDENT>(la, S, ln, t, t);
+        ITEM_DONE(5);
       }
-    }
-    grid.sync();
-
-    // ---- phase 2: momT, tiled flow terms; per lane, counts and self sums
-    for (int item = blockIdx.x; item < a.lanes * (nbj + 1);
-         item += gridDim.x) {
-      const int L = item / (nbj + 1), jb = item % (nbj + 1);
-      const Lane& ln = lanes[L];
-      if (!live(ln, max_iter)) continue;
-      const Args la = at_lane<RESIDENT, ADAPTIVE>(a, L);
-      if (jb < nbj) {
-        column_item<RESIDENT>(la, S, ln, jb);
+      if (!ADAPTIVE || !last_arrival(la.ticket + nbj, nbj + n_self, S))
         continue;
-      }
       float w;
       long long cnt;
-      block_range_sum(nullptr, la.cnt_part, 0, n_mom, S, &w, &cnt);
+      block_range_sum(nullptr, la.cnt_col, 0, nbj, S, &w, &cnt);
       if (tid == 0) la.red[0] = static_cast<float>(cnt);
-      if (ADAPTIVE) {
-        block_range_sum(la.self_w, la.self_c, 0, tri_x, S, &w, &cnt);
-        if (tid == 0) {
-          la.red[1] = w;
-          la.red[2] = static_cast<float>(cnt);
-        }
-        block_range_sum(la.self_w, la.self_c, tri_x, n_self, S, &w, &cnt);
-        if (tid == 0) {
-          la.red[3] = w;
-          la.red[4] = static_cast<float>(cnt);
-        }
+      block_range_sum(la.self_w, la.self_c, 0, tri_x, S, &w, &cnt);
+      if (tid == 0) {
+        la.red[1] = w;
+        la.red[2] = static_cast<float>(cnt);
       }
+      block_range_sum(la.self_w, la.self_c, tri_x, n_self, S, &w, &cnt);
+      if (tid == 0) {
+        la.red[3] = w;
+        la.red[4] = static_cast<float>(cnt);
+      }
+      ITEM_DONE(3);
     }
     grid.sync();
+    PHASE_MARK(0);
 
     // ---- phase 3: omega, v, dl; the line-search contraction ----
     for (int L = tid; L < a.lanes; L += NT)
@@ -833,12 +976,14 @@ __global__ void __launch_bounds__(NT) align_kernel(Args a) {
       contract_item(at_lane<RESIDENT, ADAPTIVE>(a, L), S, ln, item % nbj);
     }
     grid.sync();
+    PHASE_MARK(2);
 
     // ---- tail: every block, one thread a lane, the same bits ----
     for (int L = tid; L < a.lanes; L += NT)
       if (live(lanes[L], max_iter))
         tail<ADAPTIVE>(at_lane<RESIDENT, ADAPTIVE>(a, L), lanes[L], S.c);
     __syncthreads();
+    PHASE_MARK(3);
   }
 
   if (blockIdx.x == 0)
@@ -862,7 +1007,7 @@ __global__ void __launch_bounds__(NT) align_kernel(Args a) {
 template <bool RESIDENT, bool ADAPTIVE>
 int launch(Args a, cudaStream_t stream) {
   const void* fn = reinterpret_cast<const void*>(align_kernel<RESIDENT, ADAPTIVE>);
-  // the lanes' states; above 48 KB only after opting in
+  // the lanes' states
   const size_t dyn = static_cast<size_t>(a.lanes) * sizeof(Lane);
   int dev = 0, sms = 0, coop = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -870,7 +1015,8 @@ int launch(Args a, cudaStream_t stream) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err == cudaSuccess && dyn > 48 * 1024)
+  // static and dynamic shared memory above 48 KB only after opting in
+  if (err == cudaSuccess)
     err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(dyn));
   if (err == cudaSuccess)
@@ -889,19 +1035,22 @@ int launch(Args a, cudaStream_t stream) {
 
 Args pack(const float* xp, const float* xf, const float* xm, const float* yp,
           const float* yf, const float* ym, const float* phi,
-          const int* shift, const float* xb, const float* md_xx,
-          const float* md_yy, const float* consts, const float* init,
-          const float* sched, float* mom_part, int* cnt_part, float* mom,
+          const int* shift, const float* xb, const float* yb,
+          const float* md_xx, const float* md_yy, const float* consts,
+          const float* init, const float* sched, float* mom_part,
+          int* cnt_part, int* cnt_col, int* ticket, float* mom,
           float* flow_part, float* self_w, int* self_c, float* red,
-          float* bcde_part, float* out, int n, int m, int per, int n_chunks,
-          int n_sched, int lanes) {
+          float* bcde_part, float* out, int n, int m, int n_sched,
+          int lanes) {
   Args a;
   a.xp = xp, a.xf = xf, a.xm = xm, a.yp = yp, a.yf = yf, a.ym = ym;
-  a.phi = phi, a.shift = shift, a.xb = xb, a.md_xx = md_xx, a.md_yy = md_yy;
+  a.phi = phi, a.shift = shift, a.xb = xb, a.yb = yb;
+  a.md_xx = md_xx, a.md_yy = md_yy;
   a.consts = consts, a.init = init, a.sched = sched, a.mom_part = mom_part;
-  a.cnt_part = cnt_part, a.mom = mom, a.flow_part = flow_part;
+  a.cnt_part = cnt_part, a.cnt_col = cnt_col, a.ticket = ticket;
+  a.mom = mom, a.flow_part = flow_part;
   a.self_w = self_w, a.self_c = self_c, a.red = red, a.bcde_part = bcde_part;
-  a.out = out, a.n = n, a.m = m, a.per = per, a.n_chunks = n_chunks;
+  a.out = out, a.n = n, a.m = m;
   a.n_sched = n_sched, a.lanes = lanes;
   return a;
 }
@@ -911,33 +1060,62 @@ Args pack(const float* xp, const float* xf, const float* xm, const float* yp,
 #define ALIGN_FUSED_ARGS                                                     \
   const float *xp, const float *xf, const float *xm, const float *yp,        \
       const float *yf, const float *ym, const float *phi, const int *shift,  \
-      const float *xb, const float *md_xx, const float *md_yy,               \
-      const float *consts, const float *init, const float *sched,            \
-      float *mom_part, int *cnt_part, float *mom, float *flow_part,          \
-      float *self_w, int *self_c, float *red, float *bcde_part, float *out,  \
-      int n, int m, int per, int n_chunks, int n_sched, int adaptive,        \
-      int lanes, cudaStream_t stream
+      const float *xb, const float *yb, const float *md_xx,                  \
+      const float *md_yy, const float *consts, const float *init,            \
+      const float *sched, float *mom_part, int *cnt_part, int *cnt_col,      \
+      int *ticket, float *mom, float *flow_part, float *self_w, int *self_c, \
+      float *red, float *bcde_part, float *out, int n, int m, int n_sched,   \
+      int adaptive, int lanes, cudaStream_t stream
 
 #define ALIGN_FUSED_PACK                                                     \
-  pack(xp, xf, xm, yp, yf, ym, phi, shift, xb, md_xx, md_yy, consts, init,   \
-       sched, mom_part, cnt_part, mom, flow_part, self_w, self_c, red,       \
-       bcde_part, out, n, m, per, n_chunks, n_sched, lanes)
+  pack(xp, xf, xm, yp, yf, ym, phi, shift, xb, yb, md_xx, md_yy, consts,     \
+       init, sched, mom_part, cnt_part, cnt_col, ticket, mom, flow_part,     \
+       self_w, self_c, red, bcde_part, out, n, m, n_sched, lanes)
 
-// Tiled mode: xb [lanes, n / 64, 6] tile boxes or null (no skip); for
-// acvo, md_xx / md_yy the self bounds at 64 or null.  Every array has a
+// Tiled mode: xb [lanes, n / 64, 6] and yb [lanes, m / 128, 6] tile
+// boxes of the clouds or null (no skip); for acvo, md_xx / md_yy the
+// self bounds at 64 or null.  Every array has a
 // leading axis of `lanes`, but consts and sched, which all lanes share;
-// scratch shapes are those of ops/align_fused.py:_launch.  Returns a
-// cudaError_t.
+// scratch shapes are those of ops/align_fused.py:lane_scratch, the
+// tickets zeroed.  Returns a cudaError_t.
 extern "C" int align_fused_tiled_launch(ALIGN_FUSED_ARGS) {
   const Args a = ALIGN_FUSED_PACK;
   return adaptive ? launch<false, true>(a, stream)
                   : launch<false, false>(a, stream);
 }
 
-// Resident mode: no tile skip (xb, md_xx, md_yy are ignored).
+#ifdef ALIGN_PHASE_TIMERS
+// Copies the phase sums [4] and the iteration count into host `out` [5]
+// and, when `reset`, zeroes them.  Returns a cudaError_t.
+extern "C" int align_fused_phase_ns(unsigned long long* out, int reset) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_phase_ns, sizeof(g_phase_ns));
+  if (err == cudaSuccess && reset) {
+    const unsigned long long zero[NPHASE + 1] = {};
+    err = cudaMemcpyToSymbol(g_phase_ns, zero, sizeof(zero));
+  }
+  return static_cast<int>(err);
+}
+
+// Copies phase 1's work by item kind [2 * 6] (ns, then items) and each
+// block's busy ns [4096] into host `out` and, when `reset`, zeroes them.
+extern "C" int align_fused_item_ns(unsigned long long* out, int reset) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_kind_ns, sizeof(g_kind_ns));
+  if (err == cudaSuccess)
+    err = cudaMemcpyFromSymbol(out + 2 * NKIND, g_busy_ns, sizeof(g_busy_ns));
+  if (err == cudaSuccess && reset) {
+    const unsigned long long zero[MAX_TIMED_GRID] = {};
+    err = cudaMemcpyToSymbol(g_kind_ns, zero, sizeof(g_kind_ns));
+    if (err == cudaSuccess)
+      err = cudaMemcpyToSymbol(g_busy_ns, zero, sizeof(g_busy_ns));
+  }
+  return static_cast<int>(err);
+}
+#endif
+
+// Resident mode: no tile skip (xb, yb, md_xx, md_yy are ignored).
 extern "C" int align_fused_resident_launch(ALIGN_FUSED_ARGS) {
   Args a = ALIGN_FUSED_PACK;
-  a.xb = a.md_xx = a.md_yy = nullptr;
+  a.xb = a.yb = a.md_xx = a.md_yy = nullptr;
   return adaptive ? launch<true, true>(a, stream)
                   : launch<true, false>(a, stream);
 }

@@ -21,6 +21,10 @@ CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 KERNELS = ("color_gram", "fused_moments", "fused_wsq", "align_fused",
            "fused_flow", "construct_probe")
+# libraries built from another source with extra flags, only when an
+# entry point asks for them: the timing tool's build of the align kernel
+# with its per-phase timers (cvo_rgbd_torch/time_fused.py --phases)
+VARIANTS = {"align_fused_timed": ("align_fused", ("-DALIGN_PHASE_TIMERS",))}
 
 # No --use_fast_math: it turns expf into __expf and flushes denormals,
 # and the Gram needs the accurate exp (csrc/pair_tile.cuh).
@@ -36,24 +40,36 @@ _I = ctypes.c_int
 SIGNATURES = {
     "color_gram": ("color_gram_launch", [_P] * 6 + [_I, _I, _P]),
     "fused_moments": (
-        "fused_moments_launch", [_P] * 14 + [_I] * 5 + [_P]
+        "fused_moments_launch", [_P] * 14 + [_I] * 3 + [_P]
     ),
     "fused_wsq": ("fused_wsq_launch", [_P] * 12 + [_I, _I, _I, _I, _P]),
     "align_fused_tiled": (
-        "align_fused_tiled_launch", [_P] * 23 + [_I] * 7 + [_P]
+        "align_fused_tiled_launch", [_P] * 26 + [_I] * 5 + [_P]
     ),
     "align_fused_resident": (
-        "align_fused_resident_launch", [_P] * 23 + [_I] * 7 + [_P]
+        "align_fused_resident_launch", [_P] * 26 + [_I] * 5 + [_P]
     ),
     "fused_flow": ("fused_flow_launch", [_P] * 11 + [_I] * 5 + [_P]),
     "fused_step_coeffs": ("fused_step_launch", [_P] * 11 + [_I] * 5 + [_P]),
     "construct_probe": ("construct_probe_launch", [_I] + [_P] * 6),
+    "align_fused_tiled_timed": (
+        "align_fused_tiled_launch", [_P] * 26 + [_I] * 5 + [_P]
+    ),
+    "align_fused_resident_timed": (
+        "align_fused_resident_launch", [_P] * 26 + [_I] * 5 + [_P]
+    ),
+    "align_fused_phase_ns": ("align_fused_phase_ns", [_P, _I]),
+    "align_fused_item_ns": ("align_fused_item_ns", [_P, _I]),
 }
 # entry points that live in another source's library
 LIBRARY = {
     "align_fused_tiled": "align_fused",
     "align_fused_resident": "align_fused",
     "fused_step_coeffs": "fused_flow",
+    "align_fused_tiled_timed": "align_fused_timed",
+    "align_fused_resident_timed": "align_fused_timed",
+    "align_fused_phase_ns": "align_fused_timed",
+    "align_fused_item_ns": "align_fused_timed",
 }
 
 
@@ -68,7 +84,8 @@ def _stale(name: str) -> bool:
     lib = BUILD / f"lib{name}.so"
     if not lib.exists():
         return True
-    deps = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
+    src = VARIANTS.get(name, (name,))[0]
+    deps = [CSRC / f"{src}.cu", *CSRC.glob("*.cuh")]
     return lib.stat().st_mtime < max(p.stat().st_mtime for p in deps)
 
 
@@ -78,7 +95,8 @@ def _start(name: str) -> tuple[subprocess.Popen, str]:
     BUILD.mkdir(exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    src, flags = VARIANTS.get(name, (name, ()))
+    cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-o", tmp, str(CSRC / f"{src}.cu")]
     proc = subprocess.Popen(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
     )

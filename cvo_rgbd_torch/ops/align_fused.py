@@ -59,7 +59,12 @@ from cvo_rgbd_torch.core.step_factored import (
 )
 from cvo_rgbd_torch.ops import _build
 from cvo_rgbd_torch.ops.gram import NFEAT, check_inputs
-from cvo_rgbd_torch.ops.moments import SKIP_MARGIN, TILE_I, TILE_J, chunking
+from cvo_rgbd_torch.ops.moments import (
+    SKIP_MARGIN,
+    TILE_I,
+    TILE_J,
+    sweep_scratch,
+)
 from cvo_rgbd_torch.ops.wsq import TILE_W
 from cvo_rgbd_torch.params import AcvoParams
 
@@ -157,6 +162,12 @@ def constants(p) -> list:
     return c
 
 
+def _exp_neg(z):
+    """The kernel's exp(-z) in float32; the exact one for a float64
+    reference."""
+    return exp_neg(z) if z.dtype == torch.float32 else torch.exp(-z)
+
+
 def _gated(k, xp, xf, xm, yp, yf, ym, ell):
     """(A, d2) of the gated Gram at `ell` (pallas_align.py:805-824)."""
     d2 = pairwise_sqdist(xp, yp)
@@ -164,13 +175,13 @@ def _gated(k, xp, xf, xm, yp, yf, ym, ell):
         ci = k[C_COLOR_SCALE] * (xf[:, None, 0] * yf[None, :, 0]
                                  + xf[:, None, 1] * yf[None, :, 1]
                                  + xf[:, None, 2] * yf[None, :, 2])
-        kmat = k[C_S2] * exp_neg(d2 * (1.0 / (2.0 * ell * ell)))
+        kmat = k[C_S2] * _exp_neg(d2 * (1.0 / (2.0 * ell * ell)))
         gate = ((kmat >= k[C_SP_THRES]) & (xm[:, None] > 0)
                 & (ym[None, :] > 0))
         return torch.where(gate, ci * kmat, 0.0), d2
     d2c = pairwise_sqdist(xf, yf)
-    ck = k[C_CS2] * exp_neg(d2c * k[C_INV2CL2])
-    a = k[C_S2] * exp_neg(d2 * (1.0 / (2.0 * ell * ell))) * ck
+    ck = k[C_CS2] * _exp_neg(d2c * k[C_INV2CL2])
+    a = k[C_S2] * _exp_neg(d2 * (1.0 / (2.0 * ell * ell))) * ck
     gate = ((d2 < k[C_THRES_C] * ell * ell) & (d2c < k[C_D2_C_THRES])
             & (a > k[C_SP_THRES]) & (xm[:, None] > 0) & (ym[None, :] > 0))
     return torch.where(gate, a, 0.0), d2
@@ -197,7 +208,7 @@ def _self_sums(k, cloud, pos, ell, md, counts=None):
         per_tile = (A > 0).reshape(nb, TILE_W, nb, TILE_W).sum(dim=(1, 3))
         _add(counts, "self_pairs", int(kept.sum()) * TILE_W * TILE_W)
         _add(counts, "self_gated", int(per_tile[kept].sum()))
-    return torch.sum(A * d2), (A > 0).sum().to(torch.float32)
+    return torch.sum(A * d2), (A > 0).sum().to(A.dtype)
 
 
 def _add(counts, key, value):
@@ -243,16 +254,18 @@ def _transform(R, T, pos):
     return Rt, -tT, ty
 
 
-def _initial(p, dev, R0, T0, ell0):
+def _initial(p, dev, R0, T0, ell0, dtype):
     """(R, T, ell) at iteration 0, as core.registration.init_state."""
     from cvo_rgbd_torch.core.registration import init_state
 
     s = init_state(p, dev, R0, T0, ell0)
-    return s.R.reshape(3, 3), s.T.reshape(3), s.ell
+    return (s.R.reshape(3, 3).to(dtype), s.T.reshape(3).to(dtype),
+            s.ell.to(dtype))
 
 
 def align_fused_plain(p, fixed: PointCloud, moving: PointCloud, R0=None,
-                      T0=None, ell0=None, mode=None, counts=None):
+                      T0=None, ell0=None, mode=None, counts=None,
+                      dtype=torch.float32):
     """Plain torch version of the kernel; returns the [33] result row
     (tf 12 | R 9 | T 3 | k | conv | ell | omega 3 | v 3).
 
@@ -260,19 +273,28 @@ def align_fused_plain(p, fixed: PointCloud, moving: PointCloud, R0=None,
     the function needs: "pairs" and "gated" of the moment sweep (kept
     tiles only), and "self_pairs" and "self_gated" of acvo's
     upper-triangle self sweeps.  Resident mode's row sweep evaluates
-    the moment sweep's pairs a second time; they are not counted."""
+    the moment sweep's pairs a second time; they are not counted.
+
+    `dtype=torch.float64` (CPU only) runs the same algebra on the clouds
+    cast to float64, with the exact exp: a reference that tells which
+    of two float32 results drifted."""
     mode = mode or fused_mode(p, fixed, moving)
     adaptive = isinstance(p, AcvoParams)
     k = constants(p)
     dev = fixed.positions.device
-    f32 = torch.float32
+    if dtype != torch.float32:
+        if dtype != torch.float64 or dev.type != "cpu":
+            raise ValueError("align_fused_plain: float64 runs on the CPU "
+                             f"only; got {dtype} on {dev}")
+        fixed, moving = (PointCloud(*(t.to(dtype) for t in c))
+                         for c in (fixed, moving))
     x, y0 = fixed.positions, moving.positions
     c0, phi = moments_center(fixed)
-    R, T, ell = _initial(p, dev, R0, T0, ell0)
-    ell_max = torch.tensor(k[C_ELL_MAX_INIT], dtype=f32, device=dev)
-    tf = torch.eye(4, dtype=f32, device=dev)[:3].clone()
-    om = torch.zeros(3, dtype=f32, device=dev)
-    vv = torch.zeros(3, dtype=f32, device=dev)
+    R, T, ell = _initial(p, dev, R0, T0, ell0, dtype)
+    ell_max = torch.tensor(k[C_ELL_MAX_INIT], dtype=dtype, device=dev)
+    tf = torch.eye(4, dtype=dtype, device=dev)[:3].clone()
+    om = torch.zeros(3, dtype=dtype, device=dev)
+    vv = torch.zeros(3, dtype=dtype, device=dev)
     conv = False
     it = 0
     skip = mode == "tiled" and p.tile_skip
@@ -322,7 +344,7 @@ def align_fused_plain(p, fixed: PointCloud, moving: PointCloud, R0=None,
         else:
             om, vv, s_xy, _ = flow_from_moments(Mom, ty, c0, c=p.c, d=p.d)
         if adaptive:
-            n_xy = (A > 0).sum().to(f32)
+            n_xy = (A > 0).sum().to(dtype)
             s_xx, n_xx = self_sums("x", fixed, x, md_xx)
             if mode == "resident":
                 s_yy, n_yy = self_sums("y", moving, y0, md_yy)
@@ -332,7 +354,7 @@ def align_fused_plain(p, fixed: PointCloud, moving: PointCloud, R0=None,
             denom = torch.where(denom == 0, 1.0, denom)
             dl = (s_yy - 2.0 * s_xy + s_xx) / (ell * ell * ell) / denom
         B, C, D, E = step_from_moments(Mom, ty, c0, om, vv, ell)
-        roots, valid = cubic_roots(4.0 * E, 3.0 * D, 2.0 * C, B)
+        roots, valid = cubic_roots(4.0 * E, 3.0 * D, 2.0 * C, B, dtype)
         step = min_positive_root(roots, valid, p.min_step, p.max_step)
 
         stop1 = bool((torch.linalg.norm(om) < p.eps)
@@ -351,11 +373,11 @@ def align_fused_plain(p, fixed: PointCloud, moving: PointCloud, R0=None,
             else:
                 for thresh, val in p.ell_sched:
                     if it > thresh:
-                        ell = torch.tensor(val, dtype=f32, device=dev)
+                        ell = torch.tensor(val, dtype=dtype, device=dev)
         it += 1
     return torch.cat([
         tf.reshape(12), R.reshape(9), T.reshape(3),
-        torch.tensor([float(it), float(conv)], dtype=f32, device=dev),
+        torch.tensor([float(it), float(conv)], dtype=dtype, device=dev),
         ell.reshape(1), om.reshape(3), vv.reshape(3),
     ])
 
@@ -475,28 +497,60 @@ def _init_rows(p, dev, b, R0, T0, ell0, c0):
                       ell.expand(b).reshape(b, 1)], dim=1).contiguous()
 
 
+def lane_scratch(n: int, m: int, mode: str, adaptive: bool) -> dict:
+    """{name: (shape, dtype)} of one lane's scratch and result row, in
+    the kernel's argument order and at the strides of
+    csrc/align_fused.cu:at_lane.  A
+    moment item is one (i-tile, j-block) pair with its own partial slot
+    and count (ops/moments.py:sweep_scratch); a j-block's ticket counts
+    the moment items of its kept tiles, and acvo's last ticket a lane's
+    column and self items.  Every shape follows from (n, m, mode, adaptive) alone: a
+    batch allocates lanes x these, and no split depends on the grid."""
+    f32, i32 = torch.float32, torch.int32
+    sweep = sweep_scratch(n, m)
+    nbj = m // TILE_J
+    nbx, nby = n // TILE_W, m // TILE_W
+    n_self = (nbx * (nbx + 1) // 2 + nby * (nby + 1) // 2) if adaptive else 0
+    n_flow = n // ROWS if mode == "resident" else nbj
+    return {
+        "mom_part": (sweep["part"], f32),
+        "cnt_part": (sweep["count"], i32),
+        "cnt_col": ((nbj,), i32),
+        "ticket": ((nbj + 1,), i32),
+        "mom": ((NUM_MONO, m), f32),
+        "flow_part": ((max(n_flow, 1), 8), f32),
+        "self_w": ((max(n_self, 1),), f32),
+        "self_c": ((max(n_self, 1),), i32),
+        "red": ((8,), f32),
+        "bcde_part": ((nbj, 4), f32),
+        "out": ((OUT_LEN,), f32),
+    }
+
+
 def align_fused_cuda(p, fixed: PointCloud, moving: PointCloud, R0=None,
-                     T0=None, ell0=None, mode=None):
+                     T0=None, ell0=None, mode=None, timed=False):
     """Launch csrc/align_fused.cu on one pair of CUDA tensors: the
     batched launch with one lane.  Returns the [33] result row."""
     one = [None if w is None else torch.as_tensor(w)[None]
            for w in (R0, T0, ell0)]
     return align_fused_batched_cuda(
         p, PointCloud(*(t[None] for t in fixed)),
-        PointCloud(*(t[None] for t in moving)), *one, mode)[0]
+        PointCloud(*(t[None] for t in moving)), *one, mode, timed)[0]
 
 
 def align_fused_batched_cuda(p, fixed: PointCloud, moving: PointCloud,
-                             R0=None, T0=None, ell0=None, mode=None):
+                             R0=None, T0=None, ell0=None, mode=None,
+                             timed=False):
     """Launch csrc/align_fused.cu once on B stacked pairs of CUDA tensors
     ([B, N, ...]); returns the [B, 33] result rows and counts one launch
     in `align_fused.launches`.  A refused cooperative launch raises.
     The per-align constants and the ell schedule are uploaded once for
-    the batch; every other input and scratch has a leading lane axis."""
+    the batch; every other input and scratch has a leading lane axis.
+    `timed` launches the timing tool's build of the kernel, whose
+    per-phase timers `phase_ns` reads."""
     mode = mode or fused_mode(p, fixed, moving)
     adaptive = isinstance(p, AcvoParams)
     dev = fixed.positions.device
-    f32 = torch.float32
     resident = mode == "resident"
     b = fixed.positions.shape[0]
     # a resident fixed cloud whose capacity is a multiple of 8 only is
@@ -515,57 +569,75 @@ def align_fused_batched_cuda(p, fixed: PointCloud, moving: PointCloud,
     table = _shift_table_on(dev)
     m = moving.positions.shape[1]
     use_skip = (not resident) and p.tile_skip
-    xb = md_xx = md_yy = None
+    xb = yb = md_xx = md_yy = None
     if use_skip:
         lo, hi = block_bounds(fixed_k.positions, fixed_k.mask, TILE_I)
         xb = torch.cat([lo, hi], dim=-1).contiguous()
+        lo, hi = block_bounds(moving.positions, moving.mask, TILE_J)
+        yb = torch.cat([lo, hi], dim=-1).contiguous()
         if adaptive:
             md_xx = _self_bounds(fixed_k).contiguous()
             md_yy = _self_bounds(moving).contiguous()
-    opt = tuple(t for t in (xb, md_xx, md_yy) if t is not None)
+    opt = tuple(t for t in (xb, yb, md_xx, md_yy) if t is not None)
     clouds = tuple(t.contiguous() for t in (*fixed_k, *moving))
     phi = phi.contiguous()
     check_inputs("align_fused",
                  clouds + (phi, init, consts, sched_t) + opt, dev)
 
-    per, n_chunks = chunking(n, m)
-    nbj = m // TILE_J
-    n_rows = n // ROWS if resident else 0
-    nbx, nby = n // TILE_W, m // TILE_W
-    n_self = (nbx * (nbx + 1) // 2 + nby * (nby + 1) // 2) if adaptive else 0
-    n_flow = n_rows if resident else nbj
-
-    def buf(shape, dtype=f32):
-        return torch.empty((b,) + shape, dtype=dtype, device=dev)
-
-    # per-lane scratch, the strides of csrc/align_fused.cu:at_lane
-    mom_part = buf((n_chunks, NUM_MONO, m))
-    cnt_part = buf((n_chunks * nbj,), torch.int32)
-    mom = buf((NUM_MONO, m))
-    flow_part = buf((max(n_flow, 1), 8))
-    self_w = buf((max(n_self, 1),))
-    self_c = buf((max(n_self, 1),), torch.int32)
-    red = buf((8,))
-    bcde_part = buf((nbj, 4))
-    out = buf((OUT_LEN,))
+    scratch = {k: torch.empty((b,) + shape, dtype=dtype, device=dev)
+               for k, (shape, dtype) in lane_scratch(n, m, mode,
+                                                     adaptive).items()}
+    # each lane's tickets start at zero; the kernel resets them as it goes
+    scratch["ticket"].zero_()
     name = "align_fused_resident" if resident else "align_fused_tiled"
-    launch = _build.entry(name)
+    launch = _build.entry(name + ("_timed" if timed else ""))
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     err = launch(
         *(t.data_ptr() for t in clouds), phi.data_ptr(), table.data_ptr(),
-        ptr(xb), ptr(md_xx), ptr(md_yy), consts.data_ptr(), init.data_ptr(),
-        sched_t.data_ptr(), mom_part.data_ptr(), cnt_part.data_ptr(),
-        mom.data_ptr(), flow_part.data_ptr(), self_w.data_ptr(),
-        self_c.data_ptr(), red.data_ptr(), bcde_part.data_ptr(),
-        out.data_ptr(), n, m, per, n_chunks, len(sched), int(adaptive), b,
+        ptr(xb), ptr(yb), ptr(md_xx), ptr(md_yy), consts.data_ptr(),
+        init.data_ptr(),
+        sched_t.data_ptr(), *(t.data_ptr() for t in scratch.values()),
+        n, m, len(sched), int(adaptive), b,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(name, err)
     align_fused.launches += 1
-    return out
+    return scratch["out"]
 
 
 align_fused.launches = 0
+
+
+def phase_ns(reset=True):
+    """[phase 1, phase 2, phase 3, tail, iterations]: the timed build's
+    per-phase device time in ns, summed over the iterations of its
+    launches since the last reset (block 0's view: each span ends at a
+    grid barrier), and the iterations counted; `reset` zeroes them."""
+    import ctypes
+
+    out = (ctypes.c_ulonglong * 5)()
+    err = _build.entry("align_fused_phase_ns")(ctypes.addressof(out),
+                                                int(reset))
+    _build.check("align_fused_phase_ns", err)
+    return list(out)
+
+
+ITEM_KINDS = ("moment", "skipped", "column", "counts", "row", "self")
+
+
+def item_ns(reset=True):
+    """({kind: (ns, items)}, [busy ns of each block]): the timed build's
+    phase-1 work by item kind over all blocks, and each block's time in
+    items, summed since the last reset; `reset` zeroes them."""
+    import ctypes
+
+    n = len(ITEM_KINDS)
+    out = (ctypes.c_ulonglong * (2 * n + 4096))()
+    err = _build.entry("align_fused_item_ns")(ctypes.addressof(out),
+                                               int(reset))
+    _build.check("align_fused_item_ns", err)
+    kinds = {k: (out[i], out[n + i]) for i, k in enumerate(ITEM_KINDS)}
+    return kinds, list(out[2 * n:])

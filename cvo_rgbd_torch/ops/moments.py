@@ -39,16 +39,12 @@ from cvo_rgbd_torch.ops.gram import (
     scalars,
 )
 
-TILE_I = 64    # fixed-cloud rows per kernel tile (csrc/fused_moments.cu TI)
-TILE_J = 128   # moving-cloud rows per kernel block (csrc/fused_moments.cu TJ)
+TILE_I = 64    # fixed-cloud rows per kernel tile (csrc/moment_tile.cuh TI)
+TILE_J = 128   # moving-cloud rows per kernel block (csrc/moment_tile.cuh TJ)
 # conservative slack on the skip compare: the AABB bound and the
 # in-kernel d2 round differently; 1e-5 m^2 skips essentially nothing
 # extra and keeps the skip exact (pallas_moments.py:58)
 SKIP_MARGIN = 1e-5
-# blocks to aim for when splitting the fixed cloud into chunks: about
-# eight per SM of an H100, from the shapes alone so the summation order
-# (and every result bit) is the same on any card
-TARGET_BLOCKS = 1024
 
 
 def pair_weights(xp, xf, xm, yp, yf, ym, scal, ck=None, linear=False):
@@ -99,12 +95,15 @@ def fused_moments_plain(xp, xf, xm, yp, yf, ym, phi, scal, ck=None,
     return A.T @ phi, (A > 0).sum().to(torch.float32)
 
 
-def chunking(n: int, m: int) -> tuple[int, int]:
-    """(i-tiles per chunk, number of chunks) for an [n, m] sweep."""
-    nbi, nbj = n // TILE_I, m // TILE_J
-    want = max(1, min(nbi, -(-TARGET_BLOCKS // nbj)))
-    per = -(-nbi // want)
-    return per, -(-nbi // per)
+def sweep_scratch(n: int, m: int) -> dict:
+    """Shapes of the moment sweep's scratch for an [n, m] sweep, the same
+    in `fused_moments` and in each lane of `align_fused`: one work item
+    per (i-tile, j-block) pair, each with its own slice of a partial
+    slot [35, m] per i-tile and its own int count.  A column sums its kept tiles' slots in i-tile order,
+    so the split, and every result bit, depends on the shapes alone: not
+    on the grid, the card or the lanes beside a pair."""
+    nbi = n // TILE_I
+    return {"part": (nbi, NUM_MONO, m), "count": (nbi, m // TILE_J)}
 
 
 def fused_moments(xp, xf, xm, yp, yf, ym, phi, ell, ck=None, min_d2=None,
@@ -152,12 +151,13 @@ def fused_moments_cuda(xp, xf, xm, yp, yf, ym, phi, scal, ck=None,
     opt = tuple(t for t in (ck, min_d2) if t is not None)
     check_inputs("fused_moments", (xp, xf, xm, yp, yf, ym, phi, scal) + opt,
                  dev)
+    # the kernel copies phi rows and ck tiles in 16-byte pieces
+    if phi.data_ptr() % 16 or (ck is not None and ck.data_ptr() % 16):
+        raise ValueError("fused_moments: phi and ck must be 16-byte aligned")
     n, m = xp.shape[0], yp.shape[0]
-    per, n_chunks = chunking(n, m)
-    part = torch.empty((n_chunks, NUM_MONO, m), dtype=torch.float32,
-                       device=dev)
-    nnz_part = torch.empty((n_chunks, m // TILE_J), dtype=torch.int32,
-                           device=dev)
+    shapes = sweep_scratch(n, m)
+    part = torch.empty(shapes["part"], dtype=torch.float32, device=dev)
+    cnt_part = torch.empty(shapes["count"], dtype=torch.int32, device=dev)
     mom = torch.empty((m, NUM_MONO), dtype=torch.float32, device=dev)
     nnz = torch.empty((1,), dtype=torch.float32, device=dev)
     launch = _build.entry("fused_moments")
@@ -166,8 +166,8 @@ def fused_moments_cuda(xp, xf, xm, yp, yf, ym, phi, scal, ck=None,
         yp.data_ptr(), yf.data_ptr(), ym.data_ptr(), phi.data_ptr(),
         None if ck is None else ck.data_ptr(),
         None if min_d2 is None else min_d2.data_ptr(),
-        scal.data_ptr(), part.data_ptr(), nnz_part.data_ptr(),
-        mom.data_ptr(), nnz.data_ptr(), n, m, per, n_chunks, int(linear),
+        scal.data_ptr(), part.data_ptr(), cnt_part.data_ptr(),
+        mom.data_ptr(), nnz.data_ptr(), n, m, int(linear),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check("fused_moments", err)

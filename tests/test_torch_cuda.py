@@ -533,3 +533,139 @@ def test_align_fused_batched_lanes_are_single_launches(dev, algo, mode, cap):
     for k, (x, y) in enumerate(pairs):
         assert torch.equal(rows[k], align_fused_cuda(p, x, y)), k
     assert rows[3, 24].item() == 1 and rows[:3, 24].gt(1).all()
+
+
+@pytest.mark.parametrize("mode", ["se", "se_ck", "linear"])
+@pytest.mark.parametrize("n,m", [(1024, 512), (512, 1152)])
+def test_fused_moments_unequal_clouds(dev, mode, n, m):
+    """N != M: the tile grid is n / 64 by m / 128, each tile its own
+    item; every mode against its plain version, the skip exact."""
+    from cvo_rgbd_torch.core.cloud import aabb_min_d2, block_bounds
+    from cvo_rgbd_torch.core.registration import build_moments_pre
+    from cvo_rgbd_torch.ops import gram, moments
+    from cvo_rgbd_torch.params import MATLAB_PARAMS, CvoParams
+
+    x, _ = _clouds(dev, n=n - 24, cap=n, seed=2)
+    _, y = _clouds(dev, n=m - 24, cap=m, seed=2)
+    if mode == "linear":
+        from cvo_rgbd_torch.core.registration import prepare_ci
+
+        p = MATLAB_PARAMS
+        x3, y3 = (c._replace(features=c.features[:, :3]) for c in (x, y))
+        ck = prepare_ci(p, x3, y3)
+    else:
+        p = CvoParams()
+        ck = gram.color_gram(*x, *y, p=p) if mode == "se_ck" else None
+    c0, xc, phi = build_moments_pre(x)
+    yc = y.positions - c0
+    md = aabb_min_d2(*block_bounds(x.positions, x.mask, moments.TILE_I),
+                     *block_bounds(y.positions, y.mask, moments.TILE_J))
+    ell_t = torch.full((), 0.1, device=dev)
+    linear = mode == "linear"
+    ref, ref_nnz = moments.fused_moments_plain(
+        xc, x.features, x.mask, yc, y.features, y.mask, phi,
+        gram.scalars(ell_t, p), ck, None, linear)
+    got = [moments.fused_moments(xc, x.features, x.mask, yc, y.features,
+                                 y.mask, phi, ell_t, ck, skip, p=p)
+           for skip in (None, md)]
+    scale = ref.abs().amax(dim=0).clamp_min(1e-30)
+    for mom, nnz in got:
+        assert mom.shape == (m, 35)
+        assert ((mom - ref).abs() / scale).max().item() <= 1e-4
+        assert abs(float(nnz) - float(ref_nnz)) <= 1e-4 * float(ref_nnz)
+    assert torch.equal(got[0][0], got[1][0])
+
+
+@pytest.mark.parametrize("which", ["every tile skipped", "none skipped"])
+def test_fused_moments_skip_extremes(dev, which):
+    """Bounds that drop every tile give zero moments and count; bounds
+    that keep every tile give the bits of no skip at all."""
+    from cvo_rgbd_torch.core.registration import build_moments_pre
+    from cvo_rgbd_torch.ops import gram, moments
+    from cvo_rgbd_torch.params import CvoParams
+
+    x, y = _clouds(dev)
+    p = CvoParams()
+    ck = gram.color_gram(*x, *y, p=p)
+    c0, xc, phi = build_moments_pre(x)
+    yc = y.positions - c0
+    shape = (x.capacity // moments.TILE_I, y.capacity // moments.TILE_J)
+    md = torch.full(shape, float("inf") if which == "every tile skipped"
+                    else 0.0, device=dev)
+    ell_t = torch.full((), 0.1, device=dev)
+    args = (xc, x.features, x.mask, yc, y.features, y.mask, phi, ell_t, ck)
+    mom, nnz = moments.fused_moments(*args, md, p=p)
+    if which == "every tile skipped":
+        assert not mom.any() and float(nnz) == 0.0
+    else:
+        ref, ref_nnz = moments.fused_moments(*args, None, p=p)
+        assert float(ref_nnz) > 0
+        assert torch.equal(mom, ref) and float(nnz) == float(ref_nnz)
+
+
+@pytest.mark.parametrize("lanes", [1, 9, 63])
+def test_align_fused_lane_bits_at_any_lane_count(dev, lanes):
+    """A batch of `lanes` copies of three pairs (tiled linear, 1152):
+    every lane the bits of its pair's one-pair launch."""
+    import dataclasses
+
+    import cvo_rgbd_torch as ct
+    from cvo_rgbd_torch.core.cloud import stack_clouds
+    from cvo_rgbd_torch.ops.align_fused import (
+        align_fused_batched_cuda,
+        align_fused_cuda,
+    )
+
+    pairs = [_linear_clouds(dev, n=1100, cap=1152, seed=s)[:2]
+             for s in (6, 7, 8)]
+    pairs = [(_padded(x), _padded(y)) for x, y in pairs]
+    p = dataclasses.replace(ct.MATLAB_PARAMS, backend="fused", max_iter=12,
+                            eps=0.0, eps_2=0.0)
+    order = [k % 3 for k in range(lanes)]
+    rows = align_fused_batched_cuda(
+        p, *(stack_clouds([pairs[k][side] for k in order]) for side in (0, 1)))
+    single = [align_fused_cuda(p, x, y) for x, y in pairs]
+    for lane, k in enumerate(order):
+        assert torch.equal(rows[lane], single[k]), lane
+
+
+@pytest.mark.parametrize("mode", ["resident", "tiled"])
+@pytest.mark.parametrize("algo", ["cvo", "acvo"])
+def test_timer_build_gives_the_main_build_row(dev, algo, mode):
+    """The timing tool's build (per-phase timers compiled in) returns the
+    main library's result row bit for bit, and its timers count the
+    iterations it ran."""
+    import importlib
+
+    from cvo_rgbd_torch.params import AcvoParams, CvoParams
+
+    af = importlib.import_module("cvo_rgbd_torch.ops.align_fused")
+    cap = 256 if mode == "resident" else 1152
+    x, y = _clouds(dev, n=cap - 24, cap=cap, seed=3)
+    cls = CvoParams if algo == "cvo" else AcvoParams
+    p = cls(backend="fused", max_iter=7, eps=0.0, eps_2=0.0)
+    assert af.fused_mode(p, x, y) == mode
+    main = af.align_fused_cuda(p, x, y)
+    af.phase_ns(reset=True)
+    timed = af.align_fused_cuda(p, x, y, timed=True)
+    torch.cuda.synchronize()
+    *spans, iters = af.phase_ns(reset=True)
+    assert torch.equal(main, timed)
+    assert iters == 7 and spans[0] > 0 and spans[3] > 0
+
+
+def test_fused_moments_refuses_unaligned_phi(dev):
+    """The kernel copies Phi rows in 16-byte pieces: a view that starts
+    off a 16-byte boundary is refused, not read wrong."""
+    from cvo_rgbd_torch.core.registration import build_moments_pre
+    from cvo_rgbd_torch.ops import moments
+    from cvo_rgbd_torch.params import CvoParams
+
+    x, y = _clouds(dev)
+    c0, xc, phi = build_moments_pre(x)
+    shifted = torch.empty(phi.numel() + 1, device=dev)[1:].view(phi.shape)
+    shifted.copy_(phi)
+    with pytest.raises(ValueError, match="aligned"):
+        moments.fused_moments(xc, x.features, x.mask, y.positions - c0,
+                              y.features, y.mask, shifted,
+                              torch.full((), 0.1, device=dev), p=CvoParams())
