@@ -23,17 +23,20 @@ and prints no result line):
    (N=M=3072) and resident on two small pairs (N=M=1024); 3d. the
    two-pass sweeps `fused_flow` and `fused_step_coeffs` on the first cvo
    pair at ell 0.1 and 0.03, with and without the color cache, then in
-   MATLAB's linear mode with the CI on the first pcd pairs; 3e. the
-   linear branches of `fused_moments` and `align_fused` (tiled on the
-   0.015 m pair, resident on the 0.05 m pair);
+   MATLAB's linear mode with the CI on the first pcd pairs, each with
+   the tile skip on and off and twice (the same bits each time), with
+   the share of tiles kept; 3e. the linear branches of `fused_moments`
+   and `align_fused` (tiled on the 0.015 m pair, resident on the 0.05 m
+   pair);
 4. one reference-scale cvo align at the C++ stops (eps=5e-5,
    eps_2=1e-5) on the kernel backend, a small pair registered on the
    card and on the CPU (plain versions), which must agree, and a
    profile of one iteration, with the moment sweep and with the direct
-   step's two sweeps; 4b. the same for acvo (`self_mode="exact"`,
-   then one align with `"cheb"`); 4c. the same aligns on the fused
-   backend, each run twice (the iterations must repeat), ms/iteration
-   by slope (10 against 60 iterations) and a profile of one align;
+   step's two sweeps (one launch each an iteration); 4b. the same for
+   acvo (`self_mode="exact"`, then one align with `"cheb"`); 4c. the
+   same aligns on the fused backend, each run twice (the iterations must
+   repeat), ms/iteration by slope (10 against 60 iterations) and a
+   profile of one align;
 5. the main paths: `run_odometry_frames` over the rendered sequence for
    cvo, 5b. then for acvo (`adaptive=True`), 5c. then for both on the
    fused backend at capacity 3072 (tiled) and 1024 (resident), 5d. then
@@ -514,24 +517,37 @@ def rel_close(got, ref, tol=1e-4):
     return rel, rel <= tol
 
 
-def flow_bound(n, m, nnz, use_ck, per_gated, column_ops=0):
-    """(bound ms, bound_by) of one sweep of csrc/fused_flow.cu: every
-    pair's weight (its color kernel when there is no cache), the gated
-    pairs' terms; each plane, the cache and the results moved once."""
+def flow_bound(n, m, nnz, use_ck, per_gated, column_ops=0, pairs=None):
+    """(bound ms, bound_by) of one sweep of csrc/fused_flow.cu over
+    `pairs` pairs (every pair of the N x M sweep by default; the pairs of
+    the kept tiles with the skip): each pair's weight (its color kernel
+    when there is no cache) and its cache entry, the gated pairs' terms;
+    each plane and the results moved once."""
     from cvo_rgbd_torch.ops.gram import NFEAT
 
+    pairs = n * m if pairs is None else pairs
     nbytes = ((n + m) * (3 + NFEAT + 1) + 8 + 9 + 6) * 4
-    nbytes += n * m * 4 if use_ck else 0
-    nops = n * m * (OPS_PAIR + (0 if use_ck else OPS_COLOR))
+    nbytes += pairs * 4 if use_ck else 0
+    nops = pairs * (OPS_PAIR + (0 if use_ck else OPS_COLOR))
     return bound(nbytes, nops + nnz * per_gated + m * column_ops)
+
+
+def bits(t):
+    """The float32 tensor's bits, for exact comparisons (-0 != +0)."""
+    import torch
+
+    return t.contiguous().view(torch.int32)
 
 
 def phase_flow(cases):
     """3d: fused_flow and fused_step_coeffs against their plain versions:
     nnz exact, each other output (omega*c, v*d, sum A d2, sum A, and B,
-    C, D, E) within 1e-4 of its magnitude.  A case is (label, params,
+    C, D, E) within 1e-4 of its magnitude; the tile skip on and off the
+    same bits, and two runs the same bits.  A case is (label, params,
     fixed, moving, ck, ell, timed); the kernel line takes the last timed
-    case, the main path's (the linear sweep of the finer pcd pair)."""
+    case, the main path's (the linear sweep of the finer pcd pair), its
+    bound over the kept tiles' pairs (the all-pairs bound logged
+    beside)."""
     import torch
 
     from cvo_rgbd_torch.ops import flow, gram
@@ -542,10 +558,17 @@ def phase_flow(cases):
         linear = p.color_mode == "linear"
         scal = gram.scalars(torch.full((), ell, device=dev), p)
         args = (*x, *y, scal)
-        got = flow.fused_flow_cuda(*args, ck, linear)
+        runs = {skip: flow.fused_flow_cuda(*args, ck, linear, skip=skip)
+                for skip in (True, False)}
+        got = runs[True]
+        again = flow.fused_flow_cuda(*args, ck, linear)
         ref = flow.fused_flow_plain(*args, ck, linear)
         wv = torch.cat([got[0:3] / p.c, got[3:6] / p.d])
-        got_s = flow.fused_step_coeffs_cuda(*args, wv, ck, linear)
+        runs_s = {skip: flow.fused_step_coeffs_cuda(*args, wv, ck, linear,
+                                                    skip=skip)
+                  for skip in (True, False)}
+        got_s = runs_s[True]
+        again_s = flow.fused_step_coeffs_cuda(*args, wv, ck, linear)
         ref_s = flow.fused_step_coeffs_plain(*args, wv, ck, linear)
         torch.cuda.synchronize()
         nnz, ref_nnz = got[8].item(), ref[8].item()
@@ -555,13 +578,23 @@ def phase_flow(cases):
         rels.update({name: rel_close(got_s[q], ref_s[q])
                      for q, name in enumerate("BCDE")})
         n, m = x.capacity, y.capacity
+        keep = flow.tile_keep(x.positions, x.mask, y.positions, y.mask, scal)
+        kept = int(keep.sum().item())
         log(f"fused_flow/fused_step_coeffs {label} N={n} M={m} ell={ell}: "
             f"nnz {nnz:.0f} vs {ref_nnz:.0f} (exact), relative errors "
             + ", ".join(f"{k} {v[0]:.2e}" for k, v in rels.items())
-            + " (tolerance 1e-4 of each output's magnitude)")
+            + " (tolerance 1e-4 of each output's magnitude); tiles kept "
+            f"{kept}/{keep.numel()} ({kept / keep.numel():.4f})")
         check(nnz == ref_nnz > 0, f"fused_flow {label}: nnz differs")
         check(all(ok for _, ok in rels.values()),
               f"fused_flow/fused_step_coeffs {label} disagree: {rels}")
+        check(torch.equal(bits(runs[True]), bits(runs[False]))
+              and torch.equal(bits(runs_s[True]), bits(runs_s[False])),
+              f"fused_flow/fused_step_coeffs {label}: tile skip on and off "
+              f"differ: {runs} {runs_s}")
+        check(torch.equal(bits(got), bits(again))
+              and torch.equal(bits(got_s), bits(again_s)),
+              f"fused_flow/fused_step_coeffs {label}: two runs differ")
         if not timed:
             continue
         ms = time_ms(lambda: flow.fused_flow_cuda(*args, ck, linear))
@@ -571,11 +604,18 @@ def phase_flow(cases):
         plain_s = time_ms(lambda: flow.fused_step_coeffs_plain(
             *args, wv, ck, linear))
         use_ck = ck is not None
-        b = flow_bound(n, m, nnz, use_ck, OPS_FLOW_GATED)
-        b_s = flow_bound(n, m, nnz, use_ck, OPS_STEP_GATED, OPS_STEP_COLUMN)
+        pairs = kept * flow.ROWS * flow.TILE_J
+        b = flow_bound(n, m, nnz, use_ck, OPS_FLOW_GATED, pairs=pairs)
+        b_s = flow_bound(n, m, nnz, use_ck, OPS_STEP_GATED, OPS_STEP_COLUMN,
+                         pairs=pairs)
+        b_all = flow_bound(n, m, nnz, use_ck, OPS_FLOW_GATED)
+        b_all_s = flow_bound(n, m, nnz, use_ck, OPS_STEP_GATED,
+                             OPS_STEP_COLUMN)
         log(f"fused_flow {label}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {b[0]:.4f} ms ({b[1]}); fused_step_coeffs: {ms_s:.4f} "
-            f"ms, plain {plain_s:.4f} ms, bound {b_s[0]:.4f} ms ({b_s[1]})")
+            f"bound {b[0]:.4f} ms ({b[1]}; all pairs {b_all[0]:.4f}, "
+            f"{b_all[1]}); fused_step_coeffs: {ms_s:.4f} ms, plain "
+            f"{plain_s:.4f} ms, bound {b_s[0]:.4f} ms ({b_s[1]}; all pairs "
+            f"{b_all_s[0]:.4f}, {b_all_s[1]})")
         err = (got[:8] - ref[:8]).abs().max().item()
         err_s = (got_s - ref_s).abs().max().item()
         out["fused_flow"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -876,6 +916,13 @@ def phase_profile(fixed, moving, p, n_iter=5):
     def kernel_ms(tag):
         return sum(e.time_range.elapsed_us() for e in gpu
                    if tag in e.name) / n_iter / 1e3
+
+    if p.step_mode == "direct":
+        # each sweep one launch an iteration, its reduction folded in
+        per_iter = {tag: sum(tag in e.name for e in gpu) / n_iter
+                    for tag in ("flow_kernel", "step_kernel")}
+        check(per_iter == {"flow_kernel": 1, "step_kernel": 1},
+              f"direct step: sweep launches per iteration {per_iter}")
 
     log(f"profile {type(p).__name__} step_mode={p.step_mode} "
         f"N=M={fixed.capacity} ell={ell}: {host_ms:.3f} ms/iteration on the "

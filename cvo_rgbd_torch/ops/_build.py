@@ -22,9 +22,11 @@ BUILD = PKG / "_build"
 KERNELS = ("color_gram", "fused_moments", "fused_wsq", "align_fused",
            "fused_flow", "construct_probe")
 # libraries built from another source with extra flags, only when an
-# entry point asks for them: the timing tool's build of the align kernel
-# with its per-phase timers (cvo_rgbd_torch/time_fused.py --phases)
-VARIANTS = {"align_fused_timed": ("align_fused", ("-DALIGN_PHASE_TIMERS",))}
+# entry point asks for them: the timing tool's builds of the align kernel
+# with its per-phase timers (cvo_rgbd_torch/time_fused.py --phases) and
+# of the two-pass sweeps with per-block marks (--flow)
+VARIANTS = {"align_fused_timed": ("align_fused", ("-DALIGN_PHASE_TIMERS",)),
+            "fused_flow_timed": ("fused_flow", ("-DFLOW_PHASE_TIMERS",))}
 
 # No --use_fast_math: it turns expf into __expf and flushes denormals,
 # and the Gram needs the accurate exp (csrc/pair_tile.cuh).
@@ -49,8 +51,8 @@ SIGNATURES = {
     "align_fused_resident": (
         "align_fused_resident_launch", [_P] * 26 + [_I] * 5 + [_P]
     ),
-    "fused_flow": ("fused_flow_launch", [_P] * 11 + [_I] * 5 + [_P]),
-    "fused_step_coeffs": ("fused_step_launch", [_P] * 11 + [_I] * 5 + [_P]),
+    "fused_flow": ("fused_flow_launch", [_P] * 12 + [_I] * 4 + [_P]),
+    "fused_step_coeffs": ("fused_step_launch", [_P] * 13 + [_I] * 4 + [_P]),
     "construct_probe": ("construct_probe_launch", [_I] + [_P] * 6),
     "align_fused_tiled_timed": (
         "align_fused_tiled_launch", [_P] * 26 + [_I] * 5 + [_P]
@@ -59,6 +61,11 @@ SIGNATURES = {
         "align_fused_resident_launch", [_P] * 26 + [_I] * 5 + [_P]
     ),
     "align_fused_phase_ns": ("align_fused_phase_ns", [_P, _I]),
+    "fused_flow_timed": ("fused_flow_launch", [_P] * 12 + [_I] * 4 + [_P]),
+    "fused_step_coeffs_timed": (
+        "fused_step_launch", [_P] * 13 + [_I] * 4 + [_P]
+    ),
+    "fused_flow_marks": ("fused_flow_marks", [_P, _I]),
     "align_fused_item_ns": ("align_fused_item_ns", [_P, _I]),
 }
 # entry points that live in another source's library
@@ -70,6 +77,8 @@ LIBRARY = {
     "align_fused_resident_timed": "align_fused_timed",
     "align_fused_phase_ns": "align_fused_timed",
     "align_fused_item_ns": "align_fused_timed",
+    "fused_step_coeffs_timed": "fused_flow_timed",
+    "fused_flow_marks": "fused_flow_timed",
 }
 
 

@@ -10,7 +10,10 @@ and `fused_step_coeffs` its `fused_step_coeffs`: B, C, D, E of the quartic
 line search (cvo.cpp:213-289) given omega and v.  A is the gated Gram of
 `_pair_tile`: se color mode with the color kernel recomputed or read from
 the `color_gram` cache `ck`, or MATLAB's linear mode with `ck` holding the
-masked ci (required there).  Both kernels live in `csrc/fused_flow.cu`.
+masked ci (required there).  Both kernels live in `csrc/fused_flow.cu`:
+one launch a call, one block a (ROWS, TILE_J) tile of the sweep, and
+with `p.tile_skip` an exact AABB skip of the tiles that hold no pair
+inside the gate (`tile_keep` is its rule).
 
 On a CUDA tensor a wrapper launches its kernel (or raises); on a CPU
 tensor it runs the plain torch version beside it.  The kernel backend
@@ -21,41 +24,55 @@ moment sweep instead.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
+from cvo_rgbd_torch.core.cloud import aabb_min_d2, block_bounds
 from cvo_rgbd_torch.core.gram import pairwise_sqdist
 from cvo_rgbd_torch.ops import _build
 from cvo_rgbd_torch.ops.gram import (
+    S_D2_THRES,
     S_INV_2L2,
     check_cloud,
     check_inputs,
     linear_mode,
     scalars,
 )
-from cvo_rgbd_torch.ops.moments import pair_weights
+from cvo_rgbd_torch.ops.moments import SKIP_MARGIN, pair_weights
 
-ROWS = 128     # fixed-cloud rows per kernel block (csrc/fused_flow.cu RB)
-TILE_J = 32    # moving-cloud columns per staged tile (csrc/fused_flow.cu TJ)
-# blocks to aim for when splitting the moving cloud into chunks, from the
-# shapes alone, so the summation order is the same on any card
-TARGET_BLOCKS = 1024
+ROWS = 128     # fixed-cloud rows per work item (csrc/fused_flow.cu RB)
+TILE_J = 32    # moving-cloud columns per work item (csrc/fused_flow.cu TJ)
 # capacities the kernels take (the JAX package's _check)
 ALIGN = 128
 
 
-def chunking(n: int, m: int) -> tuple[int, int]:
-    """(column tiles per chunk, number of chunks) of an [n, m] sweep."""
-    nbi, nbj = n // ROWS, m // TILE_J
-    want = max(1, min(nbj, -(-TARGET_BLOCKS // nbi)))
-    per = -(-nbj // want)
-    return per, -(-nbj // per)
+def tile_keep(xp, xm, yp, ym, scal):
+    """[n / ROWS, m / TILE_J] bool: the work items the kernels' skip
+    sweeps, by its rule: the squared gap between the boxes of the item's
+    valid fixed rows and valid moving columns at most d2_thres +
+    SKIP_MARGIN (ops/moments.py).  An all-invalid tile is never kept."""
+    md = aabb_min_d2(*block_bounds(xp, xm, ROWS),
+                     *block_bounds(yp, ym, TILE_J))
+    return md <= scal[S_D2_THRES] + SKIP_MARGIN
 
 
-def fused_flow_plain(xp, xf, xm, yp, yf, ym, scal, ck=None, linear=False):
-    """Plain torch version of the flow kernel: the dense gated A, then
-    the difference-form residual per row over all of y.  Returns the
-    kernel's [9] row: omega*c 3, v*d 3, sum A d2, sum A, nnz."""
+def _gated(xp, xf, xm, yp, yf, ym, scal, ck, linear, keep):
+    """The dense gated A, the tiles `keep` drops set to zero."""
     A = pair_weights(xp, xf, xm, yp, yf, ym, scal, ck, linear)
+    if keep is None:
+        return A
+    keep = keep.repeat_interleave(ROWS, 0).repeat_interleave(TILE_J, 1)
+    return torch.where(keep, A, 0.0)
+
+
+def fused_flow_plain(xp, xf, xm, yp, yf, ym, scal, ck=None, linear=False,
+                     keep=None):
+    """Plain torch version of the flow kernel: the dense gated A (the
+    tiles `keep` drops, if given, zeroed), then the difference-form
+    residual per row over all of y.  Returns the kernel's [9] row:
+    omega*c 3, v*d 3, sum A d2, sum A, nnz."""
+    A = _gated(xp, xf, xm, yp, yf, ym, scal, ck, linear, keep)
     row = torch.sum(A, dim=1)
     r = torch.stack([torch.sum(A * yp[None, :, k], dim=1) - row * xp[:, k]
                      for k in range(3)], dim=1)
@@ -83,12 +100,12 @@ def _vdot(a, b):
 
 
 def fused_step_coeffs_plain(xp, xf, xm, yp, yf, ym, scal, wv, ck=None,
-                            linear=False):
-    """Plain torch version of the step kernel on the dense gated A, the
-    fields of each column and of each pair in the kernel's (the JAX
-    kernel's) operation order.  `wv` is [omega 3, v 3]; returns [B, C,
-    D, E]."""
-    A = pair_weights(xp, xf, xm, yp, yf, ym, scal, ck, linear)
+                            linear=False, keep=None):
+    """Plain torch version of the step kernel on the dense gated A (as
+    `fused_flow_plain`), the fields of each column and of each pair in
+    the kernel's (the JAX kernel's) operation order.  `wv` is [omega 3,
+    v 3]; returns [B, C, D, E]."""
+    A = _gated(xp, xf, xm, yp, yf, ym, scal, ck, linear, keep)
     w, v = wv[:3], wv[3:6]
     xiz = _wcross(w, yp) + v
     xi2z = _wcross(w, xiz)
@@ -147,7 +164,8 @@ def fused_flow(xp, xf, xm, yp, yf, ym, ell, ck=None, *, p):
     if xp.device.type == "cpu":
         out = fused_flow_plain(xp, xf, xm, yp, yf, ym, scal, ck, linear)
     else:
-        out = fused_flow_cuda(xp, xf, xm, yp, yf, ym, scal, ck, linear)
+        out = fused_flow_cuda(xp, xf, xm, yp, yf, ym, scal, ck, linear,
+                              skip=p.tile_skip)
     return out[0:3] / p.c, out[3:6] / p.d, out[6], out[8], out[7]
 
 
@@ -161,40 +179,58 @@ def fused_step_coeffs(xp, xf, xm, yp, yf, ym, ell, omega, v, ck=None, *, p):
                                       linear)
     else:
         out = fused_step_coeffs_cuda(xp, xf, xm, yp, yf, ym, scal, wv, ck,
-                                     linear)
+                                     linear, skip=p.tile_skip)
     return out[0], out[1], out[2], out[3]
 
 
-def _grid(name, tensors):
-    """(device, n, m, column tiles per chunk, chunks) of a launch, after
-    the inputs' device, type and layout are checked."""
+# per (device, stream): the kernels' int32 ticket, zeroed once; each launch
+# leaves it zero for the next one on its stream, so a call needs no memset
+# (a second launch)
+_TICKETS = {}
+
+
+def _launch_scratch(name, tensors, ck, width):
+    """(device, n, m, part, cnt, ticket, stream) of a launch, after the
+    inputs' device, type, layout and the cache's alignment are checked:
+    each work item's partial row of `width` floats and its int count
+    (-1 where the skip drops it), and the stream's ticket."""
     xp, yp = tensors[0], tensors[3]
     dev = xp.device
     check_inputs(name, tensors, dev)
+    # the kernels copy ck in 16-byte pieces
+    if ck is not None and ck.data_ptr() % 16:
+        raise ValueError(f"{name}: ck must be 16-byte aligned")
     n, m = xp.shape[0], yp.shape[0]
-    return (dev, n, m, *chunking(n, m))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ticket = _TICKETS.get((dev, stream))
+    if ticket is None:
+        ticket = torch.zeros((1,), dtype=torch.int32, device=dev)
+        _TICKETS[(dev, stream)] = ticket
+    items = (n // ROWS) * (m // TILE_J)
+    part = torch.empty((items, width), dtype=torch.float32, device=dev)
+    cnt = torch.empty((items,), dtype=torch.int32, device=dev)
+    return dev, n, m, part, cnt, ticket, stream
 
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def fused_flow_cuda(xp, xf, xm, yp, yf, ym, scal, ck=None, linear=False):
+def fused_flow_cuda(xp, xf, xm, yp, yf, ym, scal, ck=None, linear=False,
+                    skip=True, timed=False):
     """Launch the flow kernel on CUDA tensors (shapes checked by
-    `fused_flow`); returns its [9] row and counts one launch in
-    `fused_flow.launches`."""
+    `fused_flow`), with the tile skip when `skip`; returns its [9] row
+    and counts one launch in `fused_flow.launches`.  `timed` launches the
+    timing tool's build, whose per-block marks `flow_marks` reads."""
     opt = (ck,) if ck is not None else ()
-    dev, n, m, per, n_chunks = _grid(
-        "fused_flow", (xp, xf, xm, yp, yf, ym, scal) + opt)
-    parts = n_chunks * (n // ROWS)
-    part = torch.empty((parts, 8), dtype=torch.float32, device=dev)
-    cnt = torch.empty((parts,), dtype=torch.int32, device=dev)
+    dev, n, m, part, cnt, ticket, stream = _launch_scratch(
+        "fused_flow", (xp, xf, xm, yp, yf, ym, scal) + opt, ck, 8)
     out = torch.empty((9,), dtype=torch.float32, device=dev)
-    err = _build.entry("fused_flow")(
+    err = _build.entry("fused_flow" + ("_timed" if timed else ""))(
         xp.data_ptr(), xf.data_ptr(), xm.data_ptr(), yp.data_ptr(),
         yf.data_ptr(), ym.data_ptr(), _ptr(ck), scal.data_ptr(),
-        part.data_ptr(), cnt.data_ptr(), out.data_ptr(), n, m, per,
-        n_chunks, int(linear), torch.cuda.current_stream(dev).cuda_stream,
+        part.data_ptr(), cnt.data_ptr(), ticket.data_ptr(), out.data_ptr(),
+        n, m, int(skip), int(linear), stream,
     )
     _build.check("fused_flow", err)
     fused_flow.launches += 1
@@ -202,25 +238,35 @@ def fused_flow_cuda(xp, xf, xm, yp, yf, ym, scal, ck=None, linear=False):
 
 
 def fused_step_coeffs_cuda(xp, xf, xm, yp, yf, ym, scal, wv, ck=None,
-                           linear=False):
+                           linear=False, skip=True, timed=False):
     """Launch the step kernel on CUDA tensors (shapes checked by
-    `fused_step_coeffs`); returns [B, C, D, E] and counts one launch in
-    `fused_step_coeffs.launches`."""
+    `fused_step_coeffs`), with the tile skip when `skip`; returns [B, C,
+    D, E] and counts one launch in `fused_step_coeffs.launches`.  `timed`
+    as in `fused_flow_cuda`."""
     opt = (ck,) if ck is not None else ()
-    dev, n, m, per, n_chunks = _grid(
-        "fused_step_coeffs", (xp, xf, xm, yp, yf, ym, scal, wv) + opt)
-    part = torch.empty((n_chunks * (n // ROWS), 4), dtype=torch.float32,
-                       device=dev)
+    dev, n, m, part, cnt, ticket, stream = _launch_scratch(
+        "fused_step_coeffs", (xp, xf, xm, yp, yf, ym, scal, wv) + opt, ck, 4)
     out = torch.empty((4,), dtype=torch.float32, device=dev)
-    err = _build.entry("fused_step_coeffs")(
+    err = _build.entry("fused_step_coeffs" + ("_timed" if timed else ""))(
         xp.data_ptr(), xf.data_ptr(), xm.data_ptr(), yp.data_ptr(),
         yf.data_ptr(), ym.data_ptr(), _ptr(ck), scal.data_ptr(),
-        wv.data_ptr(), part.data_ptr(), out.data_ptr(), n, m, per, n_chunks,
-        int(linear), torch.cuda.current_stream(dev).cuda_stream,
+        wv.data_ptr(), part.data_ptr(), cnt.data_ptr(), ticket.data_ptr(),
+        out.data_ptr(), n, m, int(skip), int(linear), stream,
     )
     _build.check("fused_step_coeffs", err)
     fused_step_coeffs.launches += 1
     return out
+
+
+def flow_marks(blocks):
+    """[blocks, 6] int64 of the timed build's last launch, a row a block
+    (one a work item, in item order): %globaltimer ns at the block's
+    start, after the skip test, after the sweep (kept items only), after
+    the ticket and at its end, then the item's kept flag."""
+    out = (ctypes.c_ulonglong * (6 * blocks))()
+    err = _build.entry("fused_flow_marks")(ctypes.addressof(out), blocks)
+    _build.check("fused_flow_marks", err)
+    return torch.tensor(list(out), dtype=torch.int64).reshape(blocks, 6)
 
 
 fused_flow.launches = 0

@@ -39,6 +39,21 @@ through the plain version in float32 on the card and in float64 on the
 CPU, and prints for each pair how far the card and the float32 plain
 version each are from the float64 run: which side a drift comes from.
 
+    python -m cvo_rgbd_torch.time_fused --flow
+
+times instead the two sweeps of the kernel backend's direct step,
+`fused_flow_cuda` and `fused_step_coeffs_cuda` (median of 30 CUDA-event
+runs, launches a call from torch.profiler), at chip_smoke's phase-3d
+inputs: the first 3072 render pair in se mode with and without the
+color cache at ell 0.1 and 0.03, and the first pcd pair at 2816 and 384
+in linear mode at ell 0.03.  Each line gives the share of (128, 32)
+tiles the AABB skip keeps; a version with the in-kernel skip runs each
+case with it on and off, and with it on adds one launch of the timed
+build (a library of its own, `-DFLOW_PHASE_TIMERS`) split by its
+per-block marks: the skip test, a kept item's copies and sweep, the
+ticket, the last block's sum.  The PYTHONPATH form runs it against an
+earlier checkout's package as well.
+
     python -m cvo_rgbd_torch.time_fused --sass [LIBRARY]
 
 prints instead, for the resident cvo kernel of a built library (by
@@ -171,26 +186,33 @@ def pair(size, num_want, rgb):
     return [kd_sort(fe(f[2], f[3])) for f in render(2, size)[1]]
 
 
-def pcd_lanes(grid=0.015, repeat=1, device="cuda"):
-    """chip_smoke's phase-8 lanes: the 9 pairs of the 10-frame render
-    written as .pcd, loaded at `grid`, padded to one capacity, stacked
-    `repeat` times and kd-sorted with the features padded to 5 planes."""
+def pcd_clouds(grids):
+    """{grid: the 10-frame render written as .pcd and loaded at grid}, as
+    the MATLAB batch runner loads them."""
     import tempfile
 
-    import torch
-
-    from cvo_rgbd_torch.batch import load_pcd_dir, pad_clouds
-    from cvo_rgbd_torch.core.cloud import kd_sort, stack_clouds
+    from cvo_rgbd_torch.batch import load_pcd_dir
     from cvo_rgbd_torch.io.export import depth_to_cloud, write_pcd
-    from cvo_rgbd_torch.ops.gram import pad_feat
 
     scene, frames = render(10, (240, 320))
     with tempfile.TemporaryDirectory() as root:
         for _, nm, rgb, dep, _ in frames:
             write_pcd(os.path.join(root, f"{nm}.pcd"),
                       *depth_to_cloud(rgb, dep, scene.cam))
-        clouds = load_pcd_dir(root, grid=grid)
-    padded = pad_clouds(clouds, torch.device(device))
+        return {g: load_pcd_dir(root, grid=g) for g in grids}
+
+
+def pcd_lanes(grid=0.015, repeat=1, device="cuda"):
+    """chip_smoke's phase-8 lanes: the 9 pairs of the 10-frame render
+    written as .pcd, loaded at `grid`, padded to one capacity, stacked
+    `repeat` times and kd-sorted with the features padded to 5 planes."""
+    import torch
+
+    from cvo_rgbd_torch.batch import pad_clouds
+    from cvo_rgbd_torch.core.cloud import kd_sort, stack_clouds
+    from cvo_rgbd_torch.ops.gram import pad_feat
+
+    padded = pad_clouds(pcd_clouds((grid,))[grid], torch.device(device))
     fixed = stack_clouds(padded[:-1], repeat=repeat)
     moving = stack_clouds(padded[1:], repeat=repeat)
     return tuple(kd_sort(c._replace(features=pad_feat(c.features)))
@@ -341,6 +363,139 @@ def time_odometry():
               flush=True)
 
 
+def flow_cases():
+    """chip_smoke's phase-3d inputs: (label, params, fixed, moving, ck,
+    ell) for the first 3072 render pair (cvo, kd-sorted, with and without
+    the color cache, ell 0.1 and 0.03) and the first pcd pair padded with
+    its set at 2816 and 384 (MATLAB's linear mode, its masked CI, ell
+    0.03)."""
+    import torch
+
+    from cvo_rgbd_torch.batch import pad_clouds
+    from cvo_rgbd_torch.core.cloud import kd_sort
+    from cvo_rgbd_torch.core.registration import prepare_ci
+    from cvo_rgbd_torch.ops import gram
+    from cvo_rgbd_torch.params import MATLAB_PARAMS, CvoParams
+
+    p = CvoParams()
+    x, y = pair((240, 320), 3000, 1)
+    ck = gram.color_gram(*x, *y, p=p)
+    cases = [(f"cvo ck={c is not None}", p, x, y, c, ell)
+             for ell in (0.1, 0.03) for c in (ck, None)]
+    for grid, clouds in pcd_clouds((0.015, 0.05)).items():
+        lx, ly = (kd_sort(c) for c in pad_clouds(clouds,
+                                                 torch.device("cuda"))[:2])
+        ci = prepare_ci(MATLAB_PARAMS, lx, ly)
+        lx, ly = (c._replace(features=gram.pad_feat(c.features))
+                  for c in (lx, ly))
+        cases.append((f"linear grid={grid}", MATLAB_PARAMS, lx, ly, ci,
+                      0.03))
+    return cases
+
+
+def kept_fraction(x, y, scal, rows=128, cols=32):
+    """Share of the (rows, cols) tiles the AABB skip keeps, by the rule of
+    ops/moments.py (bound <= d2_thres + SKIP_MARGIN), from the tile boxes
+    of the valid points: ops/flow.tile_keep, written here from what
+    packages older than it have too."""
+    from cvo_rgbd_torch.core.cloud import aabb_min_d2, block_bounds
+    from cvo_rgbd_torch.ops.gram import S_D2_THRES
+    from cvo_rgbd_torch.ops.moments import SKIP_MARGIN
+
+    md = aabb_min_d2(*block_bounds(x.positions, x.mask, rows),
+                     *block_bounds(y.positions, y.mask, cols))
+    return (md <= scal[S_D2_THRES] + SKIP_MARGIN).float().mean().item()
+
+
+def launches_per_call(fn):
+    """Kernel launches a call of fn, over REPEATS calls under
+    torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(REPEATS):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.key.startswith("cudaLaunch")) / REPEATS
+
+
+def flow_split(marks):
+    """The timed build's per-block marks (`flow.flow_marks`) in us from
+    the first block's start: the median skip test, the median and
+    largest copy and sweep of a kept item, the median ticket, the last
+    block's sum, when the last kept item was swept and the last block
+    started, and the whole span."""
+    import torch
+
+    t = marks[:, :5].double()
+    kept = marks[:, 5] > 0
+    rel = (t - t[:, 0].min()) / 1e3
+    sweep = (rel[:, 2] - rel[:, 1])[kept]
+    tail = rel[:, 4] - rel[:, 3]
+    ticket = rel[:, 3] - torch.where(kept, rel[:, 2], rel[:, 1])
+    return {
+        "test_us": (rel[:, 1] - rel[:, 0]).median().item(),
+        "sweep_us": [sweep.median().item(), sweep.max().item()],
+        "ticket_us": ticket.median().item(),
+        "last_sum_us": tail.max().item(),
+        "last_kept_swept_at_us": rel[kept, 2].max().item(),
+        "last_start_us": rel[:, 0].max().item(),
+        "span_us": rel[:, 4].max().item(),
+    }
+
+
+def time_flow():
+    """fused_flow_cuda and fused_step_coeffs_cuda on flow_cases(): one
+    JSON line a sweep, case and skip setting.  A version whose wrappers
+    take no `skip` argument (before the in-kernel skip) runs once a case,
+    as "skip": null.  A version with the timed build adds, with the skip
+    on, the split of one launch by its per-block marks (flow_split)."""
+    import inspect
+
+    import cvo_rgbd_torch
+    import torch
+
+    from cvo_rgbd_torch.ops import flow, gram
+
+    params = inspect.signature(flow.fused_flow_cuda).parameters
+    has_skip, has_timed = "skip" in params, "timed" in params
+    for label, p, x, y, ck, ell in flow_cases():
+        linear = p.color_mode == "linear"
+        scal = gram.scalars(torch.full((), ell, device="cuda"), p)
+        args = (*x, *y, scal)
+        kept = kept_fraction(x, y, scal)
+        for skip in ((True, False) if has_skip else (None,)):
+            kw = {} if skip is None else {"skip": skip}
+            out = flow.fused_flow_cuda(*args, ck, linear, **kw)
+            wv = torch.cat([out[0:3] / p.c, out[3:6] / p.d])
+            for sweep, fn in (
+                ("fused_flow",
+                 lambda **t: flow.fused_flow_cuda(*args, ck, linear, **kw,
+                                                  **t)),
+                ("fused_step_coeffs",
+                 lambda **t: flow.fused_step_coeffs_cuda(
+                     *args, wv, ck, linear, **kw, **t))):
+                split = {}
+                if skip and has_timed:
+                    for _ in range(2):
+                        fn(timed=True)
+                    torch.cuda.synchronize()
+                    split = flow_split(flow.flow_marks(
+                        (x.capacity // 128) * (y.capacity // 32)))
+                print(json.dumps({
+                    "package": cvo_rgbd_torch.__file__, "sweep": sweep,
+                    "case": label, "n": x.capacity, "m": y.capacity,
+                    "ell": ell, "skip": skip, "kept_tiles": kept,
+                    "nnz": out[8].item(), "ms": time_ms(fn),
+                    "launches_per_call": launches_per_call(fn), **split,
+                }), flush=True)
+
+
 def drift():
     """Card and float32 plain version against float64, pair by pair,
     after 1, 3 and 10 iterations from the same start: phase 8's pcd lanes
@@ -412,6 +567,12 @@ def main(argv=None):
 
     print(card_line(), flush=True)
     pin_fp32()
+    if argv[:1] == ["--flow"]:
+        _build.build(("color_gram", "fused_flow"))
+        if "fused_flow_timed" in getattr(_build, "VARIANTS", {}):
+            _build.build(("fused_flow_timed",))
+        time_flow()
+        return 0
     _build.build()
     if argv[:1] == ["--drift"]:
         drift()

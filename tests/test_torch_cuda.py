@@ -387,6 +387,113 @@ def test_fused_step_coeffs_kernel_matches_plain(dev, mode, ell):
         assert _close(out[q], ref[q]), (q, out, ref)
 
 
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+def _sweeps(x, y, ck, p, ell, skip):
+    """(fused_flow row, [B, C, D, E]) of the two kernels with the tile
+    skip on or off, the step at the plain flow's omega and v."""
+    from cvo_rgbd_torch.ops import flow, gram
+
+    scal = gram.scalars(torch.full((), ell, device=x.positions.device), p)
+    linear = p.color_mode == "linear"
+    ref = flow.fused_flow_plain(*x, *y, scal, ck, linear)
+    wv = torch.cat([ref[0:3] / p.c, ref[3:6] / p.d])
+    return (flow.fused_flow_cuda(*x, *y, scal, ck, linear, skip=skip),
+            flow.fused_step_coeffs_cuda(*x, *y, scal, wv, ck, linear,
+                                        skip=skip))
+
+
+@pytest.mark.parametrize("ell", [0.1, 0.03])
+@pytest.mark.parametrize("mode", ["se", "se_ck", "linear"])
+def test_flow_sweeps_skip_on_and_off_and_reruns_give_the_same_bits(
+        dev, mode, ell):
+    """The in-kernel tile skip is exact, and the ticket reduction sums in
+    a fixed order: skip on, skip off and a second run, the same bits."""
+    from cvo_rgbd_torch.ops import flow, gram
+
+    x, y, ck, p = _flow_inputs(dev, mode)
+    keep = flow.tile_keep(x.positions, x.mask, y.positions, y.mask,
+                          gram.scalars(torch.full((), ell, device=dev), p))
+    assert 0 < int(keep.sum()) < keep.numel()
+    on, off, again = (_sweeps(x, y, ck, p, ell, skip)
+                      for skip in (True, False, True))
+    for a, b, c in zip(on, off, again):
+        assert torch.equal(_bits(a), _bits(b)), (a, b)
+        assert torch.equal(_bits(a), _bits(c)), (a, c)
+
+
+@pytest.mark.parametrize("mode", ["se", "se_ck", "linear"])
+def test_flow_sweeps_are_one_launch_a_call(dev, mode):
+    """Each call is one kernel launch: the reduction is in the sweep."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cvo_rgbd_torch.ops import flow, gram
+
+    x, y, ck, p = _flow_inputs(dev, mode)
+    scal = gram.scalars(torch.full((), 0.1, device=dev), p)
+    wv = torch.zeros(6, device=dev)
+    linear = mode == "linear"
+    for fn, tag in (
+            (lambda: flow.fused_flow_cuda(*x, *y, scal, ck, linear),
+             "flow_kernel"),
+            (lambda: flow.fused_step_coeffs_cuda(*x, *y, scal, wv, ck,
+                                                 linear), "step_kernel")):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        launches = sum(e.count for e in prof.key_averages()
+                       if e.key.startswith("cudaLaunch"))
+        assert launches == 1 and len(kernels) == 1, (launches, kernels)
+        assert tag in kernels[0]
+
+
+@pytest.mark.parametrize("mode", ["se", "se_ck", "linear"])
+@pytest.mark.parametrize("n,m", [(1024, 512), (512, 1152)])
+def test_flow_sweeps_unequal_clouds_with_an_invalid_tile(dev, mode, n, m):
+    """N != M, a fixed row block and a moving column tile all invalid
+    (positions kept, masks 0, the cache built after): every output against
+    the plain version, the skip exact and dropping those tiles."""
+    from cvo_rgbd_torch.core.registration import prepare_ci
+    from cvo_rgbd_torch.ops import flow, gram
+    from cvo_rgbd_torch.params import MATLAB_PARAMS, CvoParams
+
+    x, _ = _clouds(dev, n=n - 24, cap=n, seed=2)
+    _, y = _clouds(dev, n=m - 24, cap=m, seed=2)
+    xm, ym = x.mask.clone(), y.mask.clone()
+    xm[flow.ROWS:2 * flow.ROWS] = 0.0
+    ym[flow.TILE_J:2 * flow.TILE_J] = 0.0
+    x, y = x._replace(mask=xm), y._replace(mask=ym)
+    if mode == "linear":
+        p = MATLAB_PARAMS
+        ck = prepare_ci(p, *(c._replace(features=c.features[:, :3])
+                             for c in (x, y)))
+    else:
+        p = CvoParams()
+        ck = gram.color_gram(*x, *y, p=p) if mode == "se_ck" else None
+    scal = gram.scalars(torch.full((), 0.1, device=dev), p)
+    keep = flow.tile_keep(x.positions, x.mask, y.positions, y.mask, scal)
+    assert not keep[1].any() and not keep[:, 1].any() and keep.any()
+    on, off = (_sweeps(x, y, ck, p, 0.1, skip) for skip in (True, False))
+    linear = mode == "linear"
+    ref = flow.fused_flow_plain(*x, *y, scal, ck, linear)
+    wv = torch.cat([ref[0:3] / p.c, ref[3:6] / p.d])
+    ref_s = flow.fused_step_coeffs_plain(*x, *y, scal, wv, ck, linear)
+    assert on[0][8].item() == ref[8].item() > 0
+    for sl in (slice(0, 3), slice(3, 6), slice(6, 7), slice(7, 8)):
+        assert _close(on[0][sl], ref[sl]), (sl, on[0], ref)
+    for q in range(4):
+        assert _close(on[1][q], ref_s[q]), (q, on[1], ref_s)
+    for a, b in zip(on, off):
+        assert torch.equal(_bits(a), _bits(b)), (a, b)
+
+
 @pytest.mark.parametrize("ell", [0.15, 0.03])
 def test_fused_moments_linear_kernel_matches_plain(dev, ell):
     from cvo_rgbd_torch.core.cloud import aabb_min_d2, block_bounds

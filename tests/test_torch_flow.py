@@ -182,3 +182,138 @@ def test_direct_step_align_matches_jax_xla_direct(adaptive):
     assert abs(int(got.iterations) - int(ref.iterations)) <= 2
     # the JAX suite's stop skew (tests/test_parallel.py:217)
     np.testing.assert_allclose(got.tf.numpy(), np.asarray(ref.tf), atol=3e-4)
+
+
+def _sorted_inputs(mode, seed=4, n=None, cap=512, m_cap=None, empty=False):
+    """(port clouds kd-sorted, ck, params) of a sweep in `mode`; the
+    moving cloud at capacity `m_cap` (default `cap`).  With `empty`, the
+    second row block of the fixed cloud and the second column tile of the
+    moving one are made invalid (their positions kept), and the cache is
+    built after, as the kernel backend builds it from the masks."""
+    from cvo_rgbd_torch import pad_cloud as t_pad_cloud
+    from cvo_rgbd_torch.core.cloud import kd_sort
+    from cvo_rgbd_torch.ops import flow
+
+    m_cap = m_cap or cap
+    n = n or min(cap, m_cap) - 40
+    rng = np.random.default_rng(seed)
+    # a noisy copy of a 2 x 1.5 x 1 m volume: neighbours within ell 0.03
+    pos = rng.random((n, 3)) * np.array([2.0, 1.5, 1.0]) + np.array(
+        [-1.0, -0.7, 1.0])
+    feat = rng.random((n, 5)) * np.array([255, 255, 255, 60, 60])
+    feat = feat[:, :3] if mode == "linear" else feat
+    tx, ty = (kd_sort(t_pad_cloud(q, feat, c, device="cpu")) for q, c in (
+        (pos, cap), (pos + rng.normal(0.0, 0.01, pos.shape), m_cap)))
+    if empty:
+        xm, ym = tx.mask.clone(), ty.mask.clone()
+        xm[flow.ROWS:2 * flow.ROWS] = 0.0
+        ym[flow.TILE_J:2 * flow.TILE_J] = 0.0
+        tx, ty = tx._replace(mask=xm), ty._replace(mask=ym)
+    if mode == "linear":
+        ck = t_prepare_ci(T_MATLAB, tx, ty)
+        tx, ty = (c._replace(features=pad_feat(c.features)) for c in (tx, ty))
+        return tx, ty, ck, T_MATLAB
+    ck = t_color_gram(*tx, *ty, p=TP()) if mode == "se_ck" else None
+    return tx, ty, ck, TP()
+
+
+def _block_tree(v):
+    """csrc/fused_flow.cu's block_sum over its 128 threads' values v
+    [128, k]: each warp's shuffle-down tree, then the warps in order."""
+    w = v.reshape(4, 32, -1).clone()
+    for off in (16, 8, 4, 2, 1):
+        w[:, :32 - off] = w[:, :32 - off] + w[:, off:]
+    total = torch.zeros_like(w[0, 0])
+    for k in range(4):
+        total = total + w[k, 0]
+    return total
+
+
+def _item_sums(xp, yp, A, keep):
+    """A torch transcription of csrc/fused_flow.cu's work split: each
+    (ROWS, TILE_J) item's flow partial (the rows' residuals over the
+    item's columns, then summed over its rows), and the kept items'
+    partials summed in item order as the last block sums them (items t,
+    t + 128, ... in thread t, then the block's tree), the all-zero sign
+    made +0 as its last write makes it."""
+    from cvo_rgbd_torch.ops import flow
+
+    nbi, nbj = xp.shape[0] // flow.ROWS, yp.shape[0] // flow.TILE_J
+    a = A.reshape(nbi, flow.ROWS, nbj, flow.TILE_J)
+    x = xp.reshape(nbi, flow.ROWS, 1, 3)
+    sA = a.sum(-1)
+    r = torch.einsum("iajb,jbk->iajk", a,
+                     yp.reshape(nbj, flow.TILE_J, 3)) - sA[..., None] * x
+    x0, x1, x2 = x.unbind(-1)
+    r0, r1, r2 = r.unbind(-1)
+    part = torch.stack([x1 * r2 - x2 * r1, x2 * r0 - x0 * r2,
+                        x0 * r1 - x1 * r0, r0, r1, r2, sA], -1).sum(1)
+    part, kept = part.reshape(nbi * nbj, -1), keep.reshape(-1)
+    acc = torch.zeros(128, part.shape[1])
+    for k0 in range(0, part.shape[0], 128):
+        rows, use = part[k0:k0 + 128], kept[k0:k0 + 128, None]
+        acc[:len(rows)] = torch.where(use, acc[:len(rows)] + rows,
+                                      acc[:len(rows)])
+    return _block_tree(acc) + 0.0
+
+
+def _skip_checks(tx, ty, ck, p, ell):
+    """The skip rule (flow.tile_keep) holds every nonzero A, the plain
+    sweeps with the dropped tiles zeroed give the full ones' bits, and
+    the kernel's work split gives the same bits with the skip on and
+    off.  Returns the share of tiles kept."""
+    from cvo_rgbd_torch.ops import flow, gram
+    from cvo_rgbd_torch.ops.moments import pair_weights
+
+    linear = p.color_mode == "linear"
+    scal = gram.scalars(torch.tensor(ell), p)
+    keep = flow.tile_keep(tx.positions, tx.mask, ty.positions, ty.mask,
+                          scal)
+    assert keep.shape == (tx.capacity // flow.ROWS,
+                          ty.capacity // flow.TILE_J)
+    A = pair_weights(*tx, *ty, scal, ck, linear)
+    assert (A != 0).any()
+    dense = keep.repeat_interleave(flow.ROWS, 0).repeat_interleave(
+        flow.TILE_J, 1)
+    assert not (A != 0)[~dense].any()
+    args = (*tx, *ty, scal)
+    full = flow.fused_flow_plain(*args, ck, linear)
+    wv = torch.cat([full[0:3] / p.c, full[3:6] / p.d])
+    for got, ref in (
+            (flow.fused_flow_plain(*args, ck, linear, keep=keep), full),
+            (flow.fused_step_coeffs_plain(*args, wv, ck, linear, keep=keep),
+             flow.fused_step_coeffs_plain(*args, wv, ck, linear))):
+        assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    on = _item_sums(tx.positions, ty.positions, A, keep)
+    off = _item_sums(tx.positions, ty.positions, A, torch.ones_like(keep))
+    assert torch.equal(on.view(torch.int32), off.view(torch.int32))
+    # the split sums in another order than the plain version: 1e-4 of
+    # each output's magnitude, as the kernel is held on the card
+    for sl in (slice(0, 3), slice(3, 6), slice(7, 8)):
+        assert (on[sl] - full[sl]).norm() <= 1e-4 * full[sl].norm()
+    return keep.float().mean().item()
+
+
+@pytest.mark.parametrize("ell", [0.1, 0.03])
+@pytest.mark.parametrize("mode", MODES)
+def test_tile_skip_rule_and_work_split_are_exact(mode, ell):
+    """On kd-sorted clouds at the kernel's (128, 32) tiles: the skip
+    drops tiles and keeps every nonzero A, in all three modes."""
+    tx, ty, ck, p = _sorted_inputs(mode)
+    kept = _skip_checks(tx, ty, ck, p, ell)
+    assert 0.0 < kept < 1.0
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("n,m", [(512, 256), (256, 384)])
+def test_tile_skip_with_an_invalid_tile_and_unequal_clouds(mode, n, m):
+    """N != M, with an all-invalid row block and column tile: their
+    boxes are empty and every item holding them is dropped."""
+    from cvo_rgbd_torch.ops import flow, gram
+
+    tx, ty, ck, p = _sorted_inputs(mode, n=min(n, m) - 40, cap=n, m_cap=m,
+                                   empty=True)
+    _skip_checks(tx, ty, ck, p, 0.1)
+    keep = flow.tile_keep(tx.positions, tx.mask, ty.positions, ty.mask,
+                          gram.scalars(torch.tensor(0.1), p))
+    assert not keep[1].any() and not keep[:, 1].any()
