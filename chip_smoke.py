@@ -18,7 +18,8 @@ and prints no result line):
 3. kernels vs their plain torch versions on the card, on the first pair
    at N=M=3072, with CUDA-event timings: `color_gram` and
    `fused_moments` on the cvo clouds; 3b. `fused_wsq` on the acvo
-   clouds' two self-pairs; 3c. the whole-align kernel `align_fused`
+   clouds' two self-pairs, then both in one launch (an exact acvo
+   iteration), each sweep the bits of its one-sweep call; 3c. the whole-align kernel `align_fused`
    after 1, 3 and 10 iterations, tiled on the first cvo and acvo pairs
    (N=M=3072) and resident on two small pairs (N=M=1024); 3d. the
    two-pass sweeps `fused_flow` and `fused_step_coeffs` on the first cvo
@@ -33,7 +34,8 @@ and prints no result line):
    card and on the CPU (plain versions), which must agree, and a
    profile of one iteration, with the moment sweep and with the direct
    step's two sweeps (one launch each an iteration); 4b. the same for
-   acvo (`self_mode="exact"`, then one align with `"cheb"`); 4c. the
+   acvo (`self_mode="exact"`, both self-sweeps one launch an iteration;
+   then one align with `"cheb"`, its tables one launch); 4c. the
    same aligns on the fused backend, each run twice (the iterations must
    repeat), ms/iteration by slope (10 against 60 iterations) and a
    profile of one align;
@@ -314,7 +316,8 @@ def phase_kernels(fixed, moving, p):
 def phase_wsq(fixed, moving, p):
     """fused_wsq against its plain version on both self-pairs of the
     first acvo pair: ell_init and ell_min, ck on and off, skip on and
-    off, symmetric and full."""
+    off, symmetric and full; then an exact acvo iteration's one launch
+    of both sweeps (S = 2), each sweep the bits of its one-sweep call."""
     import torch
 
     from cvo_rgbd_torch.core.cloud import aabb_min_d2, block_bounds, kd_sort
@@ -323,6 +326,7 @@ def phase_wsq(fixed, moving, p):
 
     tw = wsq.TILE_W
     out = {}
+    singles = {}
     for label, cloud in (("fixed", fixed), ("moving", moving)):
         x = kd_sort(cloud)
         dev = x.positions.device
@@ -334,6 +338,7 @@ def phase_wsq(fixed, moving, p):
               "exactly symmetric")
         lo, hi = block_bounds(x.positions, x.mask, tw)
         md = aabb_min_d2(lo, hi, lo, hi)
+        tiles = wsq.tile_order(md, True)
         nb = n // tw
         upper = torch.triu(torch.ones(nb, nb, dtype=torch.bool, device=dev))
         for ell_v in (p.ell_init, p.ell_min):
@@ -363,10 +368,12 @@ def phase_wsq(fixed, moving, p):
                 check(all(got[sym, False] == got[sym, True]
                           for sym in (False, True)),
                       "fused_wsq: tile skip on and off differ")
+                singles[label, ell_v, use_ck] = (x, ck_in, tiles, got[True, True])
                 if not (label == "fixed" and use_ck and ell_v == p.ell_min):
                     continue
-                # the main path's configuration: symmetric, ck, skip
-                args = (*x, *x, scal, ck_in, md)
+                # the main path's configuration: symmetric, ck, the tile
+                # order an align builds once
+                args = (*x, *x, scal, ck_in, tiles)
                 ms = time_ms(lambda: wsq.fused_wsq_cuda(*args,
                                                         symmetric=True))
                 plain_ms = time_ms(lambda: wsq.fused_wsq_plain(*args))
@@ -387,6 +394,26 @@ def phase_wsq(fixed, moving, p):
                 out["fused_wsq"] = dict(max_abs_err=err, ms=ms,
                                         plain_ms=plain_ms, bound_ms=b_ms,
                                         bound_by=b_by, ell=ell_v)
+    # an exact acvo iteration: both self-sweeps in one launch
+    for ell_v in (p.ell_init, p.ell_min):
+        scal = gram.scalars(torch.full((), ell_v, device=dev), p)
+        for use_ck in (True, False):
+            pair = [singles[label, ell_v, use_ck]
+                    for label in ("fixed", "moving")]
+            sweeps = [wsq.Sweep(tuple(x), tuple(x), ck_in, tiles, True)
+                      for x, ck_in, tiles, _ in pair]
+            before = wsq.fused_wsq.launches
+            w, nz = wsq.fused_wsq_sweeps_cuda(sweeps, scal)
+            torch.cuda.synchronize()
+            check(wsq.fused_wsq.launches == before + 1,
+                  "fused_wsq: two sweeps took more than one launch")
+            got = [(w[k].item(), nz[k].item()) for k in range(2)]
+            check(got == [one for _, _, _, one in pair],
+                  f"fused_wsq: a sweep of the S = 2 launch is not its "
+                  f"one-sweep call's bits: {got}")
+            ms = time_ms(lambda: wsq.fused_wsq_sweeps_cuda(sweeps, scal))
+            log(f"fused_wsq S=2 (fixed, moving) ell={ell_v} ck={use_ck}: "
+                f"each sweep its one-sweep bits, one launch, {ms:.4f} ms")
     return out
 
 
@@ -858,6 +885,11 @@ def phase_align(fixed, moving, p, small=None, skew=0.1):
             ("fused_wsq",) if hasattr(p, "self_mode") else ())
         check(all(launches[k] > 0 for k in used),
               "align did not launch its kernels")
+        if getattr(p, "self_mode", None) == "cheb":
+            # the tables' 2K sweeps are the align's only fused_wsq launch
+            log(f"align {name}: cheb table launches {launches['fused_wsq']}")
+            check(launches["fused_wsq"] == 1,
+                  "the Chebyshev tables took more than one launch")
     if small is None:
         return ms_iter
 
@@ -923,6 +955,11 @@ def phase_profile(fixed, moving, p, n_iter=5):
                     for tag in ("flow_kernel", "step_kernel")}
         check(per_iter == {"flow_kernel": 1, "step_kernel": 1},
               f"direct step: sweep launches per iteration {per_iter}")
+    wsq_launches = sum("wsq_kernel" in e.name for e in gpu) / n_iter
+    if adaptive:
+        # both exact self-sweeps in one launch, the reduction folded in
+        check(wsq_launches == 1,
+              f"acvo: fused_wsq launches per iteration {wsq_launches}")
 
     log(f"profile {type(p).__name__} step_mode={p.step_mode} "
         f"N=M={fixed.capacity} ell={ell}: {host_ms:.3f} ms/iteration on the "
@@ -931,7 +968,8 @@ def phase_profile(fixed, moving, p, n_iter=5):
         f"{kernel_ms('moments_'):.3f} ms, fused_wsq {kernel_ms('wsq_'):.3f} "
         f"ms, fused_flow {kernel_ms('flow_kernel'):.3f} ms, "
         f"fused_step_coeffs {kernel_ms('step_kernel'):.3f} ms; "
-        f"{launches / n_iter:.0f} kernel launches per iteration")
+        f"{launches / n_iter:.0f} kernel launches per iteration "
+        f"({wsq_launches:.0f} of fused_wsq)")
 
 
 def phase_fused_timing(fixed, moving, p, kernel_ms_iter):

@@ -27,9 +27,10 @@ and the returned `tf` is the one from the top of the last executed
 iteration (cvo.cpp:413-415).
 
 acvo's dl needs sum A|x-y|^2 and nnz of the cross Gram (from the moment
-sweep) and of the self-Grams Axx, Ayy: on the kernel backend two
-`fused_wsq` sweeps per iteration (`self_mode="exact"`), or per-align
-Chebyshev tables in ell (`self_mode="cheb"`).
+sweep) and of the self-Grams Axx, Ayy: on the kernel backend both
+self-sweeps in one `fused_wsq_sweeps` launch per iteration
+(`self_mode="exact"`), or per-align Chebyshev tables in ell
+(`self_mode="cheb"`), all 2K sweeps of the tables in one launch.
 
 MATLAB's linear color mode (`color_mode="linear"`, MATLAB_PARAMS) weighs
 each pair by CI = color_scale * Cx Cz^T, computed once per align
@@ -80,12 +81,11 @@ from cvo_rgbd_torch.ops import (
     fused_flow,
     fused_moments,
     fused_step_coeffs,
-    fused_wsq,
 )
 from cvo_rgbd_torch.ops.align_fused import align_fused, fused_eligible
 from cvo_rgbd_torch.ops.gram import pad_feat
 from cvo_rgbd_torch.ops.moments import TILE_I, TILE_J
-from cvo_rgbd_torch.ops.wsq import TILE_W
+from cvo_rgbd_torch.ops.wsq import TILE_W, Sweep, fused_wsq_sweeps, tile_order
 from cvo_rgbd_torch.params import AcvoParams, color_scale
 
 # iterations between host reads of `converged`
@@ -121,7 +121,7 @@ class AlignPre(NamedTuple):
     ck: tuple | None      # (ck_xy, ck_xx, ck_yy); None when ck_cache is off;
                           # linear mode: (ci, None, None), masked
     moments: tuple        # (c0, x - c0, Phi(x - c0))
-    skip: tuple | None    # (lo_x, hi_x, md_xx, md_yy); None: tile_skip off
+    skip: tuple | None    # (lo_x, hi_x, tiles_xx, tiles_yy); None: tile_skip off
     cheb: tuple | None    # self_mode="cheb" tables; None otherwise
 
 
@@ -142,8 +142,8 @@ def check_supported(p) -> None:
             raise ValueError("yy_quirk emulation requires backend='dense'")
     if p.exp_mode != "precise":
         raise NotImplementedError(
-            f"exp_mode={p.exp_mode!r} is not ported yet: ROADMAP queue 1, "
-            "item 4"
+            f"exp_mode={p.exp_mode!r} is not ported yet: ROADMAP queue 2a, "
+            "item 1"
         )
 
 
@@ -205,20 +205,23 @@ def _self_bounds(cloud: PointCloud):
 
 
 def build_skip_pre(p, adaptive, fixed: PointCloud, moving: PointCloud):
-    """Tile bounds for the exact AABB skip, (lo_x, hi_x, md_xx, md_yy);
-    None when `p.tile_skip` is off.  lo_x/hi_x are the fixed cloud's at
-    the moment kernel's row tile (it never moves).  md_xx/md_yy (acvo
-    only) are the self-sweep bound matrices at TILE_W, computed ONCE from
-    the untransformed clouds: distances inside one rigidly moved cloud
-    do not change (the transform's fp32 rounding is far below
-    SKIP_MARGIN)."""
+    """Tile bounds for the exact AABB skip, (lo_x, hi_x, tiles_xx,
+    tiles_yy); None when `p.tile_skip` is off.  lo_x/hi_x are the fixed
+    cloud's at the moment kernel's row tile (it never moves).
+    tiles_xx/tiles_yy (acvo only) are the self-sweeps' bounds at TILE_W
+    as `ops.wsq.TileOrder`s (upper-triangle tiles sorted by bound),
+    computed ONCE from the untransformed clouds: distances inside one
+    rigidly moved cloud do not change (the transform's fp32 rounding is
+    far below SKIP_MARGIN), so the tiles kept at any ell are a prefix of
+    that order."""
     if not p.tile_skip:
         return None
     lo_x, hi_x = block_bounds(fixed.positions, fixed.mask, TILE_I)
-    md_xx = md_yy = None
+    tiles_xx = tiles_yy = None
     if adaptive:
-        md_xx, md_yy = _self_bounds(fixed), _self_bounds(moving)
-    return lo_x, hi_x, md_xx, md_yy
+        tiles_xx, tiles_yy = (tile_order(_self_bounds(c), symmetric=True)
+                              for c in (fixed, moving))
+    return lo_x, hi_x, tiles_xx, tiles_yy
 
 
 def build_selfsweep_cheb(p, adaptive, fixed: PointCloud, moving: PointCloud,
@@ -226,7 +229,8 @@ def build_selfsweep_cheb(p, adaptive, fixed: PointCloud, moving: PointCloud,
     """Per-align Chebyshev tables of the four self-sweep reductions
     (`self_mode="cheb"`): wsq_xx, nnz_xx, wsq_yy, nnz_yy are functions
     of ell alone (self distances are rigid-invariant), so K sweep pairs
-    at log-space Chebyshev nodes replace a pair every iteration.
+    at log-space Chebyshev nodes, all 2K in one launch, replace a pair
+    every iteration.
     Returns (log values [4, K], (lo, hi, nodes, weights)) or None.
 
     The span is [ell_min, max(ell_max_init, ell0)]: ell never exceeds
@@ -250,24 +254,30 @@ def build_selfsweep_cheb(p, adaptive, fixed: PointCloud, moving: PointCloud,
     wts = (-1.0) ** kk * torch.sin(math.pi * (kk + 0.5) / K)
 
     dev = fixed.positions.device
-    _, ck_xx, ck_yy = ck_caches if ck_caches else (None,) * 3
-    md_xx = md_yy = None
-    if skip_pre is not None:
-        _, _, md_xx, md_yy = skip_pre
-    cols = []
-    for e in ell_nodes.tolist():
-        ell = torch.tensor(e, dtype=torch.float32, device=dev)
-        wxx, nxx = fused_wsq(*_self(fixed), ell, ck_xx, md_xx, p=p,
-                             symmetric=True)
-        wyy, nyy = fused_wsq(*_self(moving), ell, ck_yy, md_yy, p=p,
-                             symmetric=True)
-        cols.append(torch.stack([wxx, nxx, wyy, nyy]))
-    logv = torch.log(torch.clamp_min(torch.stack(cols, dim=1), 1e-30))
+    ells = torch.tensor(ell_nodes.tolist(), dtype=torch.float32, device=dev)
+    # sweeps xx, yy at node 0, then at node 1, ...
+    w, nz = fused_wsq_sweeps(
+        _self_sweeps(fixed, moving, ck_caches, skip_pre) * K,
+        ells.repeat_interleave(2), p=p)
+    cols = torch.stack([w[0::2], nz[0::2], w[1::2], nz[1::2]])
+    logv = torch.log(torch.clamp_min(cols, 1e-30))
 
     def f32(v):
         return torch.as_tensor(v, dtype=torch.float32).to(dev)
 
     return logv, (f32(lo), f32(hi), f32(xch), f32(wts))
+
+
+def _self_sweeps(x_cloud, y_cloud, ck_caches, skip_pre):
+    """[Sweep xx, Sweep yy]: the symmetric self-sweeps of two clouds (the
+    fixed one, and the moving one where it lies), each with its color
+    cache and its tile order (None where the option is off)."""
+    _, ck_xx, ck_yy = ck_caches if ck_caches else (None,) * 3
+    tiles_xx = tiles_yy = None
+    if skip_pre is not None:
+        _, _, tiles_xx, tiles_yy = skip_pre
+    return [Sweep(tuple(x_cloud), tuple(x_cloud), ck_xx, tiles_xx, True),
+            Sweep(tuple(y_cloud), tuple(y_cloud), ck_yy, tiles_yy, True)]
 
 
 def _cheb_self(cheb_pre, ell):
@@ -302,11 +312,8 @@ def _kernel_terms(p, adaptive, state, fixed, moving, y_pos, pre):
     """(omega, v, step, dl) of one kernel-backend iteration: one moment
     sweep and its epilogues, or under step_mode="direct" the flow sweep
     and then the line-search sweep (the two passes of cvo.cpp:164-308)."""
-    ck_xy, ck_xx, ck_yy = pre.ck if pre.ck else (None,) * 3
+    ck_xy = pre.ck[0] if pre.ck else None
     direct = p.step_mode == "direct"
-    md_xx = md_yy = None
-    if pre.skip is not None:
-        _, _, md_xx, md_yy = pre.skip
     y_cloud = (y_pos, moving.features, moving.mask)
     if direct:
         omega, v, wsq_xy, nnz_xy, _ = fused_flow(*fixed, *y_cloud, state.ell,
@@ -330,14 +337,15 @@ def _kernel_terms(p, adaptive, state, fixed, moving, y_pos, pre):
     dl = None
     if adaptive:
         # the self-Grams feed only dl (adaptive_cvo.cpp:156-160,
-        # 222-271): two lean sweeps, or the per-align tables
+        # 222-271): both lean sweeps in one launch, or the per-align tables
         if pre.cheb is not None:
             wsq_xx, nnz_xx, wsq_yy, nnz_yy = _cheb_self(pre.cheb, state.ell)
         else:
-            wsq_xx, nnz_xx = fused_wsq(*_self(fixed), state.ell, ck_xx,
-                                       md_xx, p=p, symmetric=True)
-            wsq_yy, nnz_yy = fused_wsq(*y_cloud, *y_cloud, state.ell, ck_yy,
-                                       md_yy, p=p, symmetric=True)
+            w, nz = fused_wsq_sweeps(
+                _self_sweeps(fixed, y_cloud, pre.ck, pre.skip), state.ell,
+                p=p)
+            wsq_xx, wsq_yy = w.unbind()
+            nnz_xx, nnz_yy = nz.unbind()
         ell3 = state.ell * (state.ell * state.ell)
         numer = (wsq_yy - 2.0 * wsq_xy + wsq_xx) / ell3
         denom = nnz_xx + nnz_yy - 2.0 * nnz_xy

@@ -6,45 +6,109 @@
 // pair; the moment kernel reads it every iteration.
 //
 // Bound on the H100: the N*M*4-byte store (37.7 MB at N=M=3072, ~11 us
-// at 3.35 TB/s); the ~40 fp32 operations per entry take half that.  The
-// design serves the store: one thread per entry, consecutive threads on
-// consecutive j, so every warp writes 128 contiguous bytes; each thread
-// reads its two 5-feature rows straight from global memory (the i row
-// is one broadcast per warp, the j rows a contiguous 640-byte run).
+// at 3.35 TB/s).  The ~32 instructions an entry (the 5-feature d2c,
+// exp_neg, the gate) take about as long again at the card's issue rate,
+// so the design keeps every other instruction out of the entry:
+//   - one block an output tile of TR rows x 256 columns; a thread holds
+//     the features and masks of 4 consecutive columns in registers, read
+//     once, and the scalars in registers;
+//   - the tile's rows are staged once in shared memory, structure of
+//     arrays, and every thread of a warp reads a row's 6 values as one
+//     broadcast each, shared by its 4 entries;
+//   - a thread writes one float4 a row: 16 bytes a thread, 512
+//     contiguous bytes a warp.  Where M % 4 != 0 the rows are not 16-byte
+//     aligned, and every entry is stored alone (a scalar tail);
+//   - the entry is cvo::color_kernel and the gate as written, with the
+//     same operands, so the cache is the one-thread-an-entry design's
+//     bits.  No fast math (pair_tile.cuh).
+// Streaming stores, 16- and 64-row tiles, and a rounding in exp_neg
+// without the quarter-rate rintf / F2I were measured no faster (PERF.md
+// §6).
 #include <cuda_runtime.h>
 
 #include "pair_tile.cuh"
 
 namespace {
 
-constexpr int BX = 128;  // j per block
-constexpr int BY = 2;    // i per block
+constexpr int CW = 4;          // columns a thread
+constexpr int TX = 64;         // threads across a tile: 256 columns
+constexpr int TY = 4;          // thread rows
+constexpr int TR = 32;         // rows a tile
+constexpr int THREADS = TX * TY;
 
-__global__ void __launch_bounds__(BX * BY)
+template <bool VEC>
+__global__ void __launch_bounds__(THREADS)
 color_gram_kernel(const float* __restrict__ xf, const float* __restrict__ xm,
                   const float* __restrict__ yf, const float* __restrict__ ym,
                   const float* __restrict__ scal, float* __restrict__ out,
                   int n, int m) {
-  const int j = blockIdx.x * BX + threadIdx.x;
-  const int i = blockIdx.y * BY + threadIdx.y;
-  if (i >= n || j >= m) return;
-  float d2c;
-  const float ck = cvo::color_kernel(xf + cvo::NFEAT * i,
-                                     yf + cvo::NFEAT * j, scal, &d2c);
-  const bool gate =
-      d2c < scal[cvo::S_D2_C_THRES] && xm[i] > 0.0f && ym[j] > 0.0f;
-  out[static_cast<size_t>(i) * m + j] = gate ? ck : 0.0f;
+  __shared__ float s_f[cvo::NFEAT][TR];
+  __shared__ float s_m[TR];
+  const int i0 = blockIdx.y * TR;
+  const int tid = threadIdx.y * TX + threadIdx.x;
+  for (int t = tid; t < TR * cvo::NFEAT; t += THREADS) {
+    const int r = t / cvo::NFEAT, i = i0 + r;
+    s_f[t % cvo::NFEAT][r] =
+        i < n ? xf[static_cast<size_t>(cvo::NFEAT) * i0 + t] : 0.0f;
+  }
+  for (int t = tid; t < TR; t += THREADS)
+    s_m[t] = i0 + t < n ? xm[i0 + t] : 0.0f;
+
+  const int j0 = (blockIdx.x * TX + threadIdx.x) * CW;
+  float fy[CW][cvo::NFEAT];
+  bool yok[CW];
+#pragma unroll
+  for (int q = 0; q < CW; ++q) {
+    const int j = min(j0 + q, m - 1);
+#pragma unroll
+    for (int c = 0; c < cvo::NFEAT; ++c)
+      fy[q][c] = yf[static_cast<size_t>(cvo::NFEAT) * j + c];
+    yok[q] = ym[j] > 0.0f;
+  }
+  const float thres = scal[cvo::S_D2_C_THRES];
+  __syncthreads();
+  if (j0 >= m) return;
+
+  for (int r = threadIdx.y; r < TR && i0 + r < n; r += TY) {
+    float fx[cvo::NFEAT];
+#pragma unroll
+    for (int c = 0; c < cvo::NFEAT; ++c) fx[c] = s_f[c][r];
+    const bool xok = s_m[r] > 0.0f;
+    float v[CW];
+#pragma unroll
+    for (int q = 0; q < CW; ++q) {
+      float d2c;
+      const float ck = cvo::color_kernel(fx, fy[q], scal, &d2c);
+      v[q] = (d2c < thres && xok && yok[q]) ? ck : 0.0f;
+    }
+    float* row = out + static_cast<size_t>(i0 + r) * m + j0;
+    if (VEC) {
+      // m % 4 == 0: a chunk is in range whole or not at all
+      *reinterpret_cast<float4*>(row) = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+#pragma unroll
+      for (int q = 0; q < CW; ++q)
+        if (j0 + q < m) row[q] = v[q];
+    }
+  }
 }
 
 }  // namespace
 
+// out: [n, m] f32, its rows 16-byte aligned when m % 4 == 0 (a fresh
+// allocation is).
 extern "C" int color_gram_launch(const float* xf, const float* xm,
                                  const float* yf, const float* ym,
                                  const float* scal, float* out, int n, int m,
                                  cudaStream_t stream) {
-  const dim3 block(BX, BY);
-  const dim3 grid((m + BX - 1) / BX, (n + BY - 1) / BY);
-  color_gram_kernel<<<grid, block, 0, stream>>>(xf, xm, yf, ym, scal, out, n,
-                                                m);
+  const dim3 block(TX, TY);
+  const dim3 grid((m + TX * CW - 1) / (TX * CW), (n + TR - 1) / TR);
+  if (m % CW == 0) {
+    color_gram_kernel<true><<<grid, block, 0, stream>>>(xf, xm, yf, ym, scal,
+                                                        out, n, m);
+  } else {
+    color_gram_kernel<false><<<grid, block, 0, stream>>>(xf, xm, yf, ym,
+                                                         scal, out, n, m);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,7 +3,8 @@
 - `gram.color_gram` (csrc/color_gram.cu): the per-pair color cache.
 - `moments.fused_moments` (csrc/fused_moments.cu): the per-iteration
   moment sweep.
-- `wsq.fused_wsq` (csrc/fused_wsq.cu): the adaptive self-kernel sweep.
+- `wsq.fused_wsq` (csrc/fused_wsq.cu): the adaptive self-kernel sweep;
+  `wsq.fused_wsq_sweeps` runs several in one launch.
 - `flow.fused_flow` and `flow.fused_step_coeffs` (csrc/fused_flow.cu): the
   two sweeps of the two-pass step (kernel backend, `step_mode="direct"`).
 - `align_fused.align_fused` (csrc/align_fused.cu): the whole align loop,

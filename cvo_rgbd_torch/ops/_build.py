@@ -44,7 +44,7 @@ SIGNATURES = {
     "fused_moments": (
         "fused_moments_launch", [_P] * 14 + [_I] * 3 + [_P]
     ),
-    "fused_wsq": ("fused_wsq_launch", [_P] * 12 + [_I, _I, _I, _I, _P]),
+    "fused_wsq": ("fused_wsq_launch", [_P, _I] + [_P] * 3 + [_I, _I, _P]),
     "align_fused_tiled": (
         "align_fused_tiled_launch", [_P] * 26 + [_I] * 5 + [_P]
     ),

@@ -38,6 +38,7 @@ from cvo_rgbd_torch.ops.gram import (
     check_inputs,
     linear_mode,
     scalars,
+    stream_tickets,
 )
 from cvo_rgbd_torch.ops.moments import SKIP_MARGIN, pair_weights
 
@@ -183,12 +184,6 @@ def fused_step_coeffs(xp, xf, xm, yp, yf, ym, ell, omega, v, ck=None, *, p):
     return out[0], out[1], out[2], out[3]
 
 
-# per (device, stream): the kernels' int32 ticket, zeroed once; each launch
-# leaves it zero for the next one on its stream, so a call needs no memset
-# (a second launch)
-_TICKETS = {}
-
-
 def _launch_scratch(name, tensors, ck, width):
     """(device, n, m, part, cnt, ticket, stream) of a launch, after the
     inputs' device, type, layout and the cache's alignment are checked:
@@ -201,11 +196,7 @@ def _launch_scratch(name, tensors, ck, width):
     if ck is not None and ck.data_ptr() % 16:
         raise ValueError(f"{name}: ck must be 16-byte aligned")
     n, m = xp.shape[0], yp.shape[0]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    ticket = _TICKETS.get((dev, stream))
-    if ticket is None:
-        ticket = torch.zeros((1,), dtype=torch.int32, device=dev)
-        _TICKETS[(dev, stream)] = ticket
+    ticket, stream = stream_tickets(dev, 1)
     items = (n // ROWS) * (m // TILE_J)
     part = torch.empty((items, width), dtype=torch.float32, device=dev)
     cnt = torch.empty((items,), dtype=torch.int32, device=dev)

@@ -21,11 +21,13 @@ NFEAT = 5
 
 
 def scalars(ell: torch.Tensor, p) -> torch.Tensor:
-    """[8] f32 row: ell, s2, cs2, 1/2ell^2, 1/2c_ell^2, d2_thres,
+    """[..., 8] f32 rows: ell, s2, cs2, 1/2ell^2, 1/2c_ell^2, d2_thres,
     d2_c_thres, sp_thres — the JAX package's _scal_vector, in the same
-    fp32 operation order.  `ell` is a 0-dim tensor on the kernels'
+    fp32 operation order, one row for each entry of `ell` (a 0-dim
+    tensor gives one [8] row).  `ell` is a tensor on the kernels'
     device; constants are filled there, so no host copy (and no sync)
-    happens per iteration."""
+    happens per iteration.  The logs are taken of 0-dim tensors, so a
+    row's bits do not depend on how many rows are built together."""
     dev = ell.device
 
     def const(v):
@@ -36,7 +38,7 @@ def scalars(ell: torch.Tensor, p) -> torch.Tensor:
     ell = ell.to(torch.float32)
     d2_thres = -2.0 * ell * ell * torch.log(const(p.sp_thres / s2))
     d2_c_thres = -2.0 * p.c_ell * p.c_ell * torch.log(const(p.c_sp_thres / cs2))
-    return torch.stack([
+    return torch.stack(torch.broadcast_tensors(
         ell,
         const(s2),
         const(cs2),
@@ -45,7 +47,7 @@ def scalars(ell: torch.Tensor, p) -> torch.Tensor:
         d2_thres,
         d2_c_thres,
         const(p.sp_thres),
-    ])
+    ), dim=-1)
 
 
 def color_terms(fx, fy, scal):
@@ -93,6 +95,25 @@ def check_inputs(name, tensors, device):
                 f"{name}: every input must be a contiguous float32 tensor "
                 f"on {device}, got {t.dtype} on {t.device}"
             )
+
+
+# per (device, stream): int32 tickets, zeroed once; each launch leaves the
+# ones it takes zero for the next launch on its stream, so a call needs
+# no memset (a second launch)
+_TICKETS = {}
+
+
+def stream_tickets(dev, count):
+    """(tickets, stream): at least `count` zero int32 tickets of the
+    current stream of `dev`, for the kernels whose last block (by a
+    ticket) folds their reduction into the sweep, and the stream's
+    handle."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    tickets = _TICKETS.get((dev, stream))
+    if tickets is None or tickets.numel() < count:
+        tickets = torch.zeros((count,), dtype=torch.int32, device=dev)
+        _TICKETS[(dev, stream)] = tickets
+    return tickets, stream
 
 
 def check_cloud(name, pos, feat, mask):

@@ -54,6 +54,22 @@ per-block marks: the skip test, a kept item's copies and sweep, the
 ticket, the last block's sum.  The PYTHONPATH form runs it against an
 earlier checkout's package as well.
 
+    python -m cvo_rgbd_torch.time_fused --wsq --gram
+
+prints the launch floor (a one-element PyTorch kernel on CUDA events,
+alone and back to back), then with `--wsq` the ell trajectory of the
+kernel backend's exact acvo align on the first acvo render pair at 3072
+and `fused_wsq_cuda` on that pair's two self-pairs (symmetric, tile
+skip on, ck on and off) at ell_init, at the ell of the trajectory
+nearest the geometric mean of ell_init and ell_min, and at ell_min: the upper-triangle tiles kept, wsq and nnz as float hex, the
+device ms, launches a call and device ms by kernel; then an
+iteration's two sweeps (two calls, or one `fused_wsq_sweeps_cuda` call
+where the package has it).  With `--gram`, `color_gram_cuda` on the
+first cvo pair (3072 x 3072), an acvo self-pair and a ragged (1000,
+130) slice: device ms, launches a call and the SHA-1 of the output.
+The PYTHONPATH form runs it against an earlier checkout's package, so
+that the two print their bits and times in one call.
+
     python -m cvo_rgbd_torch.time_fused --sass [LIBRARY]
 
 prints instead, for the resident cvo kernel of a built library (by
@@ -67,6 +83,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import json
+import math
 import os
 import re
 import shutil
@@ -496,6 +513,199 @@ def time_flow():
                 }), flush=True)
 
 
+def launch_floor():
+    """The launch floor on CUDA events: one one-element PyTorch kernel
+    between its own events, and the time a launch of 100 back to back."""
+    import torch
+
+    t = torch.zeros(1, device="cuda")
+    one = time_ms(lambda: t.add_(1.0))
+
+    def burst():
+        for _ in range(100):
+            t.add_(1.0)
+
+    print(json.dumps({"launch_floor": "one-element add_",
+                      "one_launch_ms": one,
+                      "back_to_back_ms": time_ms(burst) / 100}), flush=True)
+
+
+def device_ms_by_kernel(fn):
+    """{kernel name: device ms a call of fn}, over REPEATS calls under
+    torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(REPEATS):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:40]: e.device_time_total / REPEATS / 1e3
+            for e in prof.key_averages() if e.device_time_total > 0}
+
+
+def ell_trajectory(p, x, y):
+    """The ell of each iteration of the kernel backend's acvo align on
+    kd-sorted (x, y), to convergence, as a CPU tensor."""
+    import torch
+
+    from cvo_rgbd_torch.core import registration as reg
+
+    state = reg.init_state(p, x.positions.device)
+    pre = reg.prepare(p, x, y)
+    body = reg.make_align_step(p)
+    ells = []
+    for it in range(p.max_iter):
+        state = body(state, x, y, pre)
+        ells.append(state.ell)
+        if (it + 1) % 8 == 0 and bool(state.converged.item()):
+            break
+    return torch.stack(ells).cpu()
+
+
+def _hex(t):
+    return float(t).hex()
+
+
+def time_wsq():
+    """fused_wsq_cuda on the first acvo render pair's two self-pairs at
+    3072 (kd-sorted, symmetric, tile skip on), ck on and off, at
+    ell_init, at an ell the kernel backend's exact acvo align on this
+    pair passes through (the one nearest the geometric mean of ell_init
+    and ell_min), and at ell_min: one JSON line a case with the
+    upper-triangle tiles kept, the outputs' bits, the device ms, the
+    launches a call and the device ms by kernel.  Then, per ell and ck
+    setting, the iteration's two sweeps: two calls, or one call of
+    `fused_wsq_sweeps_cuda` where the package has it.  A package with
+    `wsq.tile_order` gets the once-per-align tile order in place of the
+    bound matrix, as its align passes it."""
+    import cvo_rgbd_torch
+    import torch
+
+    from cvo_rgbd_torch.core.cloud import aabb_min_d2, block_bounds
+    from cvo_rgbd_torch.ops import gram, wsq
+    from cvo_rgbd_torch.params import AcvoParams
+
+    p = AcvoParams()
+    x, y = pair((240, 320), 3000, 0)
+    traj = ell_trajectory(p, x, y)
+    # the ell the iterations pass through nearest the geometric mean of
+    # ell_init and ell_min (the median is the floor, where most sit)
+    mid = traj[(traj.log() - 0.5 * math.log(p.ell_init * p.ell_min)
+                ).abs().argmin()].item()
+    print(json.dumps({"package": cvo_rgbd_torch.__file__,
+                      "ell_trajectory": {"iterations": len(traj),
+                                         "max": traj.max().item(),
+                                         "mid": mid,
+                                         "final": traj[-1].item(),
+                                         "bits": [_hex(v) for v in traj]}}),
+          flush=True)
+    dev = x.positions.device
+    has_order = hasattr(wsq, "tile_order")
+    has_sweeps = hasattr(wsq, "fused_wsq_sweeps_cuda")
+    tw = wsq.TILE_W
+    scal0 = gram.scalars(torch.full((), p.ell_init, device=dev), p)
+    clouds = {}
+    for label, c in (("fixed", x), ("moving", y)):
+        lo, hi = block_bounds(c.positions, c.mask, tw)
+        md = aabb_min_d2(lo, hi, lo, hi)
+        ck = gram.color_gram_cuda(c.features, c.mask, c.features, c.mask,
+                                  scal0)
+        tiles = wsq.tile_order(md, True) if has_order else md
+        clouds[label] = (c, ck, md, tiles)
+    for ell in (p.ell_init, mid, p.ell_min):
+        scal = gram.scalars(torch.full((), ell, device=dev), p)
+        thr = (scal[gram.S_D2_THRES] + wsq.SKIP_MARGIN).item()
+        for use_ck in (True, False):
+            calls = []
+            for label, (c, ck, md, tiles) in clouds.items():
+                ck_in = ck if use_ck else None
+
+                def fn(c=c, ck_in=ck_in, tiles=tiles):
+                    return wsq.fused_wsq_cuda(*c, *c, scal, ck_in, tiles,
+                                              symmetric=True)
+
+                calls.append(fn)
+                w, nz = fn()
+                upper = torch.triu(torch.ones_like(md, dtype=torch.bool))
+                print(json.dumps({
+                    "package": cvo_rgbd_torch.__file__, "kernel": "fused_wsq",
+                    "cloud": label, "n": c.capacity, "ell": ell,
+                    "ck": use_ck, "skip": True, "symmetric": True,
+                    "tiles_kept": int(((md <= thr) & upper).sum().item()),
+                    "tiles": int(upper.sum().item()),
+                    "wsq": _hex(w), "nnz": _hex(nz), "ms": time_ms(fn),
+                    "launches_per_call": launches_per_call(fn),
+                    "device_ms_by_kernel": device_ms_by_kernel(fn),
+                }), flush=True)
+            if has_sweeps:
+                sweeps = [wsq.Sweep(c, c, ck if use_ck else None, tiles, True)
+                          for c, ck, _, tiles in clouds.values()]
+
+                def both():
+                    return wsq.fused_wsq_sweeps_cuda(sweeps, scal)
+
+                w, nz = both()
+                bits = [[_hex(w[k]), _hex(nz[k])] for k in range(2)]
+            else:
+                def both():
+                    return [f() for f in calls]
+
+                bits = [[_hex(w), _hex(nz)] for w, nz in both()]
+            print(json.dumps({
+                "package": cvo_rgbd_torch.__file__,
+                "kernel": "fused_wsq iteration (fixed, moving)", "ell": ell,
+                "ck": use_ck, "sweeps_call": has_sweeps, "bits": bits,
+                "ms": time_ms(both),
+                "launches_per_call": launches_per_call(both),
+            }), flush=True)
+
+
+def time_gram():
+    """color_gram_cuda on the first cvo render pair (3072 x 3072), the
+    first acvo cloud's self-pair and a ragged (1000, 130) slice of the
+    cvo pair: device ms, launches a call, the time of one `fill_` of
+    the output (the store rate the card reaches on it) and the SHA-1 of
+    the output's bytes."""
+    import hashlib
+
+    import cvo_rgbd_torch
+    import torch
+
+    from cvo_rgbd_torch.ops import gram
+    from cvo_rgbd_torch.params import AcvoParams, CvoParams
+
+    x, y = pair((240, 320), 3000, 1)
+    a, _ = pair((240, 320), 3000, 0)
+    cases = [("cvo pair", CvoParams(), x, y), ("acvo self-pair",
+                                                AcvoParams(), a, a),
+             ("ragged slice", CvoParams(),
+              *(c._replace(positions=c.positions[:k].contiguous(),
+                           features=c.features[:k].contiguous(),
+                           mask=c.mask[:k].contiguous())
+                for c, k in ((x, 1000), (y, 130))))]
+    for label, p, u, v in cases:
+        scal = gram.scalars(torch.full((), p.ell_init, device="cuda"), p)
+        args = (u.features, u.mask, v.features, v.mask, scal)
+
+        def fn():
+            return gram.color_gram_cuda(*args)
+
+        out = fn()
+        torch.cuda.synchronize()
+        print(json.dumps({
+            "package": cvo_rgbd_torch.__file__, "kernel": "color_gram",
+            "case": label, "n": u.features.shape[0],
+            "m": v.features.shape[0], "ms": time_ms(fn),
+            "launches_per_call": launches_per_call(fn),
+            # the store rate the card reaches on this output: one fill_
+            "fill_ms": time_ms(lambda: out.fill_(1.0)),
+            "sha1": hashlib.sha1(fn().cpu().numpy().tobytes()).hexdigest(),
+        }), flush=True)
+
+
 def drift():
     """Card and float32 plain version against float64, pair by pair,
     after 1, 3 and 10 iterations from the same start: phase 8's pcd lanes
@@ -567,6 +777,14 @@ def main(argv=None):
 
     print(card_line(), flush=True)
     pin_fp32()
+    if "--wsq" in argv or "--gram" in argv:
+        _build.build(("color_gram", "fused_wsq"))
+        launch_floor()
+        if "--wsq" in argv:
+            time_wsq()
+        if "--gram" in argv:
+            time_gram()
+        return 0
     if argv[:1] == ["--flow"]:
         _build.build(("color_gram", "fused_flow"))
         if "fused_flow_timed" in getattr(_build, "VARIANTS", {}):

@@ -776,3 +776,152 @@ def test_fused_moments_refuses_unaligned_phi(dev):
         moments.fused_moments(xc, x.features, x.mask, y.positions - c0,
                               y.features, y.mask, shifted,
                               torch.full((), 0.1, device=dev), p=CvoParams())
+
+
+def _self_sweep_inputs(dev, x, p, use_ck):
+    """(cloud, ck, bound matrix, TileOrder) of x's symmetric self-sweep."""
+    from cvo_rgbd_torch.core.cloud import aabb_min_d2, block_bounds
+    from cvo_rgbd_torch.ops import gram, wsq
+
+    ck = gram.color_gram(*x, *x, p=p) if use_ck else None
+    lo, hi = block_bounds(x.positions, x.mask, wsq.TILE_W)
+    md = aabb_min_d2(lo, hi, lo, hi)
+    return x, ck, md, wsq.tile_order(md, True)
+
+
+@pytest.mark.parametrize("use_ck", [True, False])
+def test_fused_wsq_sweeps_are_one_launch_with_each_sweeps_bits(dev, use_ck):
+    """S = 2 (an exact acvo iteration) and S = 2K = 24 (the Chebyshev
+    tables, an ell a sweep): one launch a call, each sweep the bits of
+    its own one-sweep launch; S = 34 takes two launches."""
+    from cvo_rgbd_torch.core.cloud import kd_sort
+    from cvo_rgbd_torch.ops import gram, wsq
+    from cvo_rgbd_torch.params import AcvoParams
+
+    p = AcvoParams()
+    ins = [_self_sweep_inputs(dev, x, p, use_ck)
+           for x in map(kd_sort, _rendered_pair(dev))]
+    sweeps = [wsq.Sweep(tuple(x), tuple(x), ck, t, True)
+              for x, ck, _, t in ins]
+    for count, launches in ((2, 1), (24, 1), (34, 2)):
+        ells = torch.linspace(0.0391, 0.15, count, device=dev)
+        ells = ells.reshape(-1, 2)[:, :1].expand(-1, 2).reshape(-1)
+        scal = gram.scalars(ells, p)
+        before = wsq.fused_wsq.launches
+        w, n = wsq.fused_wsq_sweeps_cuda(sweeps * (count // 2), scal)
+        assert wsq.fused_wsq.launches == before + launches
+        for k in range(count):
+            x, ck, _, t = ins[k % 2]
+            w1, n1 = wsq.fused_wsq_cuda(*x, *x, scal[k], ck, t,
+                                        symmetric=True)
+            assert torch.equal(_bits(w[k]), _bits(w1)), (k, w[k], w1)
+            assert torch.equal(_bits(n[k]), _bits(n1)) and float(n1) > 0
+
+
+def _cluster_cloud(dev, clusters=16, per=64, gap=1.0, extent=0.02, seed=3):
+    """Clusters of one tile each, in tile order, `gap` apart along x:
+    every off-diagonal tile's bound is ~gap^2, far past acvo's gate."""
+    from cvo_rgbd_torch import pad_cloud
+
+    rng = np.random.default_rng(seed)
+    pos = np.concatenate([rng.random((per, 3)) * extent + [k * gap, 0.0, 1.0]
+                          for k in range(clusters)])
+    feat = np.repeat(rng.random((clusters, 5)) * 0.1, per, axis=0)
+    return pad_cloud(pos, feat, clusters * per, device=dev)
+
+
+@pytest.mark.parametrize("case", ["ell_init", "ell_min", "diagonal only"])
+@pytest.mark.parametrize("use_ck", [True, False])
+def test_fused_wsq_skip_on_and_off_give_the_same_bits(dev, case, use_ck):
+    """The prefix of the tile order keeps exactly the tiles the bound
+    rule keeps: skip on (bound matrix or TileOrder) and off, the same
+    bits, symmetric and full; and within 1e-4 of the plain version."""
+    from cvo_rgbd_torch.core.cloud import kd_sort
+    from cvo_rgbd_torch.ops import gram, wsq
+    from cvo_rgbd_torch.params import AcvoParams
+
+    p = AcvoParams()
+    if case == "diagonal only":
+        xs, ell = [_cluster_cloud(dev)], p.ell_init
+    else:
+        xs = list(map(kd_sort, _rendered_pair(dev)))
+        ell = getattr(p, case)
+    for x in xs:
+        x, ck, md, t = _self_sweep_inputs(dev, x, p, use_ck)
+        ell_t = torch.full((), ell, device=dev)
+        scal = gram.scalars(ell_t, p)
+        keep = md <= scal[gram.S_D2_THRES] + wsq.SKIP_MARGIN
+        off_diag = keep & ~torch.eye(md.shape[0], dtype=torch.bool,
+                                     device=dev)
+        if case == "diagonal only":
+            assert not bool(off_diag.any()) and bool(keep.diagonal().all())
+        ref_w, ref_n = wsq.fused_wsq_plain(*x, *x, scal, ck)
+        for sym in (True, False):
+            outs = [wsq.fused_wsq_cuda(*x, *x, scal, ck, skip, symmetric=sym)
+                    for skip in (None, md, wsq.tile_order(md, sym))]
+            for w, n in outs:
+                assert torch.equal(_bits(w), _bits(outs[0][0]))
+                assert torch.equal(_bits(n), _bits(outs[0][1]))
+            assert abs(float(outs[0][0]) - float(ref_w)) <= 1e-4 * float(ref_w)
+            assert float(outs[0][1]) == float(ref_n) > 0
+
+
+@pytest.mark.parametrize("use_ck", [True, False])
+def test_fused_wsq_of_an_all_masked_self_pair_is_positive_zero(dev, use_ck):
+    from cvo_rgbd_torch.core.cloud import kd_sort
+    from cvo_rgbd_torch.ops import gram, wsq
+    from cvo_rgbd_torch.params import AcvoParams
+
+    p = AcvoParams()
+    x = kd_sort(_rendered_pair(dev)[0])
+    x = x._replace(mask=torch.zeros_like(x.mask))
+    x, ck, md, t = _self_sweep_inputs(dev, x, p, use_ck)
+    scal = gram.scalars(torch.full((), p.ell_init, device=dev), p)
+    for skip in (None, t):
+        w, n = wsq.fused_wsq_cuda(*x, *x, scal, ck, skip, symmetric=True)
+        assert float(w) == 0.0 and not bool(torch.signbit(w))
+        assert float(n) == 0.0
+    w, n = wsq.fused_wsq_sweeps_cuda(
+        [wsq.Sweep(tuple(x), tuple(x), ck, t, True)] * 3, scal)
+    assert not bool(w.ne(0).any() or torch.signbit(w).any() or n.ne(0).any())
+
+
+@pytest.mark.parametrize("n,m", [(3072, 3072), (2816, 384), (1000, 130),
+                                 (37, 1001)])
+def test_color_gram_kernel_at_any_shape(dev, n, m):
+    """The register-tiled kernel at the main path's shapes and at ragged
+    ones (rows past the last tile, m % 4 != 0), against its plain
+    version."""
+    from cvo_rgbd_torch.core.cloud import PointCloud
+    from cvo_rgbd_torch.ops import gram
+    from cvo_rgbd_torch.params import AcvoParams
+
+    rng = np.random.default_rng(n + m)
+    palette = rng.random((8, 5))
+
+    def cloud(k):
+        # colors from a small palette, so that many pairs pass the gate;
+        # a tenth of the points invalid
+        return PointCloud(*(torch.tensor(a, dtype=torch.float32, device=dev)
+                            for a in (rng.random((k, 3)),
+                                      palette[rng.integers(8, size=k)],
+                                      rng.random(k) > 0.1)))
+
+    x, y = cloud(n), cloud(m)
+    p = AcvoParams()
+    ck = gram.color_gram(*x, *y, p=p)
+    scal = gram.scalars(torch.full((), p.ell_init, device=dev), p)
+    ref = gram.color_gram_plain(x.features, x.mask, y.features, y.mask, scal)
+    assert ck.shape == (n, m)
+    assert (ck - ref).abs().max().item() <= 1e-6
+    assert int((ck > 0).sum()) > 0
+
+
+def test_color_gram_of_a_self_pair_is_exactly_symmetric(dev):
+    from cvo_rgbd_torch.core.cloud import kd_sort
+    from cvo_rgbd_torch.ops import gram
+    from cvo_rgbd_torch.params import AcvoParams
+
+    for x in map(kd_sort, _rendered_pair(dev, num_want=3000)):
+        ck = gram.color_gram(*x, *x, p=AcvoParams())
+        assert torch.equal(ck, ck.T)

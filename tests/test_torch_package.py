@@ -103,6 +103,7 @@ def test_wrappers_never_fall_back():
     a launch, and any device that is neither CPU nor CUDA is refused."""
     for fn in (gram.color_gram, gram.color_gram_cuda, moments.fused_moments,
                moments.fused_moments_cuda, wsq.fused_wsq, wsq.fused_wsq_cuda,
+               wsq.fused_wsq_sweeps, wsq.fused_wsq_sweeps_cuda,
                align_fused, align_fused_cuda, flow.fused_flow,
                flow.fused_flow_cuda, flow.fused_step_coeffs,
                flow.fused_step_coeffs_cuda, _build.entry, _build.check):
