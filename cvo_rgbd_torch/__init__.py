@@ -12,9 +12,12 @@ from __future__ import annotations
 from cvo_rgbd_torch.core.cloud import PointCloud, pad_cloud
 from cvo_rgbd_torch.core.registration import AlignResult, align
 from cvo_rgbd_torch.params import MATLAB_PARAMS, AcvoParams, CvoParams
+from cvo_rgbd_torch.slam import KeyframeSlam, SlamConfig
 
 __all__ = [
     "AlignResult",
+    "KeyframeSlam",
+    "SlamConfig",
     "PointCloud",
     "align",
     "pad_cloud",

@@ -9,6 +9,8 @@
         [--output f.npz] [--device cpu]
     python -m cvo_rgbd_torch.cli stitch <pcd dir> [--output scene.ply]
         [--grid 0.05] [--merge-grid 0.01] [--device cpu]
+    python -m cvo_rgbd_torch.cli slam <pcd dir> [--output f.txt]
+        [--grid 0.05] [--device cpu]
     python -m cvo_rgbd_torch.cli evaluate-ate <groundtruth> <estimate>
     python -m cvo_rgbd_torch.cli evaluate-rpe <groundtruth> <estimate>
 
@@ -16,8 +18,10 @@
 and the adaptive one with `--adaptive`), or with `--batch N` registers N
 pairs per batched call offline; `multiseq` runs several folders in
 lockstep, one pair of each per batched call; `batch` and `stitch` the MATLAB
-batch runner (MATLAB_PARAMS: linear color mode, MATLAB stops).  All run
-on the CUDA device unless `--device cpu` is given.
+batch runner (MATLAB_PARAMS: linear color mode, MATLAB stops); `slam`
+keyframe SLAM over a pcd folder (keyframes, loop closure, pose graph) on
+MATLAB_PARAMS.  All run on the CUDA device unless `--device cpu` is
+given.
 """
 
 from __future__ import annotations
@@ -121,6 +125,32 @@ def _cmd_stitch(args):
     pos, col = merge_clouds(placed, grid=args.merge_grid)
     write_ply(args.output, pos, col)
     print(f"{pos.shape[0]} points -> {args.output}")
+
+
+def _cmd_slam(args):
+    from cvo_rgbd_torch.batch import load_pcd_dir, pad_clouds
+    from cvo_rgbd_torch.device import resolve_device
+    from cvo_rgbd_torch.io.tum import write_trajectory_line
+    from cvo_rgbd_torch.params import MATLAB_PARAMS
+    from cvo_rgbd_torch.slam import KeyframeSlam, SlamConfig
+
+    if args.refine:
+        raise SystemExit("slam --refine (bundle adjustment) is not ported "
+                         "yet: ROADMAP queue 1, item 5")
+    clouds = load_pcd_dir(args.directory, grid=args.grid)
+    if not clouds:
+        raise SystemExit(f"no .pcd files in {args.directory}")
+    dev = resolve_device(args.device)
+    slam = KeyframeSlam(MATLAB_PARAMS, SlamConfig(), device=dev)
+    for i, cloud in enumerate(pad_clouds(clouds, dev)):
+        slam.process(i, cloud)
+    poses, _ = slam.solve()
+    print(f"{len(clouds)} frames, {len(slam.keyframes)} keyframes, "
+          f"{len(slam.loop_edges)} loop closures")
+    with open(args.output, "w") as fh:
+        for (name, _, _), pose in zip(clouds, poses):
+            write_trajectory_line(fh, name.removesuffix(".pcd"), pose)
+    print(f"trajectory -> {args.output}")
 
 
 def _cmd_ate(args):
@@ -237,6 +267,19 @@ def main(argv=None):
     pst.add_argument("--device", default=None,
                      help="torch device (default: cuda; 'cpu' to run on the CPU)")
     pst.set_defaults(fn=_cmd_stitch)
+
+    psl = sub.add_parser(
+        "slam",
+        help="keyframe SLAM (loop closure + pose graph) over a pcd dir")
+    psl.add_argument("directory")
+    psl.add_argument("--output", default="slam_poses_qt.txt")
+    psl.add_argument("--grid", type=float, default=0.05)
+    psl.add_argument("--device", default=None,
+                     help="torch device (default: cuda; 'cpu' to run on the CPU)")
+    psl.add_argument("--refine", action="store_true",
+                     help="bundle-adjust the keyframe map (not ported: exits "
+                     "with an error)")
+    psl.set_defaults(fn=_cmd_slam)
 
     pa = sub.add_parser("evaluate-ate", help="ATE RMSE of a trajectory")
     pa.add_argument("groundtruth")

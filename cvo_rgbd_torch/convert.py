@@ -1,8 +1,9 @@
 """Carrying state across from the JAX package.
 
 There are no learned weights: what crosses between the packages is the
-hyperparameters, the clouds and the odometry checkpoint (whose JSON
-format `odometry.OdometryState` reads as it is).
+hyperparameters, the clouds, the odometry checkpoint (whose JSON format
+`odometry.OdometryState` reads as it is), the SLAM configuration and
+pose graphs.
 """
 
 from __future__ import annotations
@@ -11,8 +12,11 @@ import numpy as np
 import torch
 
 from cvo_rgbd_torch.core.cloud import PointCloud
+from cvo_rgbd_torch.core.posegraph import PoseGraph
 from cvo_rgbd_torch.device import resolve_device
+from cvo_rgbd_torch.keyframes import KeyframePolicy
 from cvo_rgbd_torch.params import AcvoParams, CvoParams
+from cvo_rgbd_torch.slam import SlamConfig
 
 # the JAX package's backend names -> the port's
 BACKEND_NAMES = {"xla": "dense", "pallas": "kernel", "fused": "fused"}
@@ -38,3 +42,27 @@ def cloud_from_numpy(positions, features, mask, device=None) -> PointCloud:
         torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
         for a in (positions, features, mask)
     ))
+
+
+def slam_config_from_jax_dict(d: dict) -> SlamConfig:
+    """The port's SlamConfig from `dataclasses.asdict` of a JAX
+    SlamConfig, its nested KeyframePolicy included."""
+    d = dict(d)
+    d["keyframe"] = KeyframePolicy(**d["keyframe"])
+    return SlamConfig(**d)
+
+
+def posegraph_from_numpy(nodes, edge_i, edge_j, edge_z, edge_w,
+                         device=None) -> PoseGraph:
+    """A port PoseGraph from a graph's numpy arrays (e.g. the fields of a
+    JAX PoseGraph after `np.asarray`), on `device`."""
+    dev = resolve_device(device)
+
+    def f32(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
+
+    def idx(a):
+        return torch.from_numpy(np.array(a, dtype=np.int64)).to(dev)
+
+    return PoseGraph(f32(nodes), idx(edge_i), idx(edge_j), f32(edge_z),
+                     f32(edge_w))

@@ -10,14 +10,16 @@ Port of the JAX package's `core/gram.py` (its "xla" backend).  The whole
     valid_x, valid_y      (padding masks)
 
 Plain torch in fp32, in the JAX package's operation order; the JAX
-package runs these outside any Pallas kernel.
+package runs these outside any Pallas kernel.  `fast_exp`
+(params.exp_mode="fast") takes torch.exp(-z) in place of exp_neg, as the
+JAX package takes jnp.exp(-z).
 """
 
 from __future__ import annotations
 
 import torch
 
-from cvo_rgbd_torch.core.numerics import exp_neg
+from cvo_rgbd_torch.core.numerics import gram_exp
 
 
 def _log32(v, device):
@@ -38,7 +40,7 @@ def pairwise_sqdist(x, y):
 
 
 def se_gram(x_pos, x_feat, x_mask, y_pos, y_feat, y_mask, ell, *, sigma,
-            c_ell, c_sigma, sp_thres, c_sp_thres):
+            c_ell, c_sigma, sp_thres, c_sp_thres, fast_exp=False):
     """Masked dense A = (s^2 e^{-d2/2l^2}) * (cs^2 e^{-d2c/2cl^2}) with
     gated-out entries exactly 0 (cvo.cpp:99-161, adaptive_cvo.cpp:92-151).
     `ell` a number or 0-dim tensor; no host sync."""
@@ -51,8 +53,8 @@ def se_gram(x_pos, x_feat, x_mask, y_pos, y_feat, y_mask, ell, *, sigma,
 
     d2 = pairwise_sqdist(x_pos, y_pos)
     d2c = pairwise_sqdist(x_feat, y_feat)
-    k = s2 * exp_neg(d2 / (2.0 * ell * ell))
-    ck = cs2 * exp_neg(d2c / (2.0 * c_ell * c_ell))
+    k = s2 * gram_exp(d2 / (2.0 * ell * ell), fast_exp)
+    ck = cs2 * gram_exp(d2c / (2.0 * c_ell * c_ell), fast_exp)
     a = k * ck
     gate = (
         (d2 < d2_thres)
@@ -70,13 +72,14 @@ def linear_color_gram(x_feat, y_feat, color_scale):
     return color_scale * (x_feat @ y_feat.T)
 
 
-def matlab_gram(x_pos, x_mask, y_pos, y_mask, ci, ell, *, sigma, sp_thres):
+def matlab_gram(x_pos, x_mask, y_pos, y_mask, ci, ell, *, sigma, sp_thres,
+                fast_exp=False):
     """MATLAB-mode A: K = se_kernel; K[K < sp] = 0; A = CI .* K
     (rkhs_se3_registration.m:125-127)."""
     s2 = sigma * sigma
     ell = torch.as_tensor(ell, dtype=torch.float32).to(x_pos.device)
     d2 = pairwise_sqdist(x_pos, y_pos)
-    k = s2 * exp_neg(d2 / (2.0 * ell * ell))
+    k = s2 * gram_exp(d2 / (2.0 * ell * ell), fast_exp)
     gate = (
         (k >= sp_thres)
         & (x_mask[..., :, None] > 0)

@@ -9,6 +9,10 @@ fuses a multiply-add.  A fast approximate exp jitters the sparsity
 gates (a > sp_thres) and stalls the align loop above the C++ stop
 eps=5e-5.  The CUDA kernels carry the same function in
 csrc/pair_tile.cuh.
+
+`gram_exp` picks the Gram's exponential: exp_neg, or under
+params.exp_mode="fast" the plain `torch.exp(-z)`, the counterpart of the
+JAX package's `jnp.exp(-z)` and of the kernels' hardware `__expf`.
 """
 
 from __future__ import annotations
@@ -38,3 +42,8 @@ def exp_neg(z: torch.Tensor) -> torch.Tensor:
         p = p * (-r) + c
     two_pow = ((127 - n.to(torch.int32)) << 23).view(torch.float32)
     return p * two_pow
+
+
+def gram_exp(z: torch.Tensor, fast: bool = False) -> torch.Tensor:
+    """exp(-z) of a Gram entry: exp_neg, or torch.exp(-z) when `fast`."""
+    return torch.exp(-z) if fast else exp_neg(z)

@@ -86,7 +86,7 @@ from cvo_rgbd_torch.ops.align_fused import align_fused, fused_eligible
 from cvo_rgbd_torch.ops.gram import pad_feat
 from cvo_rgbd_torch.ops.moments import TILE_I, TILE_J
 from cvo_rgbd_torch.ops.wsq import TILE_W, Sweep, fused_wsq_sweeps, tile_order
-from cvo_rgbd_torch.params import AcvoParams, color_scale
+from cvo_rgbd_torch.params import AcvoParams, color_scale, fast_exp
 
 # iterations between host reads of `converged`
 CHECK_EVERY = 8
@@ -132,6 +132,8 @@ def check_supported(p) -> None:
         raise ValueError(f"unknown backend {p.backend!r}")
     if p.color_mode not in ("se", "linear"):
         raise ValueError(f"unknown color_mode {p.color_mode!r}")
+    if p.exp_mode not in ("precise", "fast"):
+        raise ValueError(f"unknown exp_mode {p.exp_mode!r}")
     if adaptive and p.backend == "kernel":
         # as the JAX package's pallas backend
         if p.color_mode == "linear":
@@ -140,11 +142,6 @@ def check_supported(p) -> None:
             )
         if p.yy_quirk:
             raise ValueError("yy_quirk emulation requires backend='dense'")
-    if p.exp_mode != "precise":
-        raise NotImplementedError(
-            f"exp_mode={p.exp_mode!r} is not ported yet: ROADMAP queue 2a, "
-            "item 1"
-        )
 
 
 def _schedule_ell(ell, k, sched):
@@ -365,7 +362,7 @@ def _se(p, x_pos, x: PointCloud, y_pos, y: PointCloud, ell):
     return se_gram(
         x_pos, x.features, x.mask, y_pos, y.features, y.mask, ell,
         sigma=p.sigma, c_ell=p.c_ell, c_sigma=p.c_sigma,
-        sp_thres=p.sp_thres, c_sp_thres=p.c_sp_thres,
+        sp_thres=p.sp_thres, c_sp_thres=p.c_sp_thres, fast_exp=fast_exp(p),
     )
 
 
@@ -374,7 +371,8 @@ def _gram(p, x_pos, x: PointCloud, y_pos, y: PointCloud, ell, ci):
     matlab_gram with the pair's CI in linear mode, else se_gram."""
     if p.color_mode == "linear":
         return matlab_gram(x_pos, x.mask, y_pos, y.mask, ci, ell,
-                           sigma=p.sigma, sp_thres=p.sp_thres)
+                           sigma=p.sigma, sp_thres=p.sp_thres,
+                           fast_exp=fast_exp(p))
     return _se(p, x_pos, x, y_pos, y, ell)
 
 

@@ -80,6 +80,11 @@
 // evaluates each pair twice (the row sweep, then the moment sweep), which
 // the bound does not count.  Two grid barriers per iteration are the
 // fixed cost.
+//
+// Every form (resident or tiled, cvo or acvo) is compiled twice: with
+// exp_neg and, for params.exp_mode="fast", with the hardware __expf in
+// every exponential of a pair, position and color (FAST, pair_tile.cuh;
+// pallas_align.py:359-360, 715-716).
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -390,20 +395,22 @@ __device__ __forceinline__ float box_gap(const float* xb, const float* yb) {
 // A_ij of the align's color mode (pallas_align.py:473-483, :805-824): the
 // full se gate, or the linear weight ci of features 0-2 (rounded in the
 // JAX order) gated on k >= sp_thres and the masks.  `linear` is uniform.
+template <bool FAST>
 __device__ __forceinline__ float pair_weight(bool linear, float d2,
                                              const float* fx, float xm,
                                              const float* fy, float ym,
                                              const float* scal,
                                              float color_scale) {
-  if (!linear) return cvo::pair_full(d2, fx, xm, fy, ym, scal);
+  if (!linear) return cvo::pair_full<FAST>(d2, fx, xm, fy, ym, scal);
   if (!(xm > 0.0f && ym > 0.0f)) return 0.0f;
   const float dot = __fadd_rn(
       __fadd_rn(__fmul_rn(fx[0], fy[0]), __fmul_rn(fx[1], fy[1])),
       __fmul_rn(fx[2], fy[2]));
-  return cvo::pair_linear(d2, __fmul_rn(color_scale, dot), scal);
+  return cvo::pair_linear<FAST>(d2, __fmul_rn(color_scale, dot), scal);
 }
 
 // A_ij of the thread's j and a tile row (moment_tile.cuh).
+template <bool FAST>
 struct AlignWeight {
   bool linear;
   float color_scale;
@@ -415,7 +422,7 @@ struct AlignWeight {
   __device__ __forceinline__ float operator()(int ii, float4 xi,
                                               const float* fi) const {
     const float d2 = cvo::sqdist3(xi.x, xi.y, xi.z, y[0], y[1], y[2]);
-    return pair_weight(linear, d2, fi, xi.w, fy, ym, s, color_scale);
+    return pair_weight<FAST>(linear, d2, fi, xi.w, fy, ym, s, color_scale);
   }
 };
 
@@ -442,13 +449,14 @@ __device__ int kept_tiles(const Args& a, const float* box, float thres) {
 
 // One moment item, a kept tile: i-tile ib against j-block jb, its
 // partial momT and count.
+template <bool FAST>
 __device__ void moment_item(const Args& a, Shared& S, const Lane& ln, int jb,
                             int ib) {
   const int nbj = a.m / TJ;
   const int j = jb * TJ + threadIdx.x;
   __syncthreads();  // the last item no longer reads S.t
   cvo::mt::stage_begin(S.t, a.xp, a.xf, a.xm, a.phi, ib * TI, true);
-  AlignWeight w;
+  AlignWeight<FAST> w;
   w.linear = S.c[C_LINEAR] != 0.0f;
   w.color_scale = S.c[C_COLOR_SCALE];
   w.s = S.scal;
@@ -485,7 +493,7 @@ __device__ bool last_arrival(int* ticket, int total, Shared& S) {
 }
 
 // Resident mode: ROWS rows of x over all of y, the direct-form flow.
-template <bool ADAPTIVE>
+template <bool ADAPTIVE, bool FAST>
 __device__ void row_item(const Args& a, Shared& S, const Lane& ln, int rb) {
   const int i = rb * ROWS + threadIdx.x;
   const float x0 = a.xp[3 * i], x1 = a.xp[3 * i + 1], x2 = a.xp[3 * i + 2];
@@ -510,7 +518,7 @@ __device__ void row_item(const Args& a, Shared& S, const Lane& ln, int rb) {
     for (int jj = 0; jj < TJ; ++jj) {
       const float d2 = cvo::sqdist3(x0, x1, x2, S.rows.y[0][jj],
                                     S.rows.y[1][jj], S.rows.y[2][jj]);
-      const float w = pair_weight(linear, d2, fx, xmi, S.rows.f[jj],
+      const float w = pair_weight<FAST>(linear, d2, fx, xmi, S.rows.f[jj],
                                   S.rows.m[jj], S.scal, S.c[C_COLOR_SCALE]);
       if (w != 0.0f) {
         sA += w;
@@ -530,7 +538,7 @@ __device__ void row_item(const Args& a, Shared& S, const Lane& ln, int rb) {
 }
 
 // acvo: one upper-triangle TW-square tile of a self-Gram.
-template <bool RESIDENT>
+template <bool RESIDENT, bool FAST>
 __device__ void self_item(const Args& a, Shared& S, const Lane& ln, int item,
                           int t) {
   const int nbx = a.n / TW;
@@ -589,7 +597,8 @@ __device__ void self_item(const Args& a, Shared& S, const Lane& ln, int item,
   for (int ii = threadIdx.x / TW; ii < TW; ii += NT / TW) {
     const float4 xi = S.t.x[ii];
     const float d2 = cvo::sqdist3(xi.x, xi.y, xi.z, py[0], py[1], py[2]);
-    const float w = cvo::pair_full(d2, S.t.f[ii], xi.w, fy, ymj, S.scal);
+    const float w =
+        cvo::pair_full<FAST>(d2, S.t.f[ii], xi.w, fy, ymj, S.scal);
     if (w > 0.0f) {
       ++cnt;
       acc = fmaf(w, d2, acc);
@@ -846,7 +855,7 @@ __device__ void tail(const Args& a, Lane& ln, const float* c) {
   s.k += 1;
 }
 
-template <bool RESIDENT, bool ADAPTIVE>
+template <bool RESIDENT, bool ADAPTIVE, bool FAST>
 __global__ void __launch_bounds__(NT, 3) align_kernel(Args a) {
   cg::grid_group grid = cg::this_grid();
   __shared__ Shared S;
@@ -926,7 +935,7 @@ __global__ void __launch_bounds__(NT, 3) align_kernel(Args a) {
         if (L != staged) stage(S, ln, staged, L);
         const int n_kept = kept_tiles(la, box, thres);
         if (kept) {
-          moment_item(la, S, ln, jb, ib);
+          moment_item<FAST>(la, S, ln, jb, ib);
           ITEM_DONE(0);
         }
         if (kept ? !last_arrival(la.ticket + jb, n_kept, S) : n_kept != 0)
@@ -934,12 +943,12 @@ __global__ void __launch_bounds__(NT, 3) align_kernel(Args a) {
         column_item<RESIDENT>(la, S, ln, jb, box);
         ITEM_DONE(2);
       } else if (i < n_mom + n_rows) {
-        row_item<ADAPTIVE>(la, S, ln, i - n_mom);
+        row_item<ADAPTIVE, FAST>(la, S, ln, i - n_mom);
         ITEM_DONE(4);
         continue;
       } else {
         const int t = i - n_mom - n_rows;
-        self_item<RESIDENT>(la, S, ln, t, t);
+        self_item<RESIDENT, FAST>(la, S, ln, t, t);
         ITEM_DONE(5);
       }
       if (!ADAPTIVE || !last_arrival(la.ticket + nbj, nbj + n_self, S))
@@ -1004,9 +1013,10 @@ __global__ void __launch_bounds__(NT, 3) align_kernel(Args a) {
     }
 }
 
-template <bool RESIDENT, bool ADAPTIVE>
-int launch(Args a, cudaStream_t stream) {
-  const void* fn = reinterpret_cast<const void*>(align_kernel<RESIDENT, ADAPTIVE>);
+template <bool RESIDENT, bool ADAPTIVE, bool FAST>
+int launch_form(Args a, cudaStream_t stream) {
+  const auto kernel = align_kernel<RESIDENT, ADAPTIVE, FAST>;
+  const void* fn = reinterpret_cast<const void*>(kernel);
   // the lanes' states
   const size_t dyn = static_cast<size_t>(a.lanes) * sizeof(Lane);
   int dev = 0, sms = 0, coop = 0, per_sm = 0;
@@ -1021,7 +1031,7 @@ int launch(Args a, cudaStream_t stream) {
                                static_cast<int>(dyn));
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, align_kernel<RESIDENT, ADAPTIVE>, NT, dyn);
+        &per_sm, kernel, NT, dyn);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (!coop) return static_cast<int>(cudaErrorNotSupported);
   if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
@@ -1031,6 +1041,16 @@ int launch(Args a, cudaStream_t stream) {
                                     stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The form of the launch: adaptive or not, exp_neg or __expf.
+template <bool RESIDENT>
+int launch(const Args& a, int adaptive, int fast, cudaStream_t stream) {
+  if (adaptive)
+    return fast ? launch_form<RESIDENT, true, true>(a, stream)
+                : launch_form<RESIDENT, true, false>(a, stream);
+  return fast ? launch_form<RESIDENT, false, true>(a, stream)
+              : launch_form<RESIDENT, false, false>(a, stream);
 }
 
 Args pack(const float* xp, const float* xf, const float* xm, const float* yp,
@@ -1065,7 +1085,7 @@ Args pack(const float* xp, const float* xf, const float* xm, const float* yp,
       const float *sched, float *mom_part, int *cnt_part, int *cnt_col,      \
       int *ticket, float *mom, float *flow_part, float *self_w, int *self_c, \
       float *red, float *bcde_part, float *out, int n, int m, int n_sched,   \
-      int adaptive, int lanes, cudaStream_t stream
+      int adaptive, int fast, int lanes, cudaStream_t stream
 
 #define ALIGN_FUSED_PACK                                                     \
   pack(xp, xf, xm, yp, yf, ym, phi, shift, xb, yb, md_xx, md_yy, consts,     \
@@ -1077,11 +1097,11 @@ Args pack(const float* xp, const float* xf, const float* xm, const float* yp,
 // self bounds at 64 or null.  Every array has a
 // leading axis of `lanes`, but consts and sched, which all lanes share;
 // scratch shapes are those of ops/align_fused.py:lane_scratch, the
-// tickets zeroed.  Returns a cudaError_t.
+// tickets zeroed; fast takes the hardware exp (params.exp_mode="fast").
+// Returns a cudaError_t.
 extern "C" int align_fused_tiled_launch(ALIGN_FUSED_ARGS) {
   const Args a = ALIGN_FUSED_PACK;
-  return adaptive ? launch<false, true>(a, stream)
-                  : launch<false, false>(a, stream);
+  return launch<false>(a, adaptive, fast, stream);
 }
 
 #ifdef ALIGN_PHASE_TIMERS
@@ -1116,6 +1136,5 @@ extern "C" int align_fused_item_ns(unsigned long long* out, int reset) {
 extern "C" int align_fused_resident_launch(ALIGN_FUSED_ARGS) {
   Args a = ALIGN_FUSED_PACK;
   a.xb = a.yb = a.md_xx = a.md_yy = nullptr;
-  return adaptive ? launch<true, true>(a, stream)
-                  : launch<true, false>(a, stream);
+  return launch<true>(a, adaptive, fast, stream);
 }

@@ -36,9 +36,9 @@
 // has an empty box and is always skipped.  Skip on and off give the same
 // bits: a skipped tile holds only A = 0 (in se mode the float32 d2 of a
 // pair is never below the float32 gap, rounding being monotone; in linear
-// mode the margin covers exp_neg at the gate), so its partial would be
-// zero, and a zero term changes no sum but the sign of an all-zero one,
-// which the last write makes +0.
+// mode the margin covers exp_neg and __expf at the gate, pair_tile.cuh),
+// so its partial would be zero, and a zero term changes no sum but the
+// sign of an all-zero one, which the last write makes +0.
 //
 // Copies: a kept item's columns and [RB, TJ] ck slice arrive with
 // cp.async in two column halves, and the first half is swept while the
@@ -242,7 +242,7 @@ __device__ __forceinline__ void wait_groups() {
 
 // Columns [4 q0, 4 q1) of the staged item, in order: body(jj, d2, a) for
 // each pair whose weight a is not zero.
-template <int MODE, class Body>
+template <int MODE, bool FAST, class Body>
 __device__ __forceinline__ void sweep(const Cols<MODE>& C, int q0, int q1,
                                       const float* x, const float* fx,
                                       float xmi, const float* s,
@@ -261,10 +261,12 @@ __device__ __forceinline__ void sweep(const Cols<MODE>& C, int q0, int q1,
       const int jj = 4 * q + e;
       d2[e] = cvo::sqdist3(x[0], x[1], x[2], C.y[jj][0], C.y[jj][1],
                            C.y[jj][2]);
-      if constexpr (MODE == LINEAR) w[e] = cvo::pair_linear(d2[e], cv[e], s);
+      if constexpr (MODE == LINEAR)
+        w[e] = cvo::pair_linear<FAST>(d2[e], cv[e], s);
       else if constexpr (MODE == SE_CACHED)
-        w[e] = cvo::pair_cached(d2[e], cv[e], s);
-      else w[e] = cvo::pair_full(d2[e], fx, xmi, C.f[jj], C.m[jj], s);
+        w[e] = cvo::pair_cached<FAST>(d2[e], cv[e], s);
+      else
+        w[e] = cvo::pair_full<FAST>(d2[e], fx, xmi, C.f[jj], C.m[jj], s);
     }
 #pragma unroll
     for (int e = 0; e < 4; ++e)
@@ -274,19 +276,19 @@ __device__ __forceinline__ void sweep(const Cols<MODE>& C, int q0, int q1,
 
 // All columns of the staged item, the first half while the second
 // arrives.
-template <int MODE, class Body>
+template <int MODE, bool FAST, class Body>
 __device__ __forceinline__ void sweep_item(const Cols<MODE>& C,
                                            const float* x, const float* fx,
                                            float xmi, const float* s,
                                            Body&& body) {
   if constexpr (MODE == SE_FULL) {
     wait_groups<0>();
-    sweep<MODE>(C, 0, NCH, x, fx, xmi, s, body);
+    sweep<MODE, FAST>(C, 0, NCH, x, fx, xmi, s, body);
   } else {
     wait_groups<1>();
-    sweep<MODE>(C, 0, HALF, x, fx, xmi, s, body);
+    sweep<MODE, FAST>(C, 0, HALF, x, fx, xmi, s, body);
     wait_groups<0>();
-    sweep<MODE>(C, HALF, NCH, x, fx, xmi, s, body);
+    sweep<MODE, FAST>(C, HALF, NCH, x, fx, xmi, s, body);
   }
 }
 
@@ -412,7 +414,7 @@ __device__ void final_sum(const Args& a, Red& R, bool counts) {
 }
 
 // one block per item: row block blockIdx.x / (m / TJ), column tile the rest
-template <int MODE>
+template <int MODE, bool FAST>
 __global__ void __launch_bounds__(RB) flow_kernel(const Args a) {
   __shared__ Cols<MODE> C;
   __shared__ Red R;
@@ -430,7 +432,7 @@ __global__ void __launch_bounds__(RB) flow_kernel(const Args a) {
     load_row<MODE>(a, ib * RB + threadIdx.x, x, fx, &xmi, s);
     float sA = 0.0f, s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, sw = 0.0f;
     int cnt = 0;
-    sweep_item<MODE>(C, x, fx, xmi, s, [&](int jj, float d2, float w) {
+    sweep_item<MODE, FAST>(C, x, fx, xmi, s, [&](int jj, float d2, float w) {
       cnt += w > 0.0f;
       sA += w;
       s0 = fmaf(w, C.y[jj][0], s0);
@@ -480,7 +482,7 @@ __device__ __forceinline__ void column_fields(Fields& F, const Args& a,
     F.epc[t] = add(dot3(f[1], f[1]), mul(2.0f, dot3(f[0], f[2])));
 }
 
-template <int MODE>
+template <int MODE, bool FAST>
 __global__ void __launch_bounds__(RB) step_kernel(const Args a) {
   __shared__ Cols<MODE> C;
   __shared__ Fields F;
@@ -500,7 +502,7 @@ __global__ void __launch_bounds__(RB) step_kernel(const Args a) {
     // tc = 1 / (2 ell^2); -2 tc, 2 tc and -tc are exact
     const float tc = s[cvo::S_INV_2L2];
     float sB = 0.0f, sC = 0.0f, sD = 0.0f, sE = 0.0f;
-    sweep_item<MODE>(C, x, fx, xmi, s, [&](int jj, float, float w) {
+    sweep_item<MODE, FAST>(C, x, fx, xmi, s, [&](int jj, float, float w) {
       float df[4];  // w . (x_i - y_j) as x_i . w - w . y_j (:231-235)
 #pragma unroll
       for (int k = 0; k < 4; ++k)
@@ -538,38 +540,44 @@ int mode_of(const float* ck, int linear) {
   return ck == nullptr ? SE_FULL : SE_CACHED;
 }
 
-template <int MODE>
+template <int MODE, bool FAST>
 struct Flow {
   static void run(int grid, cudaStream_t s, const Args& a) {
-    flow_kernel<MODE><<<grid, RB, 0, s>>>(a);
+    flow_kernel<MODE, FAST><<<grid, RB, 0, s>>>(a);
   }
 };
 
-template <int MODE>
+template <int MODE, bool FAST>
 struct Step {
   static void run(int grid, cudaStream_t s, const Args& a) {
-    step_kernel<MODE><<<grid, RB, 0, s>>>(a);
+    step_kernel<MODE, FAST><<<grid, RB, 0, s>>>(a);
   }
 };
 
-// One block per item.
-template <template <int> class K>
-int launch(const Args& a, int linear, cudaStream_t stream) {
+// One block per item, in the color mode's form with exp_neg or __expf.
+template <template <int, bool> class K, bool FAST>
+int launch_mode(const Args& a, int linear, cudaStream_t stream) {
   const int grid = (a.n / RB) * (a.m / TJ);
   switch (mode_of(a.ck, linear)) {
     case SE_FULL:
-      K<SE_FULL>::run(grid, stream, a);
+      K<SE_FULL, FAST>::run(grid, stream, a);
       break;
     case SE_CACHED:
-      K<SE_CACHED>::run(grid, stream, a);
+      K<SE_CACHED, FAST>::run(grid, stream, a);
       break;
     case LINEAR:
-      K<LINEAR>::run(grid, stream, a);
+      K<LINEAR, FAST>::run(grid, stream, a);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+template <template <int, bool> class K>
+int launch(const Args& a, int linear, int fast, cudaStream_t stream) {
+  return fast ? launch_mode<K, true>(a, linear, stream)
+              : launch_mode<K, false>(a, linear, stream);
 }
 
 }  // namespace
@@ -578,18 +586,18 @@ int launch(const Args& a, int linear, cudaStream_t stream) {
 // (n / 128) * (m / 32); ticket: [1] i32, zero, and left zero; out: [9]
 // f32 = omega*c 3, v*d 3, sum A d2, sum A, nnz.  ck may be null (se mode
 // only); linear mode needs ck (the masked ci), 16-byte aligned.  n must be
-// a multiple of 128 and m of 32; skip turns the tile skip on.  Returns a
-// cudaError_t.
+// a multiple of 128 and m of 32; skip turns the tile skip on; fast takes
+// the hardware exp (params.exp_mode="fast").  Returns a cudaError_t.
 extern "C" int fused_flow_launch(const float* xp, const float* xf,
                                  const float* xm, const float* yp,
                                  const float* yf, const float* ym,
                                  const float* ck, const float* scal,
                                  float* part, int* cnt_part, int* ticket,
                                  float* out, int n, int m, int skip,
-                                 int linear, cudaStream_t stream) {
+                                 int linear, int fast, cudaStream_t stream) {
   const Args a{xp,   xf,       xm,     yp,  yf, ym, ck, scal, nullptr,
                part, cnt_part, ticket, out, n,  m,  skip};
-  return launch<Flow>(a, linear, stream);
+  return launch<Flow>(a, linear, fast, stream);
 }
 
 // wv: [6] f32 = omega 3, v 3; part: [items, 4] f32 scratch; out: [4] f32
@@ -600,10 +608,11 @@ extern "C" int fused_step_launch(const float* xp, const float* xf,
                                  const float* ck, const float* scal,
                                  const float* wv, float* part, int* cnt_part,
                                  int* ticket, float* out, int n, int m,
-                                 int skip, int linear, cudaStream_t stream) {
+                                 int skip, int linear, int fast,
+                                 cudaStream_t stream) {
   const Args a{xp,   xf,       xm,     yp,  yf, ym, ck, scal, wv,
                part, cnt_part, ticket, out, n,  m,  skip};
-  return launch<Step>(a, linear, stream);
+  return launch<Step>(a, linear, fast, stream);
 }
 
 #ifdef FLOW_PHASE_TIMERS

@@ -9,7 +9,9 @@
 // linear color weights (MATLAB's linear mode, ck holding ci), and an
 // exact AABB skip of (i-tile, j-block) pairs whose lower bound on d2
 // exceeds d2_thres + SKIP_MARGIN (such tiles hold only zeros: k < sp_thres
-// there too, by a margin far above the fp32 rounding of k).
+// there too, by a margin far above the fp32 rounding of k and the error of
+// the hardware exp, pair_tile.cuh).  Each form is compiled with exp_neg
+// and, for params.exp_mode="fast", with __expf (FAST).
 //
 // Bound on the H100: per pair of a kept tile ~35 fp32 operations (d2,
 // exp, gate; 44 more for a recomputed color kernel) and 4 bytes of ck
@@ -52,7 +54,7 @@ struct Smem {
 
 // A_ij of the thread's j: se (color kernel cached or recomputed) or
 // linear (ck the masked ci), as pair_tile.cuh computes it.
-template <bool USE_CK, bool LINEAR>
+template <bool USE_CK, bool LINEAR, bool FAST>
 struct Weight {
   const float (*ck)[TJ];   // the staged ck tile
   float y[3];
@@ -64,11 +66,11 @@ struct Weight {
                                               const float* fi) const {
     const float d2 = cvo::sqdist3(xi.x, xi.y, xi.z, y[0], y[1], y[2]);
     if constexpr (LINEAR) {
-      return cvo::pair_linear(d2, ck[ii][threadIdx.x], s);
+      return cvo::pair_linear<FAST>(d2, ck[ii][threadIdx.x], s);
     } else if constexpr (USE_CK) {
-      return cvo::pair_cached(d2, ck[ii][threadIdx.x], s);
+      return cvo::pair_cached<FAST>(d2, ck[ii][threadIdx.x], s);
     } else {
-      return cvo::pair_full(d2, fi, xi.w, fy, ym, s);
+      return cvo::pair_full<FAST>(d2, fi, xi.w, fy, ym, s);
     }
   }
 };
@@ -83,7 +85,7 @@ __device__ __forceinline__ bool kept_tile(const float* md, const float* scal,
 
 // One block per tile: j-block blockIdx.x, i-tile blockIdx.y.  Writes
 // the tile's partial and count, or count 0 alone when the skip drops it.
-template <bool USE_CK, bool LINEAR>
+template <bool USE_CK, bool LINEAR, bool FAST>
 __global__ void __launch_bounds__(cvo::mt::NT)
 moments_tile_kernel(const float* __restrict__ xp,
                     const float* __restrict__ xf,
@@ -120,7 +122,7 @@ moments_tile_kernel(const float* __restrict__ xp,
       cvo::mt::cp_async16(&S.ck[r][c], src + static_cast<size_t>(r) * m + c);
     }
   }
-  Weight<USE_CK, LINEAR> w;
+  Weight<USE_CK, LINEAR, FAST> w;
   w.ck = S.ck;
   w.s = scal;
   {
@@ -190,13 +192,13 @@ moments_reduce_kernel(const float* __restrict__ part,
   }
 }
 
-template <bool USE_CK, bool LINEAR>
+template <bool USE_CK, bool LINEAR, bool FAST>
 cudaError_t launch_tiles(dim3 grid, cudaStream_t stream, const float* xp,
                          const float* xf, const float* xm, const float* yp,
                          const float* yf, const float* ym, const float* phi,
                          const float* ck, const float* md, const float* scal,
                          float* part, int* cnt_part, int n, int m) {
-  const auto fn = moments_tile_kernel<USE_CK, LINEAR>;
+  const auto fn = moments_tile_kernel<USE_CK, LINEAR, FAST>;
   const int bytes = sizeof(Smem<USE_CK>);
   // above 48 KB only after opting in
   cudaError_t err = cudaFuncSetAttribute(
@@ -207,29 +209,35 @@ cudaError_t launch_tiles(dim3 grid, cudaStream_t stream, const float* xp,
   return cudaGetLastError();
 }
 
+using TileLaunch = decltype(&launch_tiles<false, false, false>);
+
+// The tile kernel's launch for the color mode: linear (ck the ci), se
+// with the cached color kernel, or se recomputing it.
+template <bool FAST>
+TileLaunch tile_launchers(int linear, bool use_ck) {
+  if (linear) return launch_tiles<true, true, FAST>;
+  return use_ck ? launch_tiles<true, false, FAST>
+                : launch_tiles<false, false, FAST>;
+}
+
 }  // namespace
 
 // part: [n / 64, 35, m] f32 scratch, one slot per kept tile; cnt_part:
 // [n / 64, m / 128] i32 scratch; mom: [m, 35] f32; nnz: [1] f32.  ck or
-// md may be null; linear mode needs ck (the masked ci).
+// md may be null; linear mode needs ck (the masked ci).  fast takes the
+// hardware exp (params.exp_mode="fast").
 extern "C" int fused_moments_launch(
     const float* xp, const float* xf, const float* xm, const float* yp,
     const float* yf, const float* ym, const float* phi, const float* ck,
     const float* md, const float* scal, float* part, int* cnt_part,
-    float* mom, float* nnz, int n, int m, int linear, cudaStream_t stream) {
+    float* mom, float* nnz, int n, int m, int linear, int fast,
+    cudaStream_t stream) {
   const dim3 grid(m / TJ, n / TI);
-  cudaError_t err;
-  if (linear) {
-    if (ck == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    err = launch_tiles<true, true>(grid, stream, xp, xf, xm, yp, yf, ym, phi,
-                                   ck, md, scal, part, cnt_part, n, m);
-  } else if (ck != nullptr) {
-    err = launch_tiles<true, false>(grid, stream, xp, xf, xm, yp, yf, ym, phi,
-                                    ck, md, scal, part, cnt_part, n, m);
-  } else {
-    err = launch_tiles<false, false>(grid, stream, xp, xf, xm, yp, yf, ym,
-                                     phi, ck, md, scal, part, cnt_part, n, m);
-  }
+  if (linear && ck == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const TileLaunch fn = fast ? tile_launchers<true>(linear, ck != nullptr)
+                            : tile_launchers<false>(linear, ck != nullptr);
+  const cudaError_t err = fn(grid, stream, xp, xf, xm, yp, yf, ym, phi, ck,
+                             md, scal, part, cnt_part, n, m);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 rgrid(m / TJ, (NMOM + KPB - 1) / KPB);
   moments_reduce_kernel<<<rgrid, cvo::mt::NT, 0, stream>>>(

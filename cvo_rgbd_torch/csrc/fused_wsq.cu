@@ -6,7 +6,8 @@
 // the only two quantities the adaptive dl reduction needs from the
 // self-kernels Axx / Ayy (adaptive_cvo.cpp:222-271).  A is gated exactly
 // as in fused_moments.cu (pair_tile.cuh), with the same exact AABB skip
-// of tiles whose lower bound on d2 exceeds d2_thres + SKIP_MARGIN.
+// of tiles whose lower bound on d2 exceeds d2_thres + SKIP_MARGIN, and is
+// compiled with exp_neg and, for params.exp_mode="fast", with __expf.
 //
 // Bound on the H100: per kept pair ~37 fp32 operations (d2, exp, gate,
 // the a*d2 FMA) and 4 bytes of ck when the color kernel is cached; the
@@ -144,7 +145,7 @@ struct Smem {
 // wsq_partial_kernel body.
 // The column's loads and its ck entries are all issued before the rows
 // are staged, so the tile waits for one round of loads, not one a row.
-template <bool USE_CK>
+template <bool USE_CK, bool FAST>
 __device__ void sweep_tile(const WsqSweep& S, int bi, int bj, Smem& sm,
                            float* w_out, int* c_out) {
   const int i0 = bi * TW;
@@ -186,9 +187,9 @@ __device__ void sweep_tile(const WsqSweep& S, int bi, int bj, Smem& sm,
         cvo::sqdist3(sm.x[0][ii], sm.x[1][ii], sm.x[2][ii], y0, y1, y2);
     float a;
     if constexpr (USE_CK) {
-      a = cvo::pair_cached(d2, ckv[k], scal);
+      a = cvo::pair_cached<FAST>(d2, ckv[k], scal);
     } else {
-      a = cvo::pair_full(d2, sm.f[ii], sm.m[ii], fy, ymj, scal);
+      a = cvo::pair_full<FAST>(d2, sm.f[ii], sm.m[ii], fy, ymj, scal);
     }
     if (a > 0.0f) {
       ++cnt;
@@ -270,7 +271,7 @@ __device__ void final_sum(const WsqSweep& S, const float* part,
   __syncthreads();
 }
 
-template <bool USE_CK>
+template <bool USE_CK, bool FAST>
 __global__ void __launch_bounds__(THREADS)
 wsq_kernel(const __grid_constant__ WsqSweeps sw, float* __restrict__ part,
            int* __restrict__ cnt, int* __restrict__ tickets) {
@@ -312,7 +313,7 @@ wsq_kernel(const __grid_constant__ WsqSweeps sw, float* __restrict__ part,
     tile_of(id, S.m / TW, S.symmetric, &bi, &bj);
     float w;
     int c;
-    sweep_tile<USE_CK>(S, bi, bj, sm, &w, &c);
+    sweep_tile<USE_CK, FAST>(S, bi, bj, sm, &w, &c);
     if (threadIdx.x == 0) {
       part[S.part0 + id] = w;
       cnt[S.part0 + id] = c;
@@ -331,18 +332,20 @@ wsq_kernel(const __grid_constant__ WsqSweeps sw, float* __restrict__ part,
 
 // sweeps: [count] host array, count <= MAX_SWEEPS, every sweep with ck
 // (use_ck) or none; part / cnt: [sum of n_tiles] f32 / i32 scratch;
-// tickets: [count] i32, zero at launch and left zero; blocks: the grid.
+// tickets: [count] i32, zero at launch and left zero; blocks: the grid;
+// fast takes the hardware exp (params.exp_mode="fast").
 extern "C" int fused_wsq_launch(const WsqSweep* sweeps, int count,
                                 float* part, int* cnt, int* tickets,
-                                int use_ck, int blocks, cudaStream_t stream) {
+                                int use_ck, int fast, int blocks,
+                                cudaStream_t stream) {
   if (count < 1 || count > MAX_SWEEPS) return cudaErrorInvalidValue;
   WsqSweeps sw;
   for (int s = 0; s < count; ++s) sw.s[s] = sweeps[s];
   sw.count = count;
-  if (use_ck) {
-    wsq_kernel<true><<<blocks, THREADS, 0, stream>>>(sw, part, cnt, tickets);
-  } else {
-    wsq_kernel<false><<<blocks, THREADS, 0, stream>>>(sw, part, cnt, tickets);
-  }
+  const auto fn = use_ck ? (fast ? wsq_kernel<true, true>
+                                 : wsq_kernel<true, false>)
+                         : (fast ? wsq_kernel<false, true>
+                                 : wsq_kernel<false, false>);
+  fn<<<blocks, THREADS, 0, stream>>>(sw, part, cnt, tickets);
   return static_cast<int>(cudaGetLastError());
 }

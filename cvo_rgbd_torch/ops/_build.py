@@ -29,7 +29,8 @@ VARIANTS = {"align_fused_timed": ("align_fused", ("-DALIGN_PHASE_TIMERS",)),
             "fused_flow_timed": ("fused_flow", ("-DFLOW_PHASE_TIMERS",))}
 
 # No --use_fast_math: it turns expf into __expf and flushes denormals,
-# and the Gram needs the accurate exp (csrc/pair_tile.cuh).
+# and the Gram needs the accurate exp (csrc/pair_tile.cuh); the kernels'
+# exp_mode="fast" forms take __expf by a template flag, never a build flag.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -42,28 +43,28 @@ _I = ctypes.c_int
 SIGNATURES = {
     "color_gram": ("color_gram_launch", [_P] * 6 + [_I, _I, _P]),
     "fused_moments": (
-        "fused_moments_launch", [_P] * 14 + [_I] * 3 + [_P]
+        "fused_moments_launch", [_P] * 14 + [_I] * 4 + [_P]
     ),
-    "fused_wsq": ("fused_wsq_launch", [_P, _I] + [_P] * 3 + [_I, _I, _P]),
+    "fused_wsq": ("fused_wsq_launch", [_P, _I] + [_P] * 3 + [_I] * 3 + [_P]),
     "align_fused_tiled": (
-        "align_fused_tiled_launch", [_P] * 26 + [_I] * 5 + [_P]
+        "align_fused_tiled_launch", [_P] * 26 + [_I] * 6 + [_P]
     ),
     "align_fused_resident": (
-        "align_fused_resident_launch", [_P] * 26 + [_I] * 5 + [_P]
+        "align_fused_resident_launch", [_P] * 26 + [_I] * 6 + [_P]
     ),
-    "fused_flow": ("fused_flow_launch", [_P] * 12 + [_I] * 4 + [_P]),
-    "fused_step_coeffs": ("fused_step_launch", [_P] * 13 + [_I] * 4 + [_P]),
+    "fused_flow": ("fused_flow_launch", [_P] * 12 + [_I] * 5 + [_P]),
+    "fused_step_coeffs": ("fused_step_launch", [_P] * 13 + [_I] * 5 + [_P]),
     "construct_probe": ("construct_probe_launch", [_I] + [_P] * 6),
     "align_fused_tiled_timed": (
-        "align_fused_tiled_launch", [_P] * 26 + [_I] * 5 + [_P]
+        "align_fused_tiled_launch", [_P] * 26 + [_I] * 6 + [_P]
     ),
     "align_fused_resident_timed": (
-        "align_fused_resident_launch", [_P] * 26 + [_I] * 5 + [_P]
+        "align_fused_resident_launch", [_P] * 26 + [_I] * 6 + [_P]
     ),
     "align_fused_phase_ns": ("align_fused_phase_ns", [_P, _I]),
-    "fused_flow_timed": ("fused_flow_launch", [_P] * 12 + [_I] * 4 + [_P]),
+    "fused_flow_timed": ("fused_flow_launch", [_P] * 12 + [_I] * 5 + [_P]),
     "fused_step_coeffs_timed": (
-        "fused_step_launch", [_P] * 13 + [_I] * 4 + [_P]
+        "fused_step_launch", [_P] * 13 + [_I] * 5 + [_P]
     ),
     "fused_flow_marks": ("fused_flow_marks", [_P, _I]),
     "align_fused_item_ns": ("align_fused_item_ns", [_P, _I]),

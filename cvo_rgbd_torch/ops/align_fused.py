@@ -50,7 +50,7 @@ from cvo_rgbd_torch.core.cloud import PointCloud, aabb_min_d2, block_bounds
 from cvo_rgbd_torch.core.cubic import cubic_roots, min_positive_root
 from cvo_rgbd_torch.core.gram import pairwise_sqdist
 from cvo_rgbd_torch.core.moments import flow_from_moments, step_from_moments
-from cvo_rgbd_torch.core.numerics import exp_neg
+from cvo_rgbd_torch.core.numerics import gram_exp
 from cvo_rgbd_torch.core.step_factored import (
     M_INDEX,
     MONOMIALS,
@@ -66,7 +66,7 @@ from cvo_rgbd_torch.ops.moments import (
     sweep_scratch,
 )
 from cvo_rgbd_torch.ops.wsq import TILE_W
-from cvo_rgbd_torch.params import AcvoParams
+from cvo_rgbd_torch.params import AcvoParams, fast_exp
 
 # rows of a resident row item and of the kernel's padding
 # (csrc/align_fused.cu ROWS)
@@ -162,26 +162,27 @@ def constants(p) -> list:
     return c
 
 
-def _exp_neg(z):
-    """The kernel's exp(-z) in float32; the exact one for a float64
-    reference."""
-    return exp_neg(z) if z.dtype == torch.float32 else torch.exp(-z)
+def _exp_neg(z, fast):
+    """The kernel's exp(-z) in float32 (torch.exp for the hardware exp
+    when `fast`); the exact one for a float64 reference."""
+    return gram_exp(z, fast or z.dtype != torch.float32)
 
 
-def _gated(k, xp, xf, xm, yp, yf, ym, ell):
-    """(A, d2) of the gated Gram at `ell` (pallas_align.py:805-824)."""
+def _gated(k, xp, xf, xm, yp, yf, ym, ell, fast=False):
+    """(A, d2) of the gated Gram at `ell` (pallas_align.py:805-824), with
+    the hardware exp's counterpart torch.exp when `fast`."""
     d2 = pairwise_sqdist(xp, yp)
     if k[C_LINEAR]:
         ci = k[C_COLOR_SCALE] * (xf[:, None, 0] * yf[None, :, 0]
                                  + xf[:, None, 1] * yf[None, :, 1]
                                  + xf[:, None, 2] * yf[None, :, 2])
-        kmat = k[C_S2] * _exp_neg(d2 * (1.0 / (2.0 * ell * ell)))
+        kmat = k[C_S2] * _exp_neg(d2 * (1.0 / (2.0 * ell * ell)), fast)
         gate = ((kmat >= k[C_SP_THRES]) & (xm[:, None] > 0)
                 & (ym[None, :] > 0))
         return torch.where(gate, ci * kmat, 0.0), d2
     d2c = pairwise_sqdist(xf, yf)
-    ck = k[C_CS2] * _exp_neg(d2c * k[C_INV2CL2])
-    a = k[C_S2] * _exp_neg(d2 * (1.0 / (2.0 * ell * ell))) * ck
+    ck = k[C_CS2] * _exp_neg(d2c * k[C_INV2CL2], fast)
+    a = k[C_S2] * _exp_neg(d2 * (1.0 / (2.0 * ell * ell)), fast) * ck
     gate = ((d2 < k[C_THRES_C] * ell * ell) & (d2c < k[C_D2_C_THRES])
             & (a > k[C_SP_THRES]) & (xm[:, None] > 0) & (ym[None, :] > 0))
     return torch.where(gate, a, 0.0), d2
@@ -193,10 +194,10 @@ def _keep(md, ell, k, ti, tj):
     return keep.repeat_interleave(ti, 0).repeat_interleave(tj, 1)
 
 
-def _self_sums(k, cloud, pos, ell, md, counts=None):
+def _self_sums(k, cloud, pos, ell, md, counts=None, fast=False):
     """(sum A d2, nnz) of a self-Gram, the skip applied when md is set."""
     A, d2 = _gated(k, pos, cloud.features, cloud.mask, pos, cloud.features,
-                   cloud.mask, ell)
+                   cloud.mask, ell, fast)
     if md is not None:
         A = torch.where(_keep(md, ell, k, TILE_W, TILE_W), A, 0.0)
     if counts is not None:
@@ -280,6 +281,7 @@ def align_fused_plain(p, fixed: PointCloud, moving: PointCloud, R0=None,
     of two float32 results drifted."""
     mode = mode or fused_mode(p, fixed, moving)
     adaptive = isinstance(p, AcvoParams)
+    fast = fast_exp(p)
     k = constants(p)
     dev = fixed.positions.device
     if dtype != torch.float32:
@@ -313,7 +315,8 @@ def align_fused_plain(p, fixed: PointCloud, moving: PointCloud, R0=None,
         key = (name, float(ell))
         if key not in memo:
             tally = None if counts is None else {}
-            memo[key] = (*_self_sums(k, cloud, pos, ell, md, tally), tally)
+            memo[key] = (*_self_sums(k, cloud, pos, ell, md, tally, fast),
+                         tally)
         s_w, n_w, tally = memo[key]
         for kk, v in (tally or {}).items():
             _add(counts, kk, v)
@@ -323,7 +326,7 @@ def align_fused_plain(p, fixed: PointCloud, moving: PointCloud, R0=None,
         Rt, t_inv, ty = _transform(R, T, y0)
         tf = torch.cat([Rt, t_inv[:, None]], dim=1)
         A, d2 = _gated(k, x, fixed.features, fixed.mask, ty,
-                       moving.features, moving.mask, ell)
+                       moving.features, moving.mask, ell, fast)
         kept = A.numel()
         if skip:
             lo_y, hi_y = block_bounds(ty, moving.mask, TILE_J)
@@ -349,7 +352,8 @@ def align_fused_plain(p, fixed: PointCloud, moving: PointCloud, R0=None,
             if mode == "resident":
                 s_yy, n_yy = self_sums("y", moving, y0, md_yy)
             else:
-                s_yy, n_yy = _self_sums(k, moving, ty, ell, md_yy, counts)
+                s_yy, n_yy = _self_sums(k, moving, ty, ell, md_yy, counts,
+                                        fast)
             denom = n_xx + n_yy - 2.0 * n_xy
             denom = torch.where(denom == 0, 1.0, denom)
             dl = (s_yy - 2.0 * s_xy + s_xx) / (ell * ell * ell) / denom
@@ -600,7 +604,7 @@ def align_fused_batched_cuda(p, fixed: PointCloud, moving: PointCloud,
         ptr(xb), ptr(yb), ptr(md_xx), ptr(md_yy), consts.data_ptr(),
         init.data_ptr(),
         sched_t.data_ptr(), *(t.data_ptr() for t in scratch.values()),
-        n, m, len(sched), int(adaptive), b,
+        n, m, len(sched), int(adaptive), int(fast_exp(p)), b,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(name, err)

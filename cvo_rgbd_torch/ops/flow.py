@@ -41,6 +41,7 @@ from cvo_rgbd_torch.ops.gram import (
     stream_tickets,
 )
 from cvo_rgbd_torch.ops.moments import SKIP_MARGIN, pair_weights
+from cvo_rgbd_torch.params import fast_exp
 
 ROWS = 128     # fixed-cloud rows per work item (csrc/fused_flow.cu RB)
 TILE_J = 32    # moving-cloud columns per work item (csrc/fused_flow.cu TJ)
@@ -58,9 +59,9 @@ def tile_keep(xp, xm, yp, ym, scal):
     return md <= scal[S_D2_THRES] + SKIP_MARGIN
 
 
-def _gated(xp, xf, xm, yp, yf, ym, scal, ck, linear, keep):
+def _gated(xp, xf, xm, yp, yf, ym, scal, ck, linear, keep, fast):
     """The dense gated A, the tiles `keep` drops set to zero."""
-    A = pair_weights(xp, xf, xm, yp, yf, ym, scal, ck, linear)
+    A = pair_weights(xp, xf, xm, yp, yf, ym, scal, ck, linear, fast)
     if keep is None:
         return A
     keep = keep.repeat_interleave(ROWS, 0).repeat_interleave(TILE_J, 1)
@@ -68,12 +69,13 @@ def _gated(xp, xf, xm, yp, yf, ym, scal, ck, linear, keep):
 
 
 def fused_flow_plain(xp, xf, xm, yp, yf, ym, scal, ck=None, linear=False,
-                     keep=None):
+                     keep=None, fast=False):
     """Plain torch version of the flow kernel: the dense gated A (the
     tiles `keep` drops, if given, zeroed), then the difference-form
     residual per row over all of y.  Returns the kernel's [9] row:
-    omega*c 3, v*d 3, sum A d2, sum A, nnz."""
-    A = _gated(xp, xf, xm, yp, yf, ym, scal, ck, linear, keep)
+    omega*c 3, v*d 3, sum A d2, sum A, nnz.  `fast`: torch.exp in the
+    Gram (exp_mode="fast")."""
+    A = _gated(xp, xf, xm, yp, yf, ym, scal, ck, linear, keep, fast)
     row = torch.sum(A, dim=1)
     r = torch.stack([torch.sum(A * yp[None, :, k], dim=1) - row * xp[:, k]
                      for k in range(3)], dim=1)
@@ -101,12 +103,12 @@ def _vdot(a, b):
 
 
 def fused_step_coeffs_plain(xp, xf, xm, yp, yf, ym, scal, wv, ck=None,
-                            linear=False, keep=None):
+                            linear=False, keep=None, fast=False):
     """Plain torch version of the step kernel on the dense gated A (as
     `fused_flow_plain`), the fields of each column and of each pair in
     the kernel's (the JAX kernel's) operation order.  `wv` is [omega 3,
     v 3]; returns [B, C, D, E]."""
-    A = _gated(xp, xf, xm, yp, yf, ym, scal, ck, linear, keep)
+    A = _gated(xp, xf, xm, yp, yf, ym, scal, ck, linear, keep, fast)
     w, v = wv[:3], wv[3:6]
     xiz = _wcross(w, yp) + v
     xi2z = _wcross(w, xiz)
@@ -163,10 +165,11 @@ def fused_flow(xp, xf, xm, yp, yf, ym, ell, ck=None, *, p):
     scal, linear = _checked("fused_flow", xp, xf, xm, yp, yf, ym, ell, ck,
                             p)
     if xp.device.type == "cpu":
-        out = fused_flow_plain(xp, xf, xm, yp, yf, ym, scal, ck, linear)
+        out = fused_flow_plain(xp, xf, xm, yp, yf, ym, scal, ck, linear,
+                               fast=fast_exp(p))
     else:
         out = fused_flow_cuda(xp, xf, xm, yp, yf, ym, scal, ck, linear,
-                              skip=p.tile_skip)
+                              skip=p.tile_skip, fast=fast_exp(p))
     return out[0:3] / p.c, out[3:6] / p.d, out[6], out[8], out[7]
 
 
@@ -177,10 +180,11 @@ def fused_step_coeffs(xp, xf, xm, yp, yf, ym, ell, omega, v, ck=None, *, p):
     wv = torch.cat([omega.reshape(3), v.reshape(3)]).to(torch.float32)
     if xp.device.type == "cpu":
         out = fused_step_coeffs_plain(xp, xf, xm, yp, yf, ym, scal, wv, ck,
-                                      linear)
+                                      linear, fast=fast_exp(p))
     else:
         out = fused_step_coeffs_cuda(xp, xf, xm, yp, yf, ym, scal, wv, ck,
-                                     linear, skip=p.tile_skip)
+                                     linear, skip=p.tile_skip,
+                                     fast=fast_exp(p))
     return out[0], out[1], out[2], out[3]
 
 
@@ -208,9 +212,10 @@ def _ptr(t):
 
 
 def fused_flow_cuda(xp, xf, xm, yp, yf, ym, scal, ck=None, linear=False,
-                    skip=True, timed=False):
+                    skip=True, timed=False, fast=False):
     """Launch the flow kernel on CUDA tensors (shapes checked by
-    `fused_flow`), with the tile skip when `skip`; returns its [9] row
+    `fused_flow`), with the tile skip when `skip` and the hardware exp
+    when `fast`; returns its [9] row
     and counts one launch in `fused_flow.launches`.  `timed` launches the
     timing tool's build, whose per-block marks `flow_marks` reads."""
     opt = (ck,) if ck is not None else ()
@@ -221,7 +226,7 @@ def fused_flow_cuda(xp, xf, xm, yp, yf, ym, scal, ck=None, linear=False,
         xp.data_ptr(), xf.data_ptr(), xm.data_ptr(), yp.data_ptr(),
         yf.data_ptr(), ym.data_ptr(), _ptr(ck), scal.data_ptr(),
         part.data_ptr(), cnt.data_ptr(), ticket.data_ptr(), out.data_ptr(),
-        n, m, int(skip), int(linear), stream,
+        n, m, int(skip), int(linear), int(fast), stream,
     )
     _build.check("fused_flow", err)
     fused_flow.launches += 1
@@ -229,11 +234,11 @@ def fused_flow_cuda(xp, xf, xm, yp, yf, ym, scal, ck=None, linear=False,
 
 
 def fused_step_coeffs_cuda(xp, xf, xm, yp, yf, ym, scal, wv, ck=None,
-                           linear=False, skip=True, timed=False):
+                           linear=False, skip=True, timed=False, fast=False):
     """Launch the step kernel on CUDA tensors (shapes checked by
     `fused_step_coeffs`), with the tile skip when `skip`; returns [B, C,
     D, E] and counts one launch in `fused_step_coeffs.launches`.  `timed`
-    as in `fused_flow_cuda`."""
+    and `fast` as in `fused_flow_cuda`."""
     opt = (ck,) if ck is not None else ()
     dev, n, m, part, cnt, ticket, stream = _launch_scratch(
         "fused_step_coeffs", (xp, xf, xm, yp, yf, ym, scal, wv) + opt, ck, 4)
@@ -242,7 +247,7 @@ def fused_step_coeffs_cuda(xp, xf, xm, yp, yf, ym, scal, wv, ck=None,
         xp.data_ptr(), xf.data_ptr(), xm.data_ptr(), yp.data_ptr(),
         yf.data_ptr(), ym.data_ptr(), _ptr(ck), scal.data_ptr(),
         wv.data_ptr(), part.data_ptr(), cnt.data_ptr(), ticket.data_ptr(),
-        out.data_ptr(), n, m, int(skip), int(linear), stream,
+        out.data_ptr(), n, m, int(skip), int(linear), int(fast), stream,
     )
     _build.check("fused_step_coeffs", err)
     fused_step_coeffs.launches += 1

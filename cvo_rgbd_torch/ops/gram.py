@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from cvo_rgbd_torch.core.numerics import exp_neg
+from cvo_rgbd_torch.core.numerics import gram_exp
 from cvo_rgbd_torch.ops import _build
 
 NFEAT = 5
@@ -50,15 +50,15 @@ def scalars(ell: torch.Tensor, p) -> torch.Tensor:
     ), dim=-1)
 
 
-def color_terms(fx, fy, scal):
-    """(cs2 * exp_neg(d2c / 2c_ell^2), d2c) of broadcastable feature rows
+def color_terms(fx, fy, scal, fast=False):
+    """(cs2 * exp(-d2c / 2c_ell^2), d2c) of broadcastable feature rows
     [..., 5]: the color half of the reference Gram (cvo.cpp:143-153),
-    features summed in order."""
+    features summed in order; exp_neg, or torch.exp when `fast`."""
     d2c = None
     for c in range(NFEAT):
         d = fx[..., c] - fy[..., c]
         d2c = d * d if d2c is None else d2c + d * d
-    return scal[S_CS2] * exp_neg(d2c * scal[S_INV_2CL2]), d2c
+    return scal[S_CS2] * gram_exp(d2c * scal[S_INV_2CL2], fast), d2c
 
 
 def color_gram_plain(xf, xm, yf, ym, scal):

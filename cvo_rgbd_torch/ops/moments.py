@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from cvo_rgbd_torch.core.gram import pairwise_sqdist
-from cvo_rgbd_torch.core.numerics import exp_neg
+from cvo_rgbd_torch.core.numerics import gram_exp
 from cvo_rgbd_torch.core.step_factored import NUM_MONO
 from cvo_rgbd_torch.ops import _build
 from cvo_rgbd_torch.ops.gram import (
@@ -38,6 +38,7 @@ from cvo_rgbd_torch.ops.gram import (
     linear_mode,
     scalars,
 )
+from cvo_rgbd_torch.params import fast_exp
 
 TILE_I = 64    # fixed-cloud rows per kernel tile (csrc/moment_tile.cuh TI)
 TILE_J = 128   # moving-cloud rows per kernel block (csrc/moment_tile.cuh TJ)
@@ -47,14 +48,17 @@ TILE_J = 128   # moving-cloud rows per kernel block (csrc/moment_tile.cuh TJ)
 SKIP_MARGIN = 1e-5
 
 
-def pair_weights(xp, xf, xm, yp, yf, ym, scal, ck=None, linear=False):
+def pair_weights(xp, xf, xm, yp, yf, ym, scal, ck=None, linear=False,
+                 fast=False):
     """The gated [N,M] Gram A (port of pallas_gram.py:_pair_tile),
     per-component d2 in difference form.  The exponentials are taken
     only where the position gate can pass: every other entry is zero in
     any case, and the values kept are the same bits.  In linear mode (ck
     the masked ci) the gate is k >= sp_thres alone, which a pair a hair
     beyond d2_thres can pass in fp32, so k is taken out to d2_thres +
-    SKIP_MARGIN, where it is far below sp_thres."""
+    SKIP_MARGIN, where it is far below sp_thres.  `fast` takes
+    torch.exp(-z) for every exponential of a pair (exp_mode="fast", the
+    JAX package's jnp.exp)."""
     d2 = pairwise_sqdist(xp, yp)
     if linear:
         near = d2 <= scal[S_D2_THRES] + SKIP_MARGIN
@@ -62,7 +66,7 @@ def pair_weights(xp, xf, xm, yp, yf, ym, scal, ck=None, linear=False):
         near = d2 < scal[S_D2_THRES]
     ii, jj = near.nonzero(as_tuple=True)
     d2n = d2[ii, jj]
-    k = scal[S_S2] * exp_neg(d2n * scal[S_INV_2L2])
+    k = scal[S_S2] * gram_exp(d2n * scal[S_INV_2L2], fast)
     if linear:
         a = ck[ii, jj] * k
         gate = k >= scal[S_SP_THRES]
@@ -70,7 +74,7 @@ def pair_weights(xp, xf, xm, yp, yf, ym, scal, ck=None, linear=False):
         a = k * ck[ii, jj]
         gate = a > scal[S_SP_THRES]
     else:
-        ckv, d2c = color_terms(xf[ii], yf[jj], scal)
+        ckv, d2c = color_terms(xf[ii], yf[jj], scal, fast)
         a = k * ckv
         gate = (
             (d2c < scal[S_D2_C_THRES])
@@ -83,11 +87,42 @@ def pair_weights(xp, xf, xm, yp, yf, ym, scal, ck=None, linear=False):
     return A
 
 
+# relative band about sp_thres inside which the kernels' hardware exp
+# (__expf, a few ulp) and the plain version's torch.exp may decide the
+# sparsity gate differently: ten times their combined error
+# (csrc/pair_tile.cuh)
+GATE_BAND = 1e-5
+
+
+def near_gate_pairs(xp, xf, xm, yp, yf, ym, scal, ck=None, linear=False):
+    """How many pairs pass every gate but the sparsity one and hold its
+    value (a, or k in linear mode, with torch.exp) within GATE_BAND of
+    sp_thres, relative: the pairs whose gate another exp may flip.  In
+    fast mode a kernel's nnz may differ from its plain version's by at
+    most this count."""
+    d2 = pairwise_sqdist(xp, yp)
+    k = scal[S_S2] * torch.exp(-d2 * scal[S_INV_2L2])
+    if linear:
+        g = k
+        other = ck != 0
+    else:
+        if ck is None:
+            ck, d2c = color_terms(xf[:, None, :], yf[None, :, :], scal, True)
+            other = ((d2c < scal[S_D2_C_THRES]) & (xm[:, None] > 0)
+                     & (ym[None, :] > 0))
+        else:
+            other = ck > 0
+        g = k * ck
+        other = other & (d2 < scal[S_D2_THRES])
+    near = (g / scal[S_SP_THRES] - 1.0).abs() <= GATE_BAND
+    return int((near & other).sum())
+
+
 def fused_moments_plain(xp, xf, xm, yp, yf, ym, phi, scal, ck=None,
-                        min_d2=None, linear=False):
+                        min_d2=None, linear=False, fast=False):
     """Plain torch version of the kernel: the dense gated A, tiles the
     bound rules out set to zero, then A^T Phi and the nonzero count."""
-    A = pair_weights(xp, xf, xm, yp, yf, ym, scal, ck, linear)
+    A = pair_weights(xp, xf, xm, yp, yf, ym, scal, ck, linear, fast)
     if min_d2 is not None:
         keep = min_d2 <= scal[S_D2_THRES] + SKIP_MARGIN
         keep = keep.repeat_interleave(TILE_I, 0).repeat_interleave(TILE_J, 1)
@@ -136,15 +171,15 @@ def fused_moments(xp, xf, xm, yp, yf, ym, phi, ell, ck=None, min_d2=None,
     scal = scalars(ell, p)
     if dev.type == "cpu":
         return fused_moments_plain(xp, xf, xm, yp, yf, ym, phi, scal, ck,
-                                   min_d2, linear)
+                                   min_d2, linear, fast_exp(p))
     if dev.type != "cuda":
         raise ValueError(f"fused_moments: unsupported device {dev}")
     return fused_moments_cuda(xp, xf, xm, yp, yf, ym, phi, scal, ck, min_d2,
-                              linear)
+                              linear, fast_exp(p))
 
 
 def fused_moments_cuda(xp, xf, xm, yp, yf, ym, phi, scal, ck=None,
-                       min_d2=None, linear=False):
+                       min_d2=None, linear=False, fast=False):
     """Launch csrc/fused_moments.cu on CUDA tensors (shapes checked by
     `fused_moments`); counts one launch in `fused_moments.launches`."""
     dev = xp.device
@@ -167,7 +202,7 @@ def fused_moments_cuda(xp, xf, xm, yp, yf, ym, phi, scal, ck=None,
         None if ck is None else ck.data_ptr(),
         None if min_d2 is None else min_d2.data_ptr(),
         scal.data_ptr(), part.data_ptr(), cnt_part.data_ptr(),
-        mom.data_ptr(), nnz.data_ptr(), n, m, int(linear),
+        mom.data_ptr(), nnz.data_ptr(), n, m, int(linear), int(fast),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check("fused_moments", err)

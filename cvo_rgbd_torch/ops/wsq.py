@@ -43,6 +43,7 @@ from cvo_rgbd_torch.ops.gram import (
     stream_tickets,
 )
 from cvo_rgbd_torch.ops.moments import SKIP_MARGIN, pair_weights
+from cvo_rgbd_torch.params import fast_exp
 
 TILE_W = 64   # square tile of the self-sweep (csrc/fused_wsq.cu TW)
 MAX_SWEEPS = 32   # sweeps a launch (csrc/fused_wsq.cu MAX_SWEEPS)
@@ -122,12 +123,13 @@ def kept_mask(tiles: TileOrder, thr):
     return full | full.T
 
 
-def fused_wsq_plain(xp, xf, xm, yp, yf, ym, scal, ck=None, min_d2=None):
+def fused_wsq_plain(xp, xf, xm, yp, yf, ym, scal, ck=None, min_d2=None,
+                    fast=False):
     """Plain torch version of the kernel: the dense gated A, tiles the
     bound rules out set to zero, then sum(A * d2) and the nonzero count,
     over the full [N, M] sweep.  `min_d2` a bound matrix or a
     TileOrder (whose prefix keeps the same tiles)."""
-    A = pair_weights(xp, xf, xm, yp, yf, ym, scal, ck)
+    A = pair_weights(xp, xf, xm, yp, yf, ym, scal, ck, fast=fast)
     if min_d2 is not None:
         thr = scal[S_D2_THRES] + SKIP_MARGIN
         if isinstance(min_d2, TileOrder):
@@ -175,9 +177,10 @@ def fused_wsq(xp, xf, xm, yp, yf, ym, ell, ck=None, min_d2=None, *, p,
     _check_sweep((xp, xf, xm), (yp, yf, ym), ck, min_d2, symmetric)
     scal = scalars(ell, p)
     if xp.device.type == "cpu":
-        return fused_wsq_plain(xp, xf, xm, yp, yf, ym, scal, ck, min_d2)
+        return fused_wsq_plain(xp, xf, xm, yp, yf, ym, scal, ck, min_d2,
+                               fast_exp(p))
     return fused_wsq_cuda(xp, xf, xm, yp, yf, ym, scal, ck, min_d2,
-                          symmetric=symmetric)
+                          symmetric=symmetric, fast=fast_exp(p))
 
 
 def fused_wsq_sweeps(sweeps, ell, *, p):
@@ -189,15 +192,15 @@ def fused_wsq_sweeps(sweeps, ell, *, p):
     scal = scalars(ell, p)
     if sweeps[0].x[0].device.type == "cpu":
         outs = [fused_wsq_plain(*sw.x, *sw.y, scal if scal.dim() == 1
-                                else scal[k], sw.ck, sw.tiles)
+                                else scal[k], sw.ck, sw.tiles, fast_exp(p))
                 for k, sw in enumerate(sweeps)]
         return (torch.stack([w for w, _ in outs]),
                 torch.stack([n for _, n in outs]))
-    return fused_wsq_sweeps_cuda(sweeps, scal)
+    return fused_wsq_sweeps_cuda(sweeps, scal, fast_exp(p))
 
 
 def fused_wsq_cuda(xp, xf, xm, yp, yf, ym, scal, ck=None, min_d2=None, *,
-                   symmetric=False):
+                   symmetric=False, fast=False):
     """Launch csrc/fused_wsq.cu on CUDA tensors (shapes checked by
     `fused_wsq`) for one sweep; `min_d2` a bound matrix (sorted here)
     or its TileOrder.  Counts one launch in `fused_wsq.launches`."""
@@ -205,7 +208,8 @@ def fused_wsq_cuda(xp, xf, xm, yp, yf, ym, scal, ck=None, min_d2=None, *,
     if min_d2 is not None and not isinstance(min_d2, TileOrder):
         tiles = tile_order(min_d2, symmetric)
     w, n = fused_wsq_sweeps_cuda(
-        [Sweep((xp, xf, xm), (yp, yf, ym), ck, tiles, symmetric)], scal)
+        [Sweep((xp, xf, xm), (yp, yf, ym), ck, tiles, symmetric)], scal,
+        fast)
     return w[0], n[0]
 
 
@@ -229,12 +233,12 @@ def _swept_tiles(sw):
     return nb_i * (nb_i + 1) // 2 if sw.symmetric else nb_i * nb_j
 
 
-def fused_wsq_sweeps_cuda(sweeps, scal):
+def fused_wsq_sweeps_cuda(sweeps, scal, fast=False):
     """Launch csrc/fused_wsq.cu on CUDA tensors for S sweeps (shapes
     checked by `fused_wsq_sweeps`): one launch for every MAX_SWEEPS of
     them, each counted in `fused_wsq.launches`.  `scal` one [8] row for
     every sweep or [S, 8].  Every sweep has a color cache, or none
-    has."""
+    has.  `fast` launches the hardware-exp form (exp_mode="fast")."""
     dev = sweeps[0].x[0].device
     use_ck = sweeps[0].ck is not None
     if any((sw.ck is not None) != use_ck for sw in sweeps):
@@ -277,8 +281,8 @@ def fused_wsq_sweeps_cuda(sweeps, scal):
             part0 += tiles[s]
         blocks = min(sum(tiles[s0:s0 + MAX_SWEEPS]), sms * BLOCKS_PER_SM)
         err = launch(ctypes.addressof(args), len(chunk), part.data_ptr(),
-                     cnt.data_ptr(), tickets.data_ptr(), int(use_ck), blocks,
-                     stream)
+                     cnt.data_ptr(), tickets.data_ptr(), int(use_ck),
+                     int(fast), blocks, stream)
         _build.check("fused_wsq", err)
         fused_wsq.launches += 1
     return out[:, 0], out[:, 1]

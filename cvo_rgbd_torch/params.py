@@ -54,7 +54,9 @@ class CvoParams:
     # -- on the kernel backend the two sweeps fused_flow, fused_step_coeffs
     step_mode: str = "factored"
     # "precise": the accurate exp_neg of core/numerics.py, required for
-    # the C++ stops; "fast" (hardware exp) is not ported yet
+    # the C++ stops; "fast": the hardware exp (__expf in the kernels,
+    # torch.exp in the plain versions), which converges at the MATLAB
+    # stops 5e-4/1e-4 only
     exp_mode: str = "precise"
     # kernel backend: exact AABB tile skip (cvo.cpp:119-125 kd-tree
     # radius pruning at tile granularity)
@@ -109,6 +111,11 @@ class AcvoParams:
 # no color_scale field, so its linear acvo stops on the missing field
 # (ROADMAP queue 3); the port takes cvo's reference value (cvo.cpp:30).
 ACVO_COLOR_SCALE = 1e-5
+
+
+def fast_exp(p) -> bool:
+    """True when the Gram takes the hardware exp (exp_mode="fast")."""
+    return p.exp_mode == "fast"
 
 
 def color_scale(p) -> float:

@@ -71,6 +71,24 @@ def revisit_path(n_frames, period=40, yaw_amp_deg=3.0, pitch_amp_deg=0.5,
     return CameraPath(yaw=yaw, pitch=pitch, offset=offset)
 
 
+def depth_loop_path(n_frames, period=30, depth_amp_m=0.3, trans_amp_m=0.04,
+                    yaw_amp_deg=2.0, pitch_amp_deg=0.5):
+    """Periodic path that moves along the optical axis and back, pose(i +
+    period) == pose(i).  Over the banded world a frame's overlap with a
+    keyframe falls with the depth change (motion along the bands keeps
+    it), so keyframe SLAM promotes keyframes every ~0.15 m of depth and
+    closes loops where the path comes back."""
+    ph = 2 * np.pi * np.arange(n_frames) / period
+    yaw = np.deg2rad(yaw_amp_deg) * np.sin(ph)
+    pitch = np.deg2rad(pitch_amp_deg) * np.sin(ph + np.pi / 4)
+    offset = np.stack(
+        [trans_amp_m * np.sin(ph + np.pi / 3),
+         0.3 * trans_amp_m * np.sin(ph + 2 * np.pi / 3),
+         depth_amp_m * np.sin(ph)], axis=-1,
+    )
+    return CameraPath(yaw=yaw, pitch=pitch, offset=offset)
+
+
 class BandScene:
     """The banded-depth world + ray-traced renderer."""
 

@@ -76,6 +76,15 @@ prints instead, for the resident cvo kernel of a built library (by
 default this package's `_build/libalign_fused.so`), each innermost loop
 of its machine code (`cuobjdump -sass`) with its instruction count and
 its shared-memory loads: the Gram sweeps' cost a pair.
+
+    python -m cvo_rgbd_torch.time_fused --resources [NAME ...]
+
+builds the named libraries of `csrc/` (by default the four with an
+exp_mode="fast" form) and prints one JSON line per kernel function:
+its template arguments, registers, stack frame, SASS instructions,
+MUFU.EX2 count and innermost loop sizes, so that a kernel's precise and
+fast instantiations can be read side by side.  It needs no card, only
+the CUDA toolkit.
 """
 
 from __future__ import annotations
@@ -143,15 +152,18 @@ def profiled(fn):
     return kern / REPEATS, other / REPEATS, launches / REPEATS
 
 
-def sass_loops(lib, kernel="align_kernelILb1ELb0E"):
-    """[(start, end, instructions, shared loads)] of each innermost loop
-    (a backward branch enclosing no other) of `kernel` in `lib`."""
+def _cuobjdump():
     from cvo_rgbd_torch.ops import _build
 
     # beside nvcc in the toolkit
-    cuobjdump = shutil.which("cuobjdump") or os.path.join(
+    return shutil.which("cuobjdump") or os.path.join(
         os.path.dirname(_build._nvcc()), "cuobjdump")
-    text = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
+
+
+def sass_functions(lib):
+    """{mangled function name: [(address, instruction)]} of `lib`'s
+    machine code."""
+    text = subprocess.run([_cuobjdump(), "-sass", lib], capture_output=True,
                           text=True, check=True, timeout=300).stdout
     funcs, cur = collections.defaultdict(list), None
     for line in text.splitlines():
@@ -162,7 +174,12 @@ def sass_loops(lib, kernel="align_kernelILb1ELb0E"):
         m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
         if m and cur is not None:
             funcs[cur].append((int(m.group(1), 16), m.group(2)))
-    (ins,) = [v for k, v in funcs.items() if kernel in k]
+    return funcs
+
+
+def innermost_loops(ins):
+    """[(start, end, instructions, shared loads)] of each innermost loop
+    (a backward branch enclosing no other) of one function's `ins`."""
     index = {a: i for i, (a, _) in enumerate(ins)}
     loops = []
     for i, (a, txt) in enumerate(ins):
@@ -177,6 +194,48 @@ def sass_loops(lib, kernel="align_kernelILb1ELb0E"):
         out.append((ins[s][0], ins[e][0], len(body),
                     sum("LDS" in t for t in body)))
     return sorted(out)
+
+
+def sass_loops(lib, kernel="align_kernelILb1ELb0E"):
+    """innermost_loops of the one function of `lib` whose mangled name
+    holds `kernel`."""
+    (ins,) = [v for k, v in sass_functions(lib).items() if kernel in k]
+    return innermost_loops(ins)
+
+
+def resources(libs):
+    """One JSON line per kernel function of each library: its template
+    arguments (demangled), registers and stack frame (`cuobjdump
+    --dump-resource-usage`), SASS instructions, MUFU.EX2 (the SFU
+    exponential `__expf` compiles to) and its innermost loops' sizes.  A
+    kernel's precise and fast forms are its instantiations with FAST
+    false and true."""
+    for lib in libs:
+        usage = subprocess.run([_cuobjdump(), "--dump-resource-usage", lib],
+                               capture_output=True, text=True, check=True,
+                               timeout=300).stdout
+        regs = {name: (int(reg), int(stack)) for name, reg, stack in
+                re.findall(r"Function ([^\s:]+):\s+REG:(\d+)\s+STACK:(\d+)",
+                           usage)}
+        funcs = sass_functions(lib)
+        names = sorted(funcs)
+        filt = shutil.which("cu++filt") or os.path.join(
+            os.path.dirname(_cuobjdump()), "cu++filt")
+        pretty = subprocess.run([filt], input="\n".join(names),
+                                capture_output=True, text=True, check=True,
+                                timeout=60).stdout.splitlines()
+        for name, shown in zip(names, pretty):
+            ins = funcs[name]
+            reg, stack = regs.get(name, (None, None))
+            print(json.dumps({
+                "library": os.path.basename(lib),
+                # the name and template arguments, not the parameters
+                "function": shown[:shown.rindex(">(") + 1] if ">(" in shown
+                else shown.split("(")[0], "registers": reg,
+                "stack_bytes": stack, "instructions": len(ins),
+                "mufu_ex2": sum("MUFU.EX2" in t for _, t in ins),
+                "innermost_loops": [n for _, _, n, _ in
+                                    innermost_loops(ins)]}), flush=True)
 
 
 def card_line():
@@ -759,6 +818,14 @@ def main(argv=None):
     import torch
 
     argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--resources"]:
+        from cvo_rgbd_torch.ops import _build
+
+        names = argv[1:] or ["fused_moments", "fused_wsq", "fused_flow",
+                             "align_fused"]
+        _build.build(names)
+        resources([str(_build.BUILD / f"lib{n}.so") for n in names])
+        return 0
     if argv[:1] == ["--sass"]:
         from cvo_rgbd_torch.ops import _build
 

@@ -89,16 +89,6 @@ def test_empty_moving_cloud_converges_at_iteration_zero():
     assert torch.isfinite(res.tf).all()
 
 
-@pytest.mark.parametrize("params", [
-    ct.AcvoParams(exp_mode="fast"),
-    ct.CvoParams(exp_mode="fast"),
-])
-def test_unported_configurations_raise(params):
-    x, y = _pair(5, 100, 128)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ct.align(params, _port(x), _port(y), device="cpu")
-
-
 @pytest.mark.parametrize("params,match", [
     (ct.AcvoParams(yy_quirk=True), "yy_quirk"),
     (ct.AcvoParams(color_mode="linear"), "linear"),

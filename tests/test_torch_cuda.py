@@ -925,3 +925,353 @@ def test_color_gram_of_a_self_pair_is_exactly_symmetric(dev):
     for x in map(kd_sort, _rendered_pair(dev, num_want=3000)):
         ck = gram.color_gram(*x, *x, p=AcvoParams())
         assert torch.equal(ck, ck.T)
+
+
+# ---- exp_mode="fast": the kernels' __expf forms against their plain
+# versions on torch.exp.  Values within the precise checks' tolerances;
+# nnz off by at most the pairs whose gate value lies within GATE_BAND of
+# sp_thres (ops.moments.near_gate_pairs), where the two exps may disagree.
+
+def _fast(p):
+    import dataclasses
+
+    return dataclasses.replace(p, exp_mode="fast")
+
+
+@pytest.mark.parametrize("ell", [0.1, 0.03])
+@pytest.mark.parametrize("mode", ["se", "se_ck", "linear"])
+def test_fast_fused_moments_kernel_matches_plain(dev, mode, ell):
+    from cvo_rgbd_torch.core.cloud import aabb_min_d2, block_bounds
+    from cvo_rgbd_torch.core.registration import build_moments_pre
+    from cvo_rgbd_torch.ops import gram, moments
+
+    x, y, ck, p = _flow_inputs(dev, mode)
+    p = _fast(p)
+    linear = mode == "linear"
+    c0, xc, phi = build_moments_pre(x)
+    yc = y.positions - c0
+    md = aabb_min_d2(*block_bounds(x.positions, x.mask, moments.TILE_I),
+                     *block_bounds(y.positions, y.mask, moments.TILE_J))
+    ell_t = torch.full((), ell, device=dev)
+    scal = gram.scalars(ell_t, p)
+    cloud_args = (xc, x.features, x.mask, yc, y.features, y.mask)
+    ref, ref_nnz = moments.fused_moments_plain(
+        *cloud_args, phi, scal, ck, None, linear, fast=True)
+    near = moments.near_gate_pairs(*cloud_args, scal, ck, linear)
+    out = {}
+    for skip in (None, md):
+        launches = moments.fused_moments.launches
+        mom, nnz = moments.fused_moments(*cloud_args, phi, ell_t, ck, skip,
+                                         p=p)
+        assert moments.fused_moments.launches == launches + 1
+        out[skip is None] = (mom, float(nnz))
+        scale = ref.abs().amax(dim=0).clamp_min(1e-30)
+        assert ((mom - ref).abs() / scale).max().item() <= 1e-4
+        assert abs(float(nnz) - float(ref_nnz)) <= near and float(nnz) > 0
+    # the skip drops only zero tiles under __expf too
+    assert torch.equal(out[True][0], out[False][0])
+    assert out[True][1] == out[False][1]
+
+
+@pytest.mark.parametrize("use_ck", [True, False])
+def test_fast_fused_wsq_kernel_matches_plain(dev, use_ck):
+    from cvo_rgbd_torch.core.cloud import kd_sort
+    from cvo_rgbd_torch.ops import gram, moments, wsq
+    from cvo_rgbd_torch.params import AcvoParams
+
+    p = _fast(AcvoParams())
+    ins = [_self_sweep_inputs(dev, x, p, use_ck)
+           for x in map(kd_sort, _rendered_pair(dev))]
+    for ell in (0.1, 0.0391):
+        ell_t = torch.full((), ell, device=dev)
+        scal = gram.scalars(ell_t, p)
+        sweeps = [wsq.Sweep(tuple(x), tuple(x), ck, t, True)
+                  for x, ck, _, t in ins]
+        w2, n2 = wsq.fused_wsq_sweeps(sweeps, ell_t, p=p)
+        for k, (x, ck, md, t) in enumerate(ins):
+            ref_w, ref_n = wsq.fused_wsq_plain(*x, *x, scal, ck, fast=True)
+            near = moments.near_gate_pairs(*x, *x, scal, ck)
+            bits = set()
+            for skip in (None, md, t):
+                w, n = wsq.fused_wsq(*x, *x, ell_t, ck, skip, p=p,
+                                     symmetric=True)
+                assert abs(float(w) - float(ref_w)) <= 1e-4 * float(ref_w)
+                assert abs(float(n) - float(ref_n)) <= near and float(n) > 0
+                bits.add((float(w), float(n)))
+            bits.add((float(w2[k]), float(n2[k])))
+            assert len(bits) == 1, bits
+
+
+@pytest.mark.parametrize("ell", [0.1, 0.03])
+@pytest.mark.parametrize("mode", ["se", "se_ck", "linear"])
+def test_fast_flow_sweeps_match_plain_and_skip_exactly(dev, mode, ell):
+    from cvo_rgbd_torch.ops import flow, gram, moments
+
+    x, y, ck, p = _flow_inputs(dev, mode)
+    linear = mode == "linear"
+    scal = gram.scalars(torch.full((), ell, device=dev), p)
+    near = moments.near_gate_pairs(*x, *y, scal, ck, linear)
+    ref = flow.fused_flow_plain(*x, *y, scal, ck, linear, fast=True)
+    wv = torch.cat([ref[0:3] / p.c, ref[3:6] / p.d])
+    ref_s = flow.fused_step_coeffs_plain(*x, *y, scal, wv, ck, linear,
+                                         fast=True)
+    runs = []
+    for skip in (True, False, True):
+        out = flow.fused_flow_cuda(*x, *y, scal, ck, linear, skip=skip,
+                                   fast=True)
+        step = flow.fused_step_coeffs_cuda(*x, *y, scal, wv, ck, linear,
+                                           skip=skip, fast=True)
+        assert abs(out[8].item() - ref[8].item()) <= near
+        for sl in (slice(0, 3), slice(3, 6), slice(6, 7), slice(7, 8)):
+            assert _close(out[sl], ref[sl]), (sl, out, ref)
+        for q in range(4):
+            assert _close(step[q], ref_s[q]), (q, step, ref_s)
+        runs.append((out, step))
+    for a, b in zip(runs[0], runs[1]):
+        assert torch.equal(_bits(a), _bits(b))
+    for a, b in zip(runs[0], runs[2]):
+        assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.parametrize("mode", ["se", "se_ck", "linear", "wsq_ck", "wsq"])
+def test_fast_forms_differ_on_one_pair(dev, mode):
+    """Each fast instantiation takes __expf.  A real sweep's one-float sum
+    may round to the same bits under both exps, so each kernel runs on
+    one valid pair (two points of one cloud for the self-sweep) whose
+    position exp takes z in [42, 72], the gate opened (d2_thres 2,
+    sp_thres 0): there __expf is up to tens of ulps from exp_neg, and
+    fast and precise must part at some z."""
+    from cvo_rgbd_torch.core.cloud import PointCloud
+    from cvo_rgbd_torch.core.registration import build_moments_pre
+    from cvo_rgbd_torch.ops import flow, gram, moments, wsq
+    from cvo_rgbd_torch.params import MATLAB_PARAMS, CvoParams
+
+    cap = 128
+    pos = torch.zeros(cap, 3, device=dev)
+    pos[:, 0] = 100.0 + 10.0 * torch.arange(cap, device=dev)
+    pos[:2] = torch.tensor([[0.3, -0.2, 1.5], [0.3, 0.8, 1.5]], device=dev)
+    feat = torch.full((cap, 5), 0.5, device=dev)
+    valid = 2 if mode.startswith("wsq") else 1
+    x = PointCloud(pos, feat, (torch.arange(cap, device=dev) < valid).float())
+    y = x._replace(positions=pos + torch.tensor([1.0, 0.0, 0.0], device=dev))
+    ck = None
+    if mode in ("se_ck", "linear", "wsq_ck"):
+        ck = torch.zeros(cap, cap, device=dev)
+        ck[:valid, :valid] = 1.0
+    p = MATLAB_PARAMS if mode == "linear" else CvoParams()
+    linear = mode == "linear"
+    c0, xc, phi = build_moments_pre(x)
+    wv = torch.tensor([0.1, -0.2, 0.3, 0.05, 0.1, -0.1], device=dev)
+    base = gram.scalars(torch.full((), 0.1, device=dev), p)
+
+    def launches(r, fast):
+        if mode.startswith("wsq"):
+            return wsq.fused_wsq_cuda(*x, *x, r, ck, None, symmetric=True,
+                                      fast=fast)
+        return (*moments.fused_moments_cuda(
+            xc, x.features, x.mask, y.positions - c0, y.features, y.mask,
+            phi, r, ck, None, linear, fast=fast),
+            flow.fused_flow_cuda(*x, *y, r, ck, linear, skip=False,
+                                 fast=fast),
+            flow.fused_step_coeffs_cuda(*x, *y, r, wv, ck, linear,
+                                        skip=False, fast=fast))
+
+    differ = []
+    for z in range(42, 74, 2):
+        r = base.clone()
+        r[gram.S_INV_2L2], r[gram.S_D2_THRES], r[gram.S_SP_THRES] = z, 2, 0
+        fast, precise = launches(r, True), launches(r, False)
+        assert float(precise[0].abs().max()) > 0
+        # each output of each kernel on its own
+        differ.append([not torch.equal(_bits(a), _bits(b))
+                       for a, b in zip(fast, precise)])
+    outputs = [0] if mode.startswith("wsq") else [0, 2, 3]
+    for k in outputs:
+        assert any(d[k] for d in differ), (k, differ)
+
+
+@pytest.mark.parametrize("max_iter", [1, 10])
+@pytest.mark.parametrize("mode", ["resident", "tiled"])
+@pytest.mark.parametrize("algo", ["cvo", "acvo", "linear"])
+def test_fast_align_fused_kernel_matches_plain(dev, algo, mode, max_iter):
+    import dataclasses
+
+    import cvo_rgbd_torch as ct
+    from cvo_rgbd_torch.ops.align_fused import (
+        align_fused_cuda,
+        align_fused_plain,
+        fused_mode,
+    )
+
+    if algo == "linear":
+        cap = 1024 if mode == "resident" else 1152
+        x, y, _ = _linear_clouds(dev, n=cap - 24, cap=cap, seed=6)
+        x, y = _padded(x), _padded(y)
+        p = ct.MATLAB_PARAMS
+    else:
+        x, y = _fused_pair(dev, algo, mode)
+        p = ct.CvoParams() if algo == "cvo" else ct.AcvoParams()
+    p = dataclasses.replace(p, backend="fused", max_iter=max_iter, eps=0.0,
+                            eps_2=0.0, exp_mode="fast")
+    assert fused_mode(p, x, y) == mode
+    row = align_fused_cuda(p, x, y)
+    ref = align_fused_plain(p, x, y)
+    precise = align_fused_cuda(dataclasses.replace(p, exp_mode="precise"),
+                               x, y)
+    assert row[24].item() == ref[24].item() == max_iter
+    tol = 1e-5 if max_iter <= 3 else 1e-4
+    assert (row[12:] - ref[12:]).abs().max().item() <= tol
+    # a form of its own: the fast launch does not give the precise bits
+    assert not torch.equal(row, precise)
+
+
+@pytest.mark.parametrize("mode,cap", [("resident", 256), ("tiled", 1152)])
+def test_fast_align_fused_batched_lanes_are_single_launches(dev, mode, cap):
+    """A lane's bits do not depend on its neighbours in fast mode."""
+    import dataclasses
+
+    from cvo_rgbd_torch import pad_cloud
+    from cvo_rgbd_torch.core.cloud import kd_sort, stack_clouds
+    from cvo_rgbd_torch.ops.align_fused import (
+        align_fused_batched_cuda,
+        align_fused_cuda,
+    )
+    from cvo_rgbd_torch.params import MATLAB_PARAMS
+
+    p = dataclasses.replace(MATLAB_PARAMS, backend="fused", max_iter=10,
+                            exp_mode="fast")
+    pairs = []
+    for k in range(3):
+        rng = np.random.default_rng(40 + k)
+        n = cap - 50 * k
+        pos = rng.standard_normal((n + 30, 3)) * 0.4
+        col = rng.random((n + 30, 3)) * 255.0
+        y = pos[20:20 + n] + np.array([0.02, -0.01, 0.015])
+        pairs.append((kd_sort(_padded(pad_cloud(pos[:n], col[:n], cap,
+                                                device=dev))),
+                      kd_sort(_padded(pad_cloud(y, col[20:20 + n], cap,
+                                                device=dev)))))
+    rows = align_fused_batched_cuda(p, stack_clouds([a for a, _ in pairs]),
+                                    stack_clouds([b for _, b in pairs]))
+    for k, (x, y) in enumerate(pairs):
+        assert torch.equal(rows[k], align_fused_cuda(p, x, y)), k
+
+
+@pytest.mark.parametrize("backend", ["kernel", "dense", "fused"])
+def test_fast_align_on_card_matches_precise(dev, backend):
+    """At the MATLAB stops, where the hardware exp converges, a fast
+    align lands within the JAX package's fast-vs-precise bound of the
+    precise one (tests/test_core.py: translation 2e-3)."""
+    import dataclasses
+
+    import cvo_rgbd_torch as ct
+
+    x, y, _ = _linear_clouds(dev, n=500, cap=512, seed=7)
+    p = dataclasses.replace(ct.MATLAB_PARAMS, backend=backend)
+    precise = ct.align(p, x, y)
+    fast = ct.align(_fast(p), x, y)
+    assert bool(fast.converged) and bool(precise.converged)
+    assert (fast.tf[:3, 3] - precise.tf[:3, 3]).abs().max().item() <= 2e-3
+    cpu = ct.align(_fast(p), x.to("cpu"), y.to("cpu"), device="cpu")
+    assert (fast.tf.cpu() - cpu.tf).abs().max().item() <= 3e-4
+
+
+# ---- keyframe SLAM on the card ----------------------------------------------
+
+def _square_world_clouds(dev, n=250, cap=256, seed=0):
+    """The square-loop world of tests/test_slam.py: a random world cloud
+    seen from a camera that walks a small square and returns."""
+    from cvo_rgbd_torch import pad_cloud
+
+    rng = np.random.default_rng(seed)
+    world = (rng.standard_normal((n, 3)) * np.array([1.0, 0.8, 0.6])
+             + np.array([0, 0, 2.5]))
+    feat = rng.random((n, 5)) * np.array([255, 255, 255, 60, 60])
+    poses = [np.eye(4)]
+    for d in ([0.05, 0, 0], [0, 0.05, 0], [-0.05, 0, 0], [0, -0.05, 0]):
+        for _ in range(3):
+            T = poses[-1].copy()
+            T[:3, 3] += d
+            poses.append(T)
+    out = []
+    for T in poses:
+        inv = np.linalg.inv(T)
+        out.append(pad_cloud(world @ inv[:3, :3].T + inv[:3, 3], feat, cap,
+                             device=dev))
+    return out
+
+
+def _slam(p, clouds, device):
+    from cvo_rgbd_torch.keyframes import KeyframePolicy
+    from cvo_rgbd_torch.slam import KeyframeSlam, SlamConfig
+
+    slam = KeyframeSlam(p, SlamConfig(
+        keyframe=KeyframePolicy(threshold=0.995, max_span=2),
+        loop_min_separation=3, loop_score_threshold=0.5), device=device)
+    for i, c in enumerate(clouds):
+        slam.process(i, c)
+    return slam, slam.solve()
+
+
+@pytest.mark.parametrize("backend", ["kernel", "fused"])
+def test_keyframe_slam_on_card_matches_cpu(dev, backend):
+    """The same keyframes and loop edges as on the CPU, the poses within
+    the aligns' stop skew chained over frames (tests/test_torch_slam.py)."""
+    import dataclasses
+
+    import cvo_rgbd_torch as ct
+
+    clouds = _square_world_clouds(dev)
+    p = dataclasses.replace(ct.CvoParams(max_iter=150, eps=5e-4, eps_2=1e-4),
+                            backend=backend)
+    gpu, (g_poses, g_nodes) = _slam(p, clouds, dev)
+    cpu, (c_poses, c_nodes) = _slam(p, [c.to("cpu") for c in clouds], "cpu")
+    assert [k.index for k in gpu.keyframes] == [k.index for k in cpu.keyframes]
+    assert ([e[:2] for e in gpu.loop_edges] == [e[:2] for e in cpu.loop_edges]
+            and len(gpu.loop_edges) >= 1)
+    assert np.abs(np.stack(g_poses) - np.stack(c_poses)).max() <= 2e-3
+    assert np.abs(g_nodes - c_nodes).max() <= 2e-3
+
+
+@pytest.mark.parametrize("backend", ["kernel", "fused"])
+def test_fast_keyframe_slam_on_card_matches_precise(dev, backend):
+    """exp_mode="fast" SLAM at the MATLAB stops: the keyframes and loop
+    edges of the precise run, each frame within the fast-vs-precise bound
+    chained over frames."""
+    import dataclasses
+
+    import cvo_rgbd_torch as ct
+
+    clouds = _square_world_clouds(dev, seed=1)
+    p = dataclasses.replace(ct.CvoParams(max_iter=150, eps=5e-4, eps_2=1e-4),
+                            backend=backend)
+    precise, (p_poses, _) = _slam(p, clouds, dev)
+    fast, (f_poses, _) = _slam(_fast(p), clouds, dev)
+    assert [k.index for k in fast.keyframes] == [
+        k.index for k in precise.keyframes]
+    assert [e[:2] for e in fast.loop_edges] == [
+        e[:2] for e in precise.loop_edges]
+    gap = max(np.linalg.norm(a[:3, 3] - b[:3, 3])
+              for a, b in zip(f_poses, p_poses))
+    assert gap <= 1e-2, gap
+
+
+def test_pose_graph_on_card_matches_cpu(dev):
+    from cvo_rgbd_torch.core import posegraph
+
+    rng = np.random.default_rng(4)
+    poses = [np.eye(4)]
+    for _ in range(40):
+        step = np.eye(4)
+        step[:3, 3] = [0.2, 0.0, 0.01]
+        poses.append(poses[-1] @ step)
+    noisy = [p.copy() for p in poses]
+    for k, p in enumerate(noisy):
+        p[:3, 3] += rng.normal(0.0, 0.01 * k ** 0.5, 3)
+    loops = [(0, 40, np.linalg.inv(poses[0]) @ poses[40], 5.0)]
+    for solver in ("dense", "pcg"):
+        out = [posegraph.optimize(posegraph.from_odometry(
+            noisy, loops, device=d), iters=5, solver=solver, huber_delta=0.3,
+            robust="cauchy", robust_warmup=2) for d in (dev, "cpu")]
+        assert (out[0][0].cpu() - out[1][0]).abs().max().item() <= 1e-3
+        assert torch.allclose(out[0][1].cpu(), out[1][1], rtol=1e-3)
