@@ -641,11 +641,12 @@ def phase_wsq(fixed, moving, p, fast=False):
 
 def fused_bound(counts, x, y, lanes=1, fast=False):
     """(bound ms, bound_by) of align_fused over the pairs its plain
-    version counted (over every lane): each pair the function needs, once
-    an iteration (the flow and the line search both come from momT), its
-    color kernel recomputed; each lane's clouds and result moved once.
-    Resident mode's second sweep over the same pairs is the kernel's
-    cost, not the function's, and is not counted."""
+    version counted (over every lane): each pair of a kept tile, once an
+    iteration (the flow and the line search both come from the same
+    weights), its color kernel recomputed; each lane's clouds and result
+    moved once.  Resident mode's read-back of its stored weights for the
+    row flow is the kernel's cost, not the function's, and is not
+    counted."""
     from cvo_rgbd_torch.ops.align_fused import OUT_LEN
     from cvo_rgbd_torch.ops.moments import NUM_MONO
 

@@ -10,20 +10,22 @@
 //   top     every block reads R, T, ell from its own copy of the state
 //           and forms tf = [R', -R'T] and the ell-dependent thresholds
 //           1/(2 ell^2) and thres_c ell^2 in the JAX order (:475, :856-857);
+//           in resident mode it also derives every live lane's kept tiles
+//           (kept_bitmaps), which all its items then read;
 //   phase 1 work items over the grid, each writing its own partial:
-//           - moment items (a j-quarter of an i-tile of TI by a j-block
-//             of TJ): the item's momT = Phi(x - c0)^T A and an int nnz
+//           - moment items (an i-tile of TI by a j-block of TJ): the
+//             item's momT = Phi(x - c0)^T A and an int nnz
 //             (moment_tile.cuh), A recomputed per pair with its color
 //             kernel (pair_tile.cuh), or in MATLAB's linear color mode
 //             (cvo only) with ci = color_scale * (xf . yf) over features
-//             0-2 and the gate k >= sp_thres (:413-415, :811-816); tiled
-//             mode skips a tile by its box in the fixed cloud against a
-//             box that holds the j-block's transformed points (its
-//             untransformed box through tf, moved_box), a few flops an
-//             item, so a skipped item costs no barrier and no load of y;
-//           - resident only, row items (ROWS rows of x, one per thread,
-//             over all of y): the difference-form flow r_i = sum_j A_ij y_j
-//             - (sum_j A_ij) x_i (:507-528) and sum A d2;
+//             0-2 and the gate k >= sp_thres (:413-415, :811-816); a tile
+//             is skipped by its box in the fixed cloud against a box that
+//             holds the j-block's transformed points (its untransformed
+//             box through tf, moved_box), a few flops an item, so a
+//             skipped item costs no barrier and no load of y.  Resident
+//             mode's items also store every weight they compute in a
+//             lane scratch W [n, m]: each pair is evaluated once an
+//             iteration, as JAX's resident kernel forms A once (:479-483);
 //           - acvo only, self items: the upper triangle of TW-square tiles
 //             of x against x and of y against y, off-diagonal tiles counted
 //             twice (:947-1054); y is transformed in tiled mode and not in
@@ -34,9 +36,16 @@
 //           every block derives by the same rule), or its first item when
 //           it keeps none, sums that j-block's kept partials in i-tile
 //           order; tiled mode also forms the moment-form flow terms per j
-//           (:915-945).  For acvo the last column or self item of a lane
-//           (a ticket of its own) sums the counts and self sums.  Items
-//           run in a scrambled order, so kept tiles spread over blocks;
+//           (:915-945).  Resident mode's row blocks (ROWS rows of x) have
+//           tickets too: the last moment item of a row block's kept
+//           tiles, or its first item when it keeps none, reads the row
+//           block's weights back from W, one thread a row walking its
+//           kept tiles in j order, and forms the difference-form flow
+//           r_i = sum_j A_ij y_j - (sum_j A_ij) x_i (:507-528) and sum A
+//           d2 (row_flow).  For acvo the last column or self item of a
+//           lane (a ticket of its own) sums the counts and self sums.
+//           Items run in a scrambled order, so kept tiles spread over
+//           blocks;
 //   barrier
 //   phase 3 every block sums the flow partials in a fixed order (omega,
 //           v, and acvo's dl), then per j-block contracts the line-search
@@ -77,9 +86,10 @@
 // se color kernel costs 44), plus 70 per gated pair of the moment sweep
 // (35 FMAs); the clouds (a few hundred KB)
 // stay in L2, so the sweep is bound by operations.  Resident mode
-// evaluates each pair twice (the row sweep, then the moment sweep), which
-// the bound does not count.  Two grid barriers per iteration are the
-// fixed cost.
+// evaluates each pair once, in the moment sweep, and its row flow reads
+// the kept tiles' weights back (4 bytes and 5 FMAs a pair, from L2: W is
+// at most 4 MB a lane, N*M <= 2^20 in both resident budgets).  Two grid
+// barriers per iteration are the fixed cost.
 //
 // Every form (resident or tiled, cvo or acvo) is compiled twice: with
 // exp_neg and, for params.exp_mode="fast", with the hardware __expf in
@@ -100,7 +110,7 @@ constexpr int NT = 128;     // threads per block
 constexpr int TJ = cvo::mt::TJ;  // j per moment item; ops/moments.py TILE_J
 constexpr int TI = cvo::mt::TI;  // i per moment item; ops/moments.py TILE_I
 constexpr int TW = 64;      // self-sweep tile; ops/wsq.py TILE_W
-constexpr int ROWS = 128;   // rows per row item; ops/align_fused.py ROWS
+constexpr int ROWS = 128;   // rows per row block; ops/align_fused.py ROWS
 constexpr int NW = NT / 32;
 constexpr int NMOM = cvo::mt::NMOM;
 constexpr int NSH = 4;
@@ -109,6 +119,17 @@ constexpr int NINIT = 16;   // init row: R0 9, T0 3, c0 3, ell0
 constexpr int NOUT = 33;    // result row; ops/align_fused.py OUT_LEN
 constexpr int BLOCKS_PER_SM = 4;
 constexpr float SKIP_MARGIN = 1e-5f;
+// row_flow's copies of W: a ring of NSTAGE stages a warp, each the
+// warp's 32 rows by JC columns, rows WLD floats apart (16-byte copies;
+// the float4 reads of 8 threads then fall on 32 distinct banks)
+constexpr int JC = 16;
+constexpr int NSTAGE = 4;
+constexpr int WLD = JC + 4;
+constexpr int PER_ROW = ROWS / TI;  // i-tiles of a row block
+static_assert(PER_ROW == 2 && TI % 32 == 0,
+              "row_flow: two i-tiles of whole warps");
+// a moment item's weights fit in row_flow's rings
+static_assert(TI * TJ <= NW * NSTAGE * 32 * WLD, "wsm in the rings");
 
 // per-align constants; ops/align_fused.py C_*
 enum Const {
@@ -145,13 +166,15 @@ struct Args {
   float* mom_part;                     // [n / TI, 35, m] item partials
   int* cnt_part;                       // [n / TI, nbj] kept tiles' counts
   int* cnt_col;                        // [nbj] a j-block's kept count
-  int* ticket;                         // [nbj + 1], zero at launch
+  int* ticket;                         // [nbj + 1 (+ n / ROWS resident)],
+                                       // zero at launch
   float* mom;                          // [35, m]
   float* flow_part;                    // [n_flow, NFLOW]
   float* self_w;                       // [n_self]
   int* self_c;                         // [n_self]
   float* red;                          // [8] counts and self sums
   float* bcde_part;                    // [nbj, 4]
+  float* w;                            // resident: [n, m] weights, or null
   float* out;                          // [33] result row
   int n, m, n_sched, lanes;
 };
@@ -177,12 +200,8 @@ struct Shared {
   float scal[cvo::N_SCAL];
   float c[N_CONST];
   int sh[NMOM * NSH];
-  union {
-    // a moment item's i-tile; a self item stages its rows in t.x and t.f
-    cvo::mt::Tile t;
-    // a row item's transformed j-block
-    cvo::mt::Cols rows;
-  };
+  // a moment item's i-tile; a self item stages its rows in t.x and t.f
+  cvo::mt::Tile t;
   cvo::mt::ColumnScratch cs;
   float red[8 * NW];
   int redi[NW];
@@ -215,7 +234,8 @@ __device__ __forceinline__ unsigned long long global_ns() {
     t_phase = now;                                           \
   }
 // Phase 1's work by kind (moment item of a kept tile, moment item of a
-// skipped tile, column sum, counts, row item, self item): ns and items
+// skipped tile, column sum, counts, a resident row block's flow from W,
+// self item): ns and items
 // over all blocks, and each block's busy ns; thread 0 of each block
 // reads the timer around each.
 constexpr int NKIND = 6;
@@ -267,13 +287,14 @@ __device__ Args at_lane(const Args& a, int L) {
   o.mom_part += l * (a.n / TI) * NMOM * m;
   o.cnt_part += l * (a.n / TI) * nbj;
   o.cnt_col += l * nbj;
-  o.ticket += l * (nbj + 1);
+  o.ticket += l * (nbj + 1 + (RESIDENT ? a.n / ROWS : 0));
   o.mom += l * NMOM * m;
   o.flow_part += l * max(n_flow, 1) * NFLOW;
   o.self_w += l * max(n_self, 1);
   o.self_c += l * max(n_self, 1);
   o.red += l * 8;
   o.bcde_part += l * nbj * 4;
+  if (o.w != nullptr) o.w += l * n * m;
   o.out += l * NOUT;
   return o;
 }
@@ -426,32 +447,77 @@ struct AlignWeight {
   }
 };
 
-// The tile skip (tiled mode): i-tile c of lane a against the box of a
-// j-block's transformed points is kept unless its lower bound on d2
-// passes the gate; every tile is kept without boxes (resident mode).  A
-// box that holds the points keeps every tile the exact box keeps, and
-// the tiles it keeps besides hold only zero weights.
+// The tile skip: i-tile c of lane a against the box of a j-block's
+// transformed points is kept unless its lower bound on d2 passes the
+// gate; every tile is kept without boxes (p.tile_skip off).  A box that
+// holds the points keeps every tile the exact box keeps, and the tiles
+// it keeps besides hold only zero weights.
 __device__ __forceinline__ bool kept_tile(const float* xb, const float* box,
                                           float thres, int c) {
   return xb == nullptr || !(box_gap(xb + 6 * c, box) > thres);
 }
 
-// The number of i-tiles kept against a j-block's box, in every thread.
-__device__ int kept_tiles(const Args& a, const float* box, float thres) {
-  const int nbi = a.n / TI;
+// Resident mode's kept tiles: a bitmap a lane, bit ib * nbj + jb, that
+// every block derives at the top of each iteration for every live lane
+// (kept_bitmaps) and every caller reads: an item's own test, the kept
+// counts of a column and of a row block, the column sum and the row
+// flow.  All blocks compute each bit with the same instructions from the
+// same state, so all agree on every tile; an item's test is a bit, and
+// a skipped tile's item costs nothing.
+__host__ __device__ constexpr int kept_words(int n, int m) {
+  return ((n / TI) * (m / TJ) + 31) / 32;
+}
+
+__device__ __forceinline__ bool kept_bit(const unsigned* bits, int nbj,
+                                         int ib, int jb) {
+  const int t = ib * nbj + jb;
+  return (bits[t >> 5] >> (t & 31)) & 1u;
+}
+
+// Every live lane's bitmap, by the rule of kept_tile against moved_box,
+// over (lane, tile) pairs spread on the block's threads; every thread of
+// the block calls it, after top_of_iteration.
+__device__ void kept_bitmaps(const Args& a, const Lane* lanes,
+                             unsigned* bits, int max_iter) {
+  const int nbj = a.m / TJ, tiles = (a.n / TI) * nbj;
+  const int words = kept_words(a.n, a.m);
+  for (int t = threadIdx.x; t < a.lanes * words; t += NT) bits[t] = 0u;
+  __syncthreads();
+  for (int t = threadIdx.x; t < a.lanes * tiles; t += NT) {
+    const int L = t / tiles, k = t % tiles;
+    const Lane& ln = lanes[L];
+    if (!live(ln, max_iter)) continue;
+    const Args la = at_lane<true, false>(a, L);
+    float box[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    if (la.yb != nullptr) moved_box(ln.st, la.yb + 6 * (k % nbj), box);
+    const float thres = ln.scal[cvo::S_D2_THRES] + SKIP_MARGIN;
+    if (kept_tile(la.xb, box, thres, k / nbj))
+      atomicOr(bits + L * words + (k >> 5), 1u << (k & 31));
+  }
+  __syncthreads();
+}
+
+// The number of t < total that kept(t) keeps, in every thread.
+template <class Kept>
+__device__ int count_kept(int total, const Kept& kept) {
   int k = 0;
-  for (int c0 = 0; c0 < nbi; c0 += NT) {
+  for (int c0 = 0; c0 < total; c0 += NT) {
     const int c = c0 + threadIdx.x;
-    k += __syncthreads_count(c < nbi && kept_tile(a.xb, box, thres, c));
+    k += __syncthreads_count(c < total && kept(c));
   }
   return k;
 }
 
 // One moment item, a kept tile: i-tile ib against j-block jb, its
-// partial momT and count.
-template <bool FAST>
+// partial momT and count; with STORE_W (resident mode) also the tile's
+// weights, into W at its rows and columns.  The sweep stores them in
+// shared memory, `wsm` [TI][TJ] (row_flow's, free while an item runs),
+// and the block copies them out after it in 16-byte pieces: a global
+// store in the sweep's loop, which the compiler cannot tell from the
+// moments' stack copy, would make it write the 35 sums back every row.
+template <bool FAST, bool STORE_W>
 __device__ void moment_item(const Args& a, Shared& S, const Lane& ln, int jb,
-                            int ib) {
+                            int ib, float* wsm) {
   const int nbj = a.m / TJ;
   const int j = jb * TJ + threadIdx.x;
   __syncthreads();  // the last item no longer reads S.t
@@ -468,9 +534,19 @@ __device__ void moment_item(const Args& a, Shared& S, const Lane& ln, int jb,
   float acc[NMOM];
 #pragma unroll
   for (int k = 0; k < NMOM; ++k) acc[k] = 0.0f;
-  const int cnt = cvo::mt::sweep(S.t, w, acc);
+  const int cnt = cvo::mt::sweep<AlignWeight<FAST>, STORE_W>(
+      S.t, w, acc, wsm + threadIdx.x, TJ);
   cvo::mt::store(acc, a.mom_part + static_cast<size_t>(ib) * NMOM * a.m, a.m,
                  jb * TJ);
+  if constexpr (STORE_W) {
+    __syncthreads();  // the tile's weights are all in wsm
+    float* dst = a.w + static_cast<size_t>(ib) * TI * a.m + jb * TJ;
+    for (int p = threadIdx.x; p < TI * TJ / 4; p += NT) {
+      const int r = p / (TJ / 4), q = 4 * (p % (TJ / 4));
+      *reinterpret_cast<float4*>(dst + static_cast<size_t>(r) * a.m + q) =
+          *reinterpret_cast<const float4*>(wsm + r * TJ + q);
+    }
+  }
   const int tot = block_count(cnt, S);
   if (threadIdx.x == 0) a.cnt_part[ib * nbj + jb] = tot;
 }
@@ -492,42 +568,148 @@ __device__ bool last_arrival(int* ticket, int total, Shared& S) {
   return last;
 }
 
-// Resident mode: ROWS rows of x over all of y, the direct-form flow.
-template <bool ADAPTIVE, bool FAST>
-__device__ void row_item(const Args& a, Shared& S, const Lane& ln, int rb) {
-  const int i = rb * ROWS + threadIdx.x;
-  const float x0 = a.xp[3 * i], x1 = a.xp[3 * i + 1], x2 = a.xp[3 * i + 2];
-  float fx[cvo::NFEAT];
-#pragma unroll
-  for (int c = 0; c < cvo::NFEAT; ++c) fx[c] = a.xf[cvo::NFEAT * i + c];
-  const float xmi = a.xm[i];
-  const bool linear = S.c[C_LINEAR] != 0.0f;
-  float sA = 0.0f, s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, sxy = 0.0f;
-  for (int j0 = 0; j0 < a.m; j0 += TJ) {
+// Bytes of the lanes' states in dynamic shared memory, and after them,
+// in resident mode, the lanes' kept bitmaps and row_flow's: each warp's
+// ring of W copies and staged transformed j-block, the kept j-blocks of
+// each i-tile of a row block and their counts by warp.
+__host__ __device__ constexpr size_t align16(size_t b) {
+  return (b + 15) & ~size_t{15};
+}
+__host__ __device__ constexpr size_t lanes_bytes(int lanes) {
+  return align16(static_cast<size_t>(lanes) * sizeof(Lane));
+}
+__host__ __device__ constexpr size_t bitmap_bytes(int lanes, int n, int m) {
+  return align16(sizeof(unsigned) * static_cast<size_t>(lanes) *
+                 kept_words(n, m));
+}
+__host__ __device__ constexpr size_t row_flow_bytes(int nbj) {
+  return sizeof(float) * NW * (NSTAGE * 32 * WLD + 3 * TJ) +
+         sizeof(int) * (PER_ROW * (static_cast<size_t>(nbj) + NW));
+}
+
+// Resident mode, once a row block's moment items have all run: ROWS rows
+// of x, one a thread, the direct-form flow r_i = sum_j A_ij y_j - (sum_j
+// A_ij) x_i and acvo's sum A d2, from the weights those items stored in W
+// (read at L2: other blocks wrote them).  A row walks the j-blocks its
+// i-tile keeps (bits, the lane's bitmap), in j order, and sums the
+// nonzero weights with the FMAs of the row sweep this replaces: each
+// row's sums and the ROWS-row block sum are then its bits, and a dropped
+// tile, whose weights are all zero and unwritten, is the same sum.  After
+// the kept lists, each warp runs on its own (its 32 rows lie in one
+// i-tile): its W columns stream through its ring by cp.async, NSTAGE - 1
+// stages ahead, and each j-block's tf * y through its buffer, the
+// positions loaded half a j-block ahead.  `mem` is row_flow_bytes of
+// dynamic shared memory.
+template <bool ADAPTIVE>
+__device__ void row_flow(const Args& a, Shared& S, const State& st, int rb,
+                         const unsigned* bits, unsigned char* mem) {
+  constexpr int CPB = TJ / JC;  // stages of a j-block
+  constexpr int YC = TJ / 32;   // a lane's columns of a j-block
+  const int nbj = a.m / TJ;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float* ring = reinterpret_cast<float*>(mem) + warp * NSTAGE * 32 * WLD;
+  float* tyb = reinterpret_cast<float*>(mem) + NW * NSTAGE * 32 * WLD +
+               warp * 3 * TJ;
+  int* lists = reinterpret_cast<int*>(reinterpret_cast<float*>(mem) +
+                                      NW * (NSTAGE * 32 * WLD + 3 * TJ));
+  int* counts = lists + PER_ROW * nbj;  // [PER_ROW][NW]
+  // each i-tile's kept j-blocks, in order
+  int n_kept[PER_ROW] = {};
+  for (int t0 = 0; t0 < nbj; t0 += NT) {
+    const int jb = t0 + tid;
+    int f = 0;
+    if (jb < nbj)
+      for (int h = 0; h < PER_ROW; ++h)
+        f |= kept_bit(bits, nbj, PER_ROW * rb + h, jb) << h;
+    unsigned ball[PER_ROW];
+    for (int h = 0; h < PER_ROW; ++h)
+      ball[h] = __ballot_sync(0xffffffffu, (f >> h) & 1);
+    __syncthreads();  // the last window's counts are read
+    if (lane == 0)
+      for (int h = 0; h < PER_ROW; ++h)
+        counts[h * NW + warp] = __popc(ball[h]);
     __syncthreads();
-    {
-      const int j = j0 + threadIdx.x;
-      float ty[3];
-      transform(ln.st, a.yp + 3 * j, ty);
-      for (int r = 0; r < 3; ++r) S.rows.y[r][threadIdx.x] = ty[r];
-      for (int c = 0; c < cvo::NFEAT; ++c)
-        S.rows.f[threadIdx.x][c] = a.yf[cvo::NFEAT * j + c];
-      S.rows.m[threadIdx.x] = a.ym[j];
+    for (int h = 0; h < PER_ROW; ++h) {
+      int at = n_kept[h] + __popc(ball[h] & ((1u << lane) - 1u));
+      for (int w = 0; w < warp; ++w) at += counts[h * NW + w];
+      if ((f >> h) & 1) lists[h * nbj + at] = jb;
+      for (int w = 0; w < NW; ++w) n_kept[h] += counts[h * NW + w];
     }
-    __syncthreads();
-    for (int jj = 0; jj < TJ; ++jj) {
-      const float d2 = cvo::sqdist3(x0, x1, x2, S.rows.y[0][jj],
-                                    S.rows.y[1][jj], S.rows.y[2][jj]);
-      const float w = pair_weight<FAST>(linear, d2, fx, xmi, S.rows.f[jj],
-                                  S.rows.m[jj], S.scal, S.c[C_COLOR_SCALE]);
-      if (w != 0.0f) {
-        sA += w;
-        s0 = fmaf(w, S.rows.y[0][jj], s0);
-        s1 = fmaf(w, S.rows.y[1][jj], s1);
-        s2 = fmaf(w, S.rows.y[2][jj], s2);
-        if (ADAPTIVE) sxy = fmaf(w, d2, sxy);
+  }
+  __syncthreads();
+  // from here on each warp alone: its i-tile's list
+  const int h = warp * 32 / TI;
+  const int* list = lists + h * nbj;
+  const int n_mine = h == 0 ? n_kept[0] : n_kept[PER_ROW - 1];
+  const int total = n_mine * CPB;
+  const int row0 = rb * ROWS + warp * 32;
+  const float* wsrc = a.w + static_cast<size_t>(row0) * a.m;
+  // stage s: columns JC (s % CPB) of kept j-block s / CPB of the warp's
+  // rows into ring slot s % NSTAGE; one copy group each
+  auto copy_stage = [&](int s) {
+    if (s < total) {
+      const float* src = wsrc + list[s / CPB] * TJ + (s % CPB) * JC;
+      float* dst = ring + (s % NSTAGE) * 32 * WLD;
+      for (int p = lane; p < 32 * JC / 4; p += 32) {
+        const int r = p / (JC / 4), q = 4 * (p % (JC / 4));
+        cvo::mt::cp_async16(dst + r * WLD + q,
+                            src + static_cast<size_t>(r) * a.m + q);
       }
     }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  // kept j-block k's positions, YC a lane, into py; then tf * y (as the
+  // moment items transform them) into the warp's buffer
+  float py[YC][3];
+  auto load_y = [&](int k) {
+    if (k >= n_mine) return;
+    const float* yp = a.yp + 3 * list[k] * TJ;
+    for (int c = 0; c < YC; ++c)
+      for (int r = 0; r < 3; ++r) py[c][r] = yp[3 * (lane + 32 * c) + r];
+  };
+  auto put_y = [&]() {
+    for (int c = 0; c < YC; ++c) {
+      float ty[3];
+      transform(st, py[c], ty);
+      for (int r = 0; r < 3; ++r) tyb[r * TJ + lane + 32 * c] = ty[r];
+    }
+  };
+  for (int s = 0; s < NSTAGE - 1; ++s) copy_stage(s);
+  load_y(0);
+  const int i = row0 + lane;
+  const float x0 = a.xp[3 * i], x1 = a.xp[3 * i + 1], x2 = a.xp[3 * i + 2];
+  float sA = 0.0f, s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, sxy = 0.0f;
+  for (int s = 0; s < total; ++s) {
+    copy_stage(s + NSTAGE - 1);  // into the slot stage s - 1 read
+    // a j-block's first stage: its tf * y into the buffer, which the
+    // last j-block's stages are done with; half-way, the next one's
+    // positions on their way
+    if (s % CPB == 0) put_y();
+    if (s % CPB == CPB / 2) load_y(s / CPB + 1);
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(NSTAGE - 1));
+    __syncwarp();  // stage s and tf * y are in place, from every lane
+    const float* wr = ring + (s % NSTAGE) * 32 * WLD + lane * WLD;
+    const float* y = tyb + (s % CPB) * JC;
+#pragma unroll
+    for (int c = 0; c < JC; c += 4) {
+      const float4 w4 = *reinterpret_cast<const float4*>(wr + c);
+      const float wv[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float w = wv[q];
+        if (w != 0.0f) {
+          const float y0 = y[c + q], y1 = y[TJ + c + q],
+                      y2 = y[2 * TJ + c + q];
+          sA += w;
+          s0 = fmaf(w, y0, s0);
+          s1 = fmaf(w, y1, s1);
+          s2 = fmaf(w, y2, s2);
+          if (ADAPTIVE)
+            sxy = fmaf(w, cvo::sqdist3(x0, x1, x2, y0, y1, y2), sxy);
+        }
+      }
+    }
+    __syncwarp();  // slot s % NSTAGE and the buffer are read
   }
   const float r0 = s0 - sA * x0, r1 = s1 - sA * x1, r2 = s2 - sA * x2;
   float v[7] = {r0, r1, r2, x1 * r2 - x2 * r1, x2 * r0 - x0 * r2,
@@ -616,20 +798,18 @@ __device__ void self_item(const Args& a, Shared& S, const Lane& ln, int item,
 
 // Per j of a j-block whose moment items have all run: momT, the kept
 // tiles' partials summed in i-tile order (a skipped tile's partial is
-// zero and unwritten), the j-block's count of A > 0, and in tiled mode
-// the moment-form flow terms (core/moments.py:flow_from_moments).
-template <bool RESIDENT>
+// zero and unwritten; kept(c) says whether i-tile c is kept), the
+// j-block's count of A > 0, and in tiled mode the moment-form flow terms
+// (core/moments.py:flow_from_moments).
+template <bool RESIDENT, class Kept>
 __device__ void column_item(const Args& a, Shared& S, const Lane& ln, int jb,
-                            const float* box) {
+                            const Kept& kept) {
   const int j = jb * TJ + threadIdx.x;
   const int nbj = a.m / TJ;
-  const float thres = S.scal[cvo::S_D2_THRES] + SKIP_MARGIN;
   float sum[NMOM];
 #pragma unroll
   for (int k = 0; k < NMOM; ++k) sum[k] = 0.0f;
-  cvo::mt::column_sum(
-      a.mom_part, a.n / TI, a.m, j, 0,
-      [&](int c) { return kept_tile(a.xb, box, thres, c); }, S.cs, sum);
+  cvo::mt::column_sum(a.mom_part, a.n / TI, a.m, j, 0, kept, S.cs, sum);
 #pragma unroll
   for (int k = 0; k < NMOM; ++k)
     a.mom[static_cast<size_t>(k) * a.m + j] = sum[k];
@@ -881,14 +1061,20 @@ __global__ void __launch_bounds__(NT, 3) align_kernel(Args a) {
   }
   __syncthreads();
 
+  // resident mode's kept bitmaps and row_flow scratch, after the lanes'
+  // states
+  unsigned* kept_bits =
+      reinterpret_cast<unsigned*>(lane_mem + lanes_bytes(a.lanes));
+  unsigned char* flow_mem = lane_mem + lanes_bytes(a.lanes) +
+                            bitmap_bytes(a.lanes, a.n, a.m);
+  const int words = kept_words(a.n, a.m);
   const int nbj = a.m / TJ;
   const int nbi = a.n / TI;
   const int n_mom = nbi * nbj;
-  const int n_rows = RESIDENT ? a.n / ROWS : 0;
   const int nbx = a.n / TW, nby = a.m / TW;
   const int tri_x = nbx * (nbx + 1) / 2;
   const int n_self = ADAPTIVE ? tri_x + nby * (nby + 1) / 2 : 0;
-  const int n_items = n_mom + n_rows + n_self;
+  const int n_items = n_mom + n_self;
   const int max_iter = static_cast<int>(S.c[C_MAX_ITER]);
 #ifdef ALIGN_PHASE_TIMERS
   unsigned long long t_phase = 0;
@@ -904,12 +1090,14 @@ __global__ void __launch_bounds__(NT, 3) align_kernel(Args a) {
       }
     // every block reads the same lane states: all leave together
     if (!__syncthreads_or(any_live)) break;
+    if constexpr (RESIDENT) kept_bitmaps(a, lanes, kept_bits, max_iter);
 
     // ---- phases 1-2: the sweeps, items over (lane, item) in a scrambled
     // order, so that the kept tiles, which cluster in item order, spread
     // over the blocks; a skipped tile's item costs its box test.  A
     // j-block's last kept moment item (by its ticket) or, when it keeps
-    // none, its first item sums the j-block's partials; acvo's last
+    // none, its first item sums the j-block's partials, and in resident
+    // mode a row block's the same forms its rows' flow; acvo's last
     // column or self item of a lane sums the counts and self sums ----
     int staged = -1;  // the lane whose scalar row S.scal holds
     const int total = a.lanes * n_items;
@@ -924,30 +1112,54 @@ __global__ void __launch_bounds__(NT, 3) align_kernel(Args a) {
       if (L != staged && i >= n_mom) stage(S, ln, staged, L);
       if (i < n_mom) {
         const int ib = i / nbj, jb = i % nbj;
+        const unsigned* bits = kept_bits + L * words;
         float box[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-        if (la.yb != nullptr) moved_box(ln.st, la.yb + 6 * jb, box);
         const float thres = ln.scal[cvo::S_D2_THRES] + SKIP_MARGIN;
-        const bool kept = kept_tile(la.xb, box, thres, ib);
-        if (!kept && ib != 0) {  // block-uniform
+        // whether i-tile c keeps this j-block
+        const auto kept_c = [&](int c) {
+          if constexpr (RESIDENT)
+            return kept_bit(bits, nbj, c, jb);
+          else
+            return kept_tile(la.xb, box, thres, c);
+        };
+        if (!RESIDENT && la.yb != nullptr)
+          moved_box(ln.st, la.yb + 6 * jb, box);
+        const bool kept = kept_c(ib);
+        // resident: a row block's first item stays too, to form the row
+        // block's flow when the row block keeps no tile
+        const bool row_head = RESIDENT && jb == 0 && ib % PER_ROW == 0;
+        if (!kept && ib != 0 && !row_head) {  // block-uniform
           ITEM_DONE(1);
           continue;
         }
         if (L != staged) stage(S, ln, staged, L);
-        const int n_kept = kept_tiles(la, box, thres);
+        const int n_kept = count_kept(nbi, kept_c);
         if (kept) {
-          moment_item<FAST>(la, S, ln, jb, ib);
+          moment_item<FAST, RESIDENT>(la, S, ln, jb, ib,
+                                      reinterpret_cast<float*>(flow_mem));
           ITEM_DONE(0);
         }
-        if (kept ? !last_arrival(la.ticket + jb, n_kept, S) : n_kept != 0)
-          continue;
-        column_item<RESIDENT>(la, S, ln, jb, box);
-        ITEM_DONE(2);
-      } else if (i < n_mom + n_rows) {
-        row_item<ADAPTIVE, FAST>(la, S, ln, i - n_mom);
-        ITEM_DONE(4);
-        continue;
-      } else {
-        const int t = i - n_mom - n_rows;
+        const bool col = kept ? last_arrival(la.ticket + jb, n_kept, S)
+                              : ib == 0 && n_kept == 0;
+        if (col) {
+          column_item<RESIDENT>(la, S, ln, jb, kept_c);
+          ITEM_DONE(2);
+        }
+        if constexpr (RESIDENT) {
+          // the moment items of the row block's kept tiles
+          const int rb = ib / PER_ROW;
+          const int r_kept = count_kept(PER_ROW * nbj, [&](int t) {
+            return kept_bit(bits, nbj, PER_ROW * rb + t / nbj, t % nbj);
+          });
+          if (kept ? last_arrival(la.ticket + nbj + 1 + rb, r_kept, S)
+                   : row_head && r_kept == 0) {
+            row_flow<ADAPTIVE>(la, S, ln.st, rb, bits, flow_mem);
+            ITEM_DONE(4);
+          }
+        }
+        if (!col) continue;
+      } else if constexpr (ADAPTIVE) {
+        const int t = i - n_mom;
         self_item<RESIDENT, FAST>(la, S, ln, t, t);
         ITEM_DONE(5);
       }
@@ -1017,8 +1229,11 @@ template <bool RESIDENT, bool ADAPTIVE, bool FAST>
 int launch_form(Args a, cudaStream_t stream) {
   const auto kernel = align_kernel<RESIDENT, ADAPTIVE, FAST>;
   const void* fn = reinterpret_cast<const void*>(kernel);
-  // the lanes' states
-  const size_t dyn = static_cast<size_t>(a.lanes) * sizeof(Lane);
+  // the lanes' states, and resident mode's row_flow scratch
+  const size_t dyn =
+      lanes_bytes(a.lanes) +
+      (RESIDENT ? bitmap_bytes(a.lanes, a.n, a.m) + row_flow_bytes(a.m / TJ)
+                : 0);
   int dev = 0, sms = 0, coop = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -1060,7 +1275,7 @@ Args pack(const float* xp, const float* xf, const float* xm, const float* yp,
           const float* init, const float* sched, float* mom_part,
           int* cnt_part, int* cnt_col, int* ticket, float* mom,
           float* flow_part, float* self_w, int* self_c, float* red,
-          float* bcde_part, float* out, int n, int m, int n_sched,
+          float* bcde_part, float* w, float* out, int n, int m, int n_sched,
           int lanes) {
   Args a;
   a.xp = xp, a.xf = xf, a.xm = xm, a.yp = yp, a.yf = yf, a.ym = ym;
@@ -1070,7 +1285,7 @@ Args pack(const float* xp, const float* xf, const float* xm, const float* yp,
   a.cnt_part = cnt_part, a.cnt_col = cnt_col, a.ticket = ticket;
   a.mom = mom, a.flow_part = flow_part;
   a.self_w = self_w, a.self_c = self_c, a.red = red, a.bcde_part = bcde_part;
-  a.out = out, a.n = n, a.m = m;
+  a.w = w, a.out = out, a.n = n, a.m = m;
   a.n_sched = n_sched, a.lanes = lanes;
   return a;
 }
@@ -1084,21 +1299,21 @@ Args pack(const float* xp, const float* xf, const float* xm, const float* yp,
       const float *md_yy, const float *consts, const float *init,            \
       const float *sched, float *mom_part, int *cnt_part, int *cnt_col,      \
       int *ticket, float *mom, float *flow_part, float *self_w, int *self_c, \
-      float *red, float *bcde_part, float *out, int n, int m, int n_sched,   \
-      int adaptive, int fast, int lanes, cudaStream_t stream
+      float *red, float *bcde_part, float *w, float *out, int n, int m,      \
+      int n_sched, int adaptive, int fast, int lanes, cudaStream_t stream
 
 #define ALIGN_FUSED_PACK                                                     \
   pack(xp, xf, xm, yp, yf, ym, phi, shift, xb, yb, md_xx, md_yy, consts,     \
        init, sched, mom_part, cnt_part, cnt_col, ticket, mom, flow_part,     \
-       self_w, self_c, red, bcde_part, out, n, m, n_sched, lanes)
+       self_w, self_c, red, bcde_part, w, out, n, m, n_sched, lanes)
 
-// Tiled mode: xb [lanes, n / 64, 6] and yb [lanes, m / 128, 6] tile
+// Both modes: xb [lanes, n / 64, 6] and yb [lanes, m / 128, 6] tile
 // boxes of the clouds or null (no skip); for acvo, md_xx / md_yy the
 // self bounds at 64 or null.  Every array has a
 // leading axis of `lanes`, but consts and sched, which all lanes share;
 // scratch shapes are those of ops/align_fused.py:lane_scratch, the
-// tickets zeroed; fast takes the hardware exp (params.exp_mode="fast").
-// Returns a cudaError_t.
+// tickets zeroed, w null in tiled mode; fast takes the hardware exp
+// (params.exp_mode="fast").  Returns a cudaError_t.
 extern "C" int align_fused_tiled_launch(ALIGN_FUSED_ARGS) {
   const Args a = ALIGN_FUSED_PACK;
   return launch<false>(a, adaptive, fast, stream);
@@ -1132,9 +1347,7 @@ extern "C" int align_fused_item_ns(unsigned long long* out, int reset) {
 }
 #endif
 
-// Resident mode: no tile skip (xb, yb, md_xx, md_yy are ignored).
 extern "C" int align_fused_resident_launch(ALIGN_FUSED_ARGS) {
-  Args a = ALIGN_FUSED_PACK;
-  a.xb = a.yb = a.md_xx = a.md_yy = nullptr;
+  const Args a = ALIGN_FUSED_PACK;
   return launch<true>(a, adaptive, fast, stream);
 }

@@ -63,13 +63,6 @@ struct Tile {
   float f[TI][NFEAT];
 };
 
-// The item's TJ moving points, one a thread.
-struct Cols {
-  float y[3][TJ];
-  float f[TJ][NFEAT];
-  float m[TJ];
-};
-
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
@@ -114,13 +107,19 @@ __device__ __forceinline__ void stage_end() {
 // over the tile's rows in order, one fused multiply-add each, where the
 // weight is not zero; returns the count of A > 0.  weight(ii, xi, fi) is
 // A of the thread's j and tile row ii, whose x and mask are xi and
-// features fi (shared memory).
-template <class Weight>
+// features fi (shared memory).  With STORE_W (align_fused.cu's resident
+// mode) every weight is also stored, wout[ii * ldw] for row ii: the
+// caller's row flow reads them back.  Without it (fused_moments.cu, the
+// tiled align) nothing is stored and the loop is what it was.
+template <class Weight, bool STORE_W = false>
 __device__ __forceinline__ int sweep(const Tile& T, const Weight& weight,
-                                     float (&acc)[NMOM]) {
+                                     float (&acc)[NMOM],
+                                     float* wout = nullptr,
+                                     size_t ldw = 0) {
   int cnt = 0;
   for (int ii = 0; ii < TI; ++ii) {
     const float w = weight(ii, T.x[ii], T.f[ii]);
+    if constexpr (STORE_W) wout[ii * ldw] = w;
     // a linear weight may be negative: it enters the moments, and only
     // w > 0 is counted
     if (w != 0.0f) {

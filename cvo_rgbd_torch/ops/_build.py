@@ -47,19 +47,19 @@ SIGNATURES = {
     ),
     "fused_wsq": ("fused_wsq_launch", [_P, _I] + [_P] * 3 + [_I] * 3 + [_P]),
     "align_fused_tiled": (
-        "align_fused_tiled_launch", [_P] * 26 + [_I] * 6 + [_P]
+        "align_fused_tiled_launch", [_P] * 27 + [_I] * 6 + [_P]
     ),
     "align_fused_resident": (
-        "align_fused_resident_launch", [_P] * 26 + [_I] * 6 + [_P]
+        "align_fused_resident_launch", [_P] * 27 + [_I] * 6 + [_P]
     ),
     "fused_flow": ("fused_flow_launch", [_P] * 12 + [_I] * 5 + [_P]),
     "fused_step_coeffs": ("fused_step_launch", [_P] * 13 + [_I] * 5 + [_P]),
     "construct_probe": ("construct_probe_launch", [_I] + [_P] * 6),
     "align_fused_tiled_timed": (
-        "align_fused_tiled_launch", [_P] * 26 + [_I] * 6 + [_P]
+        "align_fused_tiled_launch", [_P] * 27 + [_I] * 6 + [_P]
     ),
     "align_fused_resident_timed": (
-        "align_fused_resident_launch", [_P] * 26 + [_I] * 6 + [_P]
+        "align_fused_resident_launch", [_P] * 27 + [_I] * 6 + [_P]
     ),
     "align_fused_phase_ns": ("align_fused_phase_ns", [_P, _I]),
     "fused_flow_timed": ("fused_flow_launch", [_P] * 12 + [_I] * 5 + [_P]),

@@ -25,9 +25,10 @@ each mode:
   r_i = sum_j A_ij y_j - (sum_j A_ij) x_i (pallas_align.py:507-528), and
   acvo's self sums over the untransformed clouds (:430-505);
 - tiled: the flow from the moment matrix (core/moments.py, as
-  pallas_align.py:915-945), acvo's self sums with the moving cloud
-  transformed (:947-1054), and the exact AABB tile skip when
-  `p.tile_skip` is on.
+  pallas_align.py:915-945), and acvo's self sums with the moving cloud
+  transformed (:947-1054);
+- both: the exact AABB tile skip when `p.tile_skip` is on (it drops
+  only tiles whose weights are all zero).
 
 Both modes take the line-search coefficients from the moment matrix
 Mom = A^T Phi(x - c0) (:556-605, 1056-1119).  In MATLAB's linear color
@@ -68,7 +69,7 @@ from cvo_rgbd_torch.ops.moments import (
 from cvo_rgbd_torch.ops.wsq import TILE_W
 from cvo_rgbd_torch.params import AcvoParams, fast_exp
 
-# rows of a resident row item and of the kernel's padding
+# rows of a resident row block and of the kernel's padding
 # (csrc/align_fused.cu ROWS)
 ROWS = 128
 # the kernel's result row: tf 12 | R 9 | T 3 | k | conv | ell | omega 3 | v 3
@@ -273,8 +274,7 @@ def align_fused_plain(p, fixed: PointCloud, moving: PointCloud, R0=None,
     `counts`, a dict, if given, gathers over the iterations the pairs
     the function needs: "pairs" and "gated" of the moment sweep (kept
     tiles only), and "self_pairs" and "self_gated" of acvo's
-    upper-triangle self sweeps.  Resident mode's row sweep evaluates
-    the moment sweep's pairs a second time; they are not counted.
+    upper-triangle self sweeps.
 
     `dtype=torch.float64` (CPU only) runs the same algebra on the clouds
     cast to float64, with the exact exp: a reference that tells which
@@ -299,9 +299,12 @@ def align_fused_plain(p, fixed: PointCloud, moving: PointCloud, R0=None,
     vv = torch.zeros(3, dtype=dtype, device=dev)
     conv = False
     it = 0
-    skip = mode == "tiled" and p.tile_skip
+    skip = p.tile_skip
     if skip:
-        lo_x, hi_x = block_bounds(x, fixed.mask, TILE_I)
+        # the kernel's tiles of a resident fixed cloud padded to whole row
+        # blocks (masked rows, in no box)
+        xk = _pad_rows(fixed, -(-x.shape[0] // ROWS) * ROWS)
+        lo_x, hi_x = block_bounds(xk.positions, xk.mask, TILE_I)
         md_xx = _self_bounds(fixed) if adaptive else None
         md_yy = _self_bounds(moving) if adaptive else None
     else:
@@ -331,7 +334,7 @@ def align_fused_plain(p, fixed: PointCloud, moving: PointCloud, R0=None,
         if skip:
             lo_y, hi_y = block_bounds(ty, moving.mask, TILE_J)
             md = aabb_min_d2(lo_x, hi_x, lo_y, hi_y)
-            keep = _keep(md, ell, k, TILE_I, TILE_J)
+            keep = _keep(md, ell, k, TILE_I, TILE_J)[:x.shape[0]]
             A = torch.where(keep, A, 0.0)
             kept = int(keep.sum())
         if counts is not None:
@@ -503,32 +506,48 @@ def _init_rows(p, dev, b, R0, T0, ell0, c0):
 
 def lane_scratch(n: int, m: int, mode: str, adaptive: bool) -> dict:
     """{name: (shape, dtype)} of one lane's scratch and result row, in
-    the kernel's argument order and at the strides of
+    the kernel's argument order (SCRATCH_ARGS) and at the strides of
     csrc/align_fused.cu:at_lane.  A
     moment item is one (i-tile, j-block) pair with its own partial slot
     and count (ops/moments.py:sweep_scratch); a j-block's ticket counts
-    the moment items of its kept tiles, and acvo's last ticket a lane's
-    column and self items.  Every shape follows from (n, m, mode, adaptive) alone: a
-    batch allocates lanes x these, and no split depends on the grid."""
+    the moment items of its kept tiles, and acvo's ticket after them a
+    lane's column and self items.  Resident mode adds a ticket per row
+    block of ROWS rows, which counts the moment items of the row block's
+    kept tiles, and "w", the [n, m] weights those items store for the
+    row flow (at most 4 MB a lane: N*M <= 2^20 in both resident
+    budgets); tiled mode has no "w".  Every shape follows from (n, m,
+    mode, adaptive) alone: a batch allocates lanes x these, and no split
+    depends on the grid."""
     f32, i32 = torch.float32, torch.int32
     sweep = sweep_scratch(n, m)
     nbj = m // TILE_J
     nbx, nby = n // TILE_W, m // TILE_W
     n_self = (nbx * (nbx + 1) // 2 + nby * (nby + 1) // 2) if adaptive else 0
-    n_flow = n // ROWS if mode == "resident" else nbj
-    return {
+    resident = mode == "resident"
+    n_flow = n // ROWS if resident else nbj
+    scratch = {
         "mom_part": (sweep["part"], f32),
         "cnt_part": (sweep["count"], i32),
         "cnt_col": ((nbj,), i32),
-        "ticket": ((nbj + 1,), i32),
+        "ticket": ((nbj + 1 + (n // ROWS if resident else 0),), i32),
         "mom": ((NUM_MONO, m), f32),
         "flow_part": ((max(n_flow, 1), 8), f32),
         "self_w": ((max(n_self, 1),), f32),
         "self_c": ((max(n_self, 1),), i32),
         "red": ((8,), f32),
         "bcde_part": ((nbj, 4), f32),
-        "out": ((OUT_LEN,), f32),
     }
+    if resident:
+        scratch["w"] = ((n, m), f32)
+    scratch["out"] = ((OUT_LEN,), f32)
+    return scratch
+
+
+# the scratch pointers of csrc/align_fused.cu's entry points, in order;
+# one lane_scratch lacks (tiled mode's "w") goes as null
+SCRATCH_ARGS = ("mom_part", "cnt_part", "cnt_col", "ticket", "mom",
+                "flow_part", "self_w", "self_c", "red", "bcde_part", "w",
+                "out")
 
 
 def align_fused_cuda(p, fixed: PointCloud, moving: PointCloud, R0=None,
@@ -558,7 +577,7 @@ def align_fused_batched_cuda(p, fixed: PointCloud, moving: PointCloud,
     resident = mode == "resident"
     b = fixed.positions.shape[0]
     # a resident fixed cloud whose capacity is a multiple of 8 only is
-    # padded to whole row items; the padding rows are masked out
+    # padded to whole row blocks; the padding rows are masked out
     n = -(-fixed.positions.shape[1] // ROWS) * ROWS
     fixed_k = _pad_rows(fixed, n)
     c0, phi = moments_center(fixed)
@@ -572,9 +591,8 @@ def align_fused_batched_cuda(p, fixed: PointCloud, moving: PointCloud,
                       dev)
     table = _shift_table_on(dev)
     m = moving.positions.shape[1]
-    use_skip = (not resident) and p.tile_skip
     xb = yb = md_xx = md_yy = None
-    if use_skip:
+    if p.tile_skip:
         lo, hi = block_bounds(fixed_k.positions, fixed_k.mask, TILE_I)
         xb = torch.cat([lo, hi], dim=-1).contiguous()
         lo, hi = block_bounds(moving.positions, moving.mask, TILE_J)
@@ -603,7 +621,7 @@ def align_fused_batched_cuda(p, fixed: PointCloud, moving: PointCloud,
         *(t.data_ptr() for t in clouds), phi.data_ptr(), table.data_ptr(),
         ptr(xb), ptr(yb), ptr(md_xx), ptr(md_yy), consts.data_ptr(),
         init.data_ptr(),
-        sched_t.data_ptr(), *(t.data_ptr() for t in scratch.values()),
+        sched_t.data_ptr(), *(ptr(scratch.get(k)) for k in SCRATCH_ARGS),
         n, m, len(sched), int(adaptive), int(fast_exp(p)), b,
         torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -629,7 +647,7 @@ def phase_ns(reset=True):
     return list(out)
 
 
-ITEM_KINDS = ("moment", "skipped", "column", "counts", "row", "self")
+ITEM_KINDS = ("moment", "skipped", "column", "counts", "row_flow", "self")
 
 
 def item_ns(reset=True):

@@ -14,8 +14,9 @@ acvo resident at N=M=1024 (the 96x128 render) and tiled at N=M=3072
 (the 240x320 render).  For each it prints one JSON line: the median
 CUDA-event time of exactly 10 and of 60 iterations (eps = eps_2 = 0; a
 device spin ahead of the first event hides the host's enqueue), the
-slope between them, and from torch.profiler over REPEATS calls of 10
-iterations the align kernel's device time, the other device time (the
+slope between them, the SHA-1 of the 10-iteration result row, and
+from torch.profiler over REPEATS calls of 10 iterations the align
+kernel's device time, the other device time (the
 precompute) and the kernel launches, each per call.  With `--phases`
 (a version with the timed build of the kernel) it adds the kernel's
 per-phase split in us an iteration: block 0's time from the top of an
@@ -24,9 +25,11 @@ iteration to the first grid barrier ("phase1"), to the second
 ("tail"), over REPEATS launches of 60 iterations.  A version whose
 phase 2 runs inside phase 1 (no barrier between them) reports 0 for
 it.  Then: `fused_moments` at the shapes of chip_smoke's phase 3 (the
-first 3072 pair, ck cache and tile skip, ell = 0.03); the 63-lane
+first 3072 pair, ck cache and tile skip, ell = 0.03; with the SHA-1 of
+its outputs); the 63-lane
 batched launch of chip_smoke's phase 8 at the 0.015 m grid (9 pcd pairs
-x 7, N=M=2816, linear color, exactly 10 iterations); and fused
+x 7, N=M=2816, linear color, exactly 10 iterations, with the SHA-1 of
+its rows); and fused
 odometry over the 10-frame render (phase 5c: cvo and acvo at 3072),
 frames/s on the host clock, two runs each.  The card's name and power
 limit come first.  It needs a card.
@@ -38,6 +41,20 @@ pair (cvo, acvo) for exactly 1, 3 and 10 iterations on the card and
 through the plain version in float32 on the card and in float64 on the
 CPU, and prints for each pair how far the card and the float32 plain
 version each are from the float64 run: which side a drift comes from.
+
+    python -m cvo_rgbd_torch.time_fused --resident [--phases]
+
+runs instead the resident aligns of chip_smoke.py (cvo and acvo on phase
+3c's 1024 render pairs, linear on the first pcd pair at 384 and the
+first SLAM pair at 512, and phase 8's 63-lane batch at 384), precise and
+fast: the SHA-1 of the result rows after exactly 1, 3, 10 and 60
+iterations, the 10- and 60-iteration times and the slope, launches a
+call and, with `--phases`, the timed build's split with phase 1's
+items by kind; then fused odometry over the 10-frame render at
+num_want=1024 (phase 5c, frames/s, three runs) and fused SLAM over
+phase 9's 40 frames at 512 (s/frame, two runs), the main paths that
+run resident.  In the PYTHONPATH form, parent and change print their
+bits side by side.
 
     python -m cvo_rgbd_torch.time_fused --flow
 
@@ -74,8 +91,9 @@ that the two print their bits and times in one call.
 
 prints instead, for the resident cvo kernel of a built library (by
 default this package's `_build/libalign_fused.so`), each innermost loop
-of its machine code (`cuobjdump -sass`) with its instruction count and
-its shared-memory loads: the Gram sweeps' cost a pair.
+of its machine code (`cuobjdump -sass`) with its instruction count, its
+shared-memory loads and its FRND and MUFU.EX2 instructions (the
+exponentials of a pair weight): the Gram sweeps' cost a pair.
 
     python -m cvo_rgbd_torch.time_fused --resources [NAME ...]
 
@@ -178,8 +196,10 @@ def sass_functions(lib):
 
 
 def innermost_loops(ins):
-    """[(start, end, instructions, shared loads)] of each innermost loop
-    (a backward branch enclosing no other) of one function's `ins`."""
+    """[(start, end, instructions, shared loads, FRND, MUFU.EX2)] of each
+    innermost loop (a backward branch enclosing no other) of one
+    function's `ins`: exp_neg rounds with FRND (rintf), `__expf` is
+    MUFU.EX2, so a loop with either evaluates pair weights."""
     index = {a: i for i, (a, _) in enumerate(ins)}
     loops = []
     for i, (a, txt) in enumerate(ins):
@@ -192,11 +212,13 @@ def innermost_loops(ins):
             continue
         body = [txt for _, txt in ins[s:e + 1]]
         out.append((ins[s][0], ins[e][0], len(body),
-                    sum("LDS" in t for t in body)))
+                    sum("LDS" in t for t in body),
+                    sum("FRND" in t for t in body),
+                    sum("MUFU.EX2" in t for t in body)))
     return sorted(out)
 
 
-def sass_loops(lib, kernel="align_kernelILb1ELb0E"):
+def sass_loops(lib, kernel="align_kernelILb1ELb0ELb0E"):
     """innermost_loops of the one function of `lib` whose mangled name
     holds `kernel`."""
     (ins,) = [v for k, v in sass_functions(lib).items() if kernel in k]
@@ -234,8 +256,15 @@ def resources(libs):
                 else shown.split("(")[0], "registers": reg,
                 "stack_bytes": stack, "instructions": len(ins),
                 "mufu_ex2": sum("MUFU.EX2" in t for _, t in ins),
-                "innermost_loops": [n for _, _, n, _ in
+                "innermost_loops": [loop[2] for loop in
                                     innermost_loops(ins)]}), flush=True)
+
+
+def sha1(t):
+    """SHA-1 of a tensor's bytes: the bits two versions must share."""
+    import hashlib
+
+    return hashlib.sha1(t.cpu().numpy().tobytes()).hexdigest()
 
 
 def card_line():
@@ -352,11 +381,135 @@ def time_aligns(with_phases):
         print(json.dumps({
             "package": cvo_rgbd_torch.__file__, "mode": mode,
             "params": type(base).__name__, "n": x.capacity,
+            "sha1_10": sha1(align_fused_cuda(q, x, y)),
             "ms_10": t[10], "ms_60": t[60], "slope_ms": (t[60] - t[10]) / 50,
             "kernel_ms_10": kern, "other_device_ms_10": other,
             "launches_per_call": launches, **split,
         }), flush=True)
     return big
+
+
+def slam_clouds(grid=0.05):
+    """chip_smoke's phase-9 clouds at `grid`: 40 frames of
+    `depth_loop_path` written as .pcd, loaded and padded to one capacity
+    (512 at 0.05 m), on the card."""
+    import tempfile
+
+    import torch
+
+    from cvo_rgbd_torch.batch import load_pcd_dir, pad_clouds
+    from cvo_rgbd_torch.io.export import depth_to_cloud, write_pcd
+    from cvo_rgbd_torch.synth import BandScene, depth_loop_path, render_frames
+
+    scene = BandScene(240, 320)
+    with tempfile.TemporaryDirectory() as root:
+        for _, nm, rgb, dep, _ in render_frames(depth_loop_path(40, period=30),
+                                                scene):
+            write_pcd(os.path.join(root, f"{nm}.pcd"),
+                      *depth_to_cloud(rgb, dep, scene.cam))
+        return pad_clouds(load_pcd_dir(root, grid=grid), torch.device("cuda"))
+
+
+def slam_pair(clouds):
+    """The first pair of slam_clouds() kd-sorted, with 5 feature planes."""
+    from cvo_rgbd_torch.core.cloud import kd_sort
+    from cvo_rgbd_torch.ops.gram import pad_feat
+
+    return tuple(kd_sort(c._replace(features=pad_feat(c.features)))
+                 for c in clouds[:2])
+
+
+def resident_cases(slam):
+    """(label, params, fixed, moving) of the resident aligns of
+    chip_smoke.py, every cloud stacked on a lane axis: cvo and acvo on
+    phase 3c's 1024 render pairs (se), the first pcd pair at 384 (phases
+    6 and 8, linear), the first SLAM pair at 512 (phase 9, linear), and
+    phase 8's 63-lane batch at 384.  `slam`: slam_clouds()."""
+    from cvo_rgbd_torch.core.cloud import stack_clouds
+    from cvo_rgbd_torch.params import MATLAB_PARAMS, AcvoParams, CvoParams
+
+    def one(pair_):
+        return tuple(stack_clouds([c]) for c in pair_)
+
+    small = (96, 128)
+    xs, ys = pcd_lanes(grid=0.05, repeat=7)
+    return [("cvo se 1024", CvoParams(), *one(pair(small, 1024, 1))),
+            ("acvo se 1024", AcvoParams(), *one(pair(small, 1024, 0))),
+            ("linear 384", MATLAB_PARAMS, *one((xs.lane(0), ys.lane(0)))),
+            ("linear 512", MATLAB_PARAMS, *one(slam_pair(slam))),
+            ("linear 384 x63", MATLAB_PARAMS, xs, ys)]
+
+
+def time_resident(with_phases):
+    """The resident aligns of resident_cases(), precise and fast: per
+    case one JSON line with the SHA-1 of the [lanes, 33] result rows
+    after exactly 1, 3, 10 and 60 iterations (eps = eps_2 = 0), the
+    median CUDA-event time of 10 and 60 iterations and the slope, the
+    kernel launches a call and, with `--phases`, the timed build's
+    per-phase split with phase 1's items by kind.  Then the main paths
+    that run resident: phase 5c's fused odometry at num_want=1024 and
+    phase 9's fused SLAM at 512."""
+    import cvo_rgbd_torch
+    from cvo_rgbd_torch.ops.align_fused import (
+        align_fused_batched_cuda,
+        fused_mode,
+    )
+
+    slam = slam_clouds()
+    for label, base, xs, ys in resident_cases(slam):
+        for exp_mode in ("precise", "fast"):
+            def run(it):
+                return dataclasses.replace(base, backend="fused", max_iter=it,
+                                           eps=0.0, eps_2=0.0,
+                                           exp_mode=exp_mode)
+
+            if fused_mode(run(1), xs, ys) != "resident":
+                raise RuntimeError(f"{label}: not resident")
+            sha = {it: sha1(align_fused_batched_cuda(run(it), xs, ys))
+                   for it in (1, 3, 10, 60)}
+            t = {it: time_ms(lambda q=run(it): align_fused_batched_cuda(
+                q, xs, ys)) for it in (10, 60)}
+            q = run(60)
+            split = phases(lambda **kw: align_fused_batched_cuda(
+                q, xs, ys, **kw)) if with_phases else {}
+            print(json.dumps({
+                "package": cvo_rgbd_torch.__file__, "resident": label,
+                "exp_mode": exp_mode, "params": type(base).__name__,
+                "lanes": xs.mask.shape[0], "n": xs.mask.shape[1],
+                "m": ys.mask.shape[1], "sha1": sha, "ms_10": t[10],
+                "ms_60": t[60], "slope_ms": (t[60] - t[10]) / 50,
+                "launches_per_call": launches_per_call(
+                    lambda: align_fused_batched_cuda(run(10), xs, ys)),
+                **split}), flush=True)
+    time_odometry(num_want=1024, runs=3)
+    time_slam(slam)
+
+
+def time_slam(clouds, runs=2):
+    """Phase 9's fused SLAM (MATLAB_PARAMS, default SlamConfig) over
+    slam_clouds(), s/frame on the host clock, `runs` runs."""
+    import time
+
+    import torch
+
+    from cvo_rgbd_torch.params import MATLAB_PARAMS
+    from cvo_rgbd_torch.slam import KeyframeSlam, SlamConfig
+
+    p = dataclasses.replace(MATLAB_PARAMS, backend="fused")
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        slam = KeyframeSlam(p, SlamConfig())
+        for i, cloud in enumerate(clouds):
+            slam.process(i, cloud)
+        slam.solve()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) / len(clouds))
+    print(json.dumps({"slam": "fused", "n": clouds[0].capacity,
+                      "s_per_frame": times,
+                      "keyframes": [k.index for k in slam.keyframes],
+                      "loop_closures": len(slam.loop_edges)}), flush=True)
 
 
 def time_moments(x, y):
@@ -388,8 +541,11 @@ def time_moments(x, y):
         torch.cuda.synchronize()
     by_kernel = {e.key[:40]: e.device_time_total / REPEATS / 1e3
                  for e in prof.key_averages() if e.device_time_total > 0}
+    mom, nnz = moments.fused_moments_cuda(*args)
     print(json.dumps({"kernel": "fused_moments", "n": x.capacity,
                       "ell": 0.03, "ck": True, "skip": True, "ms": ms,
+                      "sha1": sha1(torch.cat([mom.reshape(-1),
+                                              nnz.reshape(1)])),
                       "device_ms_by_kernel": by_kernel}), flush=True)
 
 
@@ -406,11 +562,13 @@ def time_batched(with_phases):
                    ) if with_phases else {}
     print(json.dumps({"batched": "tiled linear", "lanes": xs.mask.shape[0],
                       "n": xs.mask.shape[1], "iterations": 10, "ms": ms,
+                      "sha1": sha1(align_fused_batched_cuda(q, xs, ys)),
                       **split}), flush=True)
 
 
-def time_odometry():
-    """Phase 5c: fused odometry over the 10-frame render at 3072."""
+def time_odometry(num_want=3000, runs=2):
+    """Phase 5c: fused odometry over the 10-frame render at `num_want`
+    points (3072 tiled, 1024 resident), `runs` runs."""
     import io
     import time
 
@@ -423,17 +581,18 @@ def time_odometry():
     for adaptive, p in ((False, CvoParams(backend="fused")),
                         (True, AcvoParams(backend="fused"))):
         rates = []
-        for _ in range(2):
+        for _ in range(runs):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             recs = run_odometry_frames(
                 ((i, nm, rgb, dep) for i, nm, rgb, dep, _ in frames), 1,
                 adaptive=adaptive, params=p, traj=io.StringIO(),
-                num_want=3000, log=lambda *a: None)
+                num_want=num_want, log=lambda *a: None)
             torch.cuda.synchronize()
             rates.append(len(recs) / (time.perf_counter() - t0))
         print(json.dumps({"odometry": "acvo" if adaptive else "cvo",
-                          "backend": "fused", "n": 3072,
+                          "backend": "fused",
+                          "n": -(-num_want // 128) * 128,
                           "frames_per_s": rates,
                           "iterations": [r.iterations for r in recs]}),
               flush=True)
@@ -728,8 +887,6 @@ def time_gram():
     cvo pair: device ms, launches a call, the time of one `fill_` of
     the output (the store rate the card reaches on it) and the SHA-1 of
     the output's bytes."""
-    import hashlib
-
     import cvo_rgbd_torch
     import torch
 
@@ -761,7 +918,7 @@ def time_gram():
             "launches_per_call": launches_per_call(fn),
             # the store rate the card reaches on this output: one fill_
             "fill_ms": time_ms(lambda: out.fill_(1.0)),
-            "sha1": hashlib.sha1(fn().cpu().numpy().tobytes()).hexdigest(),
+            "sha1": sha1(fn()),
         }), flush=True)
 
 
@@ -831,10 +988,11 @@ def main(argv=None):
 
         lib = argv[1] if len(argv) > 1 else str(_build.BUILD
                                                 / "libalign_fused.so")
-        kernel = argv[2] if len(argv) > 2 else "align_kernelILb1ELb0E"
-        for start, end, n, lds in sass_loops(lib, kernel):
+        kernel = argv[2] if len(argv) > 2 else "align_kernelILb1ELb0ELb0E"
+        for start, end, n, lds, frnd, ex2 in sass_loops(lib, kernel):
             print(json.dumps({"loop": f"{start:#x}-{end:#x}",
-                              "instructions": n, "shared_loads": lds}))
+                              "instructions": n, "shared_loads": lds,
+                              "frnd": frnd, "mufu_ex2": ex2}))
         return 0
     if not torch.cuda.is_available():
         print("time_fused: no CUDA device", file=sys.stderr)
@@ -861,6 +1019,9 @@ def main(argv=None):
     _build.build()
     if argv[:1] == ["--drift"]:
         drift()
+        return 0
+    if argv[:1] == ["--resident"]:
+        time_resident("--phases" in argv)
         return 0
     x, y = time_aligns("--phases" in argv)
     time_moments(x, y)

@@ -235,7 +235,7 @@ def test_align_fused_long_ell_schedule(dev, mode):
 @pytest.mark.parametrize("algo", ["cvo", "acvo"])
 def test_align_fused_unequal_clouds(dev, algo, mode, n, m):
     """Fixed and moving clouds of different capacities: every work split
-    of the kernel (row items, moment chunks, columns, both self
+    of the kernel (row blocks, moment items, columns, both self
     triangles) sizes itself from its own cloud."""
     import cvo_rgbd_torch as ct
     from cvo_rgbd_torch.core.cloud import kd_sort
@@ -264,7 +264,7 @@ def test_align_fused_unequal_clouds(dev, algo, mode, n, m):
 
 def test_align_fused_pads_a_resident_fixed_cloud(dev):
     """A hand-built fixed cloud of capacity 1000 (a multiple of 8 only)
-    runs resident; the kernel pads it to whole row items with masked
+    runs resident; the kernel pads it to whole row blocks with masked
     rows, which must change nothing."""
     import cvo_rgbd_torch as ct
     from cvo_rgbd_torch.ops.align_fused import (
@@ -710,30 +710,104 @@ def test_fused_moments_skip_extremes(dev, which):
         assert torch.equal(mom, ref) and float(nnz) == float(ref_nnz)
 
 
-@pytest.mark.parametrize("lanes", [1, 9, 63])
-def test_align_fused_lane_bits_at_any_lane_count(dev, lanes):
-    """A batch of `lanes` copies of three pairs (tiled linear, 1152):
-    every lane the bits of its pair's one-pair launch."""
+def _lane_pairs(dev, case):
+    """(params, three kd-sorted pairs) of a lane-bits case: linear pairs
+    tiled at 1152 or resident at 384, or se pairs resident at 1024."""
     import dataclasses
 
     import cvo_rgbd_torch as ct
+
+    if case == "resident se 1024":
+        p = ct.CvoParams()
+        pairs = [_clouds(dev, n=1000, cap=1024, seed=s) for s in (6, 7, 8)]
+    else:
+        p = ct.MATLAB_PARAMS
+        n, cap = (1100, 1152) if case == "tiled linear 1152" else (360, 384)
+        pairs = [_linear_clouds(dev, n=n, cap=cap, seed=s)[:2]
+                 for s in (6, 7, 8)]
+        pairs = [(_padded(x), _padded(y)) for x, y in pairs]
+    return dataclasses.replace(p, backend="fused", max_iter=12, eps=0.0,
+                               eps_2=0.0), pairs
+
+
+@pytest.mark.parametrize("lanes", [1, 9, 63])
+@pytest.mark.parametrize("case", ["tiled linear 1152", "resident linear 384",
+                                  "resident se 1024"])
+def test_align_fused_lane_bits_at_any_lane_count(dev, case, lanes):
+    """A batch of `lanes` copies of three pairs: every lane the bits of
+    its pair's one-pair launch."""
     from cvo_rgbd_torch.core.cloud import stack_clouds
     from cvo_rgbd_torch.ops.align_fused import (
         align_fused_batched_cuda,
         align_fused_cuda,
+        fused_mode,
     )
 
-    pairs = [_linear_clouds(dev, n=1100, cap=1152, seed=s)[:2]
-             for s in (6, 7, 8)]
-    pairs = [(_padded(x), _padded(y)) for x, y in pairs]
-    p = dataclasses.replace(ct.MATLAB_PARAMS, backend="fused", max_iter=12,
-                            eps=0.0, eps_2=0.0)
+    p, pairs = _lane_pairs(dev, case)
+    assert fused_mode(p, *pairs[0]) == case.split()[0]
     order = [k % 3 for k in range(lanes)]
     rows = align_fused_batched_cuda(
         p, *(stack_clouds([pairs[k][side] for k in order]) for side in (0, 1)))
     single = [align_fused_cuda(p, x, y) for x, y in pairs]
     for lane, k in enumerate(order):
         assert torch.equal(rows[lane], single[k]), lane
+
+
+def _resident_pair(dev, algo):
+    """A resident pair for cvo (random clouds), acvo (the rendered acvo
+    pair) or linear (random colored clouds, 5 planes), kd-sorted, and
+    its params."""
+    import cvo_rgbd_torch as ct
+    from cvo_rgbd_torch.core.cloud import kd_sort
+
+    if algo == "cvo":
+        return ct.CvoParams(), _clouds(dev, n=1000, cap=1024, seed=2)
+    if algo == "acvo":
+        return ct.AcvoParams(), [kd_sort(c) for c in
+                                 _rendered_pair(dev, num_want=1024)]
+    x, y, _ = _linear_clouds(dev, n=360, cap=384, seed=9)
+    return ct.MATLAB_PARAMS, (_padded(x), _padded(y))
+
+
+@pytest.mark.parametrize("exp_mode", ["precise", "fast"])
+@pytest.mark.parametrize("algo", ["cvo", "acvo", "linear"])
+def test_resident_skip_on_and_off_give_the_same_rows(dev, algo, exp_mode):
+    """The resident kernel with the tile skip on and off after 1, 3 and
+    10 iterations: the same result rows, bit for bit."""
+    import dataclasses
+
+    from cvo_rgbd_torch.ops.align_fused import align_fused_cuda, fused_mode
+
+    base, (x, y) = _resident_pair(dev, algo)
+    for it in (1, 3, 10):
+        rows = []
+        for skip in (True, False):
+            p = dataclasses.replace(base, backend="fused", max_iter=it,
+                                    eps=0.0, eps_2=0.0, tile_skip=skip,
+                                    exp_mode=exp_mode)
+            assert fused_mode(p, x, y) == "resident"
+            rows.append(align_fused_cuda(p, x, y))
+        assert torch.equal(rows[0], rows[1]), it
+
+
+@pytest.mark.parametrize("algo", ["cvo", "acvo", "linear"])
+def test_resident_align_after_another_pair_gives_its_solo_bits(dev, algo):
+    """The resident scratch (the stored weights, the row-block tickets)
+    holds nothing from the launch before: a pair aligned right after a
+    different pair, of the same shape, gives the bits it gave alone."""
+    import dataclasses
+
+    from cvo_rgbd_torch.ops.align_fused import align_fused_cuda
+
+    base, (x, y) = _resident_pair(dev, algo)
+    p = dataclasses.replace(base, backend="fused", max_iter=10, eps=0.0,
+                            eps_2=0.0)
+    solo = align_fused_cuda(p, x, y).clone()
+    torch.cuda.synchronize()
+    # another pair of the same capacities: the moving cloud shifted
+    other = y._replace(positions=y.positions + 0.05)
+    align_fused_cuda(p, y, other)
+    assert torch.equal(align_fused_cuda(p, x, y), solo)
 
 
 @pytest.mark.parametrize("mode", ["resident", "tiled"])

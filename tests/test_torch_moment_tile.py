@@ -28,7 +28,11 @@ from cvo_rgbd_torch.core.cloud import aabb_min_d2, block_bounds, kd_sort
 from cvo_rgbd_torch.core.registration import build_moments_pre
 from cvo_rgbd_torch.frontend import make_frontend
 from cvo_rgbd_torch.ops import gram, moments
-from cvo_rgbd_torch.ops.align_fused import align_fused_plain, lane_scratch
+from cvo_rgbd_torch.ops.align_fused import (
+    ROWS,
+    align_fused_plain,
+    lane_scratch,
+)
 from cvo_rgbd_torch.ops.gram import pad_feat
 from cvo_rgbd_torch.params import MATLAB_PARAMS
 from cvo_rgbd_torch.synth import BandScene, render_frames, revisit_path
@@ -170,7 +174,8 @@ def test_sweep_split_follows_the_shapes_alone(n, m):
     """One work item per (i-tile, j-block) pair, each with its own slice
     of a partial slot and its own count; align_fused's
     lane scratch holds the same sweep scratch, a count and a ticket per
-    j-block (+1 for acvo's counts), whatever the lanes or the grid."""
+    j-block (+1 for acvo's counts, + one per row block in resident mode),
+    whatever the lanes or the grid."""
     nbi, nbj = n // moments.TILE_I, m // moments.TILE_J
     sweep = moments.sweep_scratch(n, m)
     assert sweep == {"part": (nbi, moments.NUM_MONO, m),
@@ -181,7 +186,8 @@ def test_sweep_split_follows_the_shapes_alone(n, m):
             assert lane["mom_part"] == (sweep["part"], torch.float32)
             assert lane["cnt_part"] == (sweep["count"], torch.int32)
             assert lane["cnt_col"] == ((nbj,), torch.int32)
-            assert lane["ticket"] == ((nbj + 1,), torch.int32)
+            rows = n // ROWS if mode == "resident" else 0
+            assert lane["ticket"] == ((nbj + 1 + rows,), torch.int32)
             assert list(lane)[-1] == "out"
 
 
