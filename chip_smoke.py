@@ -124,6 +124,7 @@ import dataclasses
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -200,6 +201,11 @@ FAST_POSE_TOL = 2e-3
 # 3f's form probe: the position exp's arguments z of its one pair, where
 # __expf is up to tens of ulps off and exp_neg one (phase_exp_forms)
 FORM_Z = tuple(float(z) for z in range(42, 74, 2))
+# phase 10: frames of the profiled kernel-backend cli run (1238 launches
+# an iteration: a trace of the whole render would run to millions of
+# events), and passes of the prefetch loader over the folder
+PROFILED_FRAMES = 3
+LOADER_PASSES = 5
 # fp32 operations of each toy probe case (csrc/construct_probe.cu): e's
 # 3 x [8, 128] dots of depth 256 (an FMA is 2), j's 256 x 256
 # difference, square and sum (4 with the scaling), one or two for the rest
@@ -309,6 +315,37 @@ def bound(nbytes, nops):
 def check(cond, msg):
     if not cond:
         raise AssertionError(msg)
+
+
+def png_bytes(img):
+    """A PNG file's bytes for an 8-bit RGB [H,W,3] uint8 or a 16-bit gray
+    [H,W] uint16 image, with the standard library alone (zlib, struct):
+    phase 10 writes its TUM folder without PIL.  Every row takes filter
+    type 0 (none)."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    if img.dtype == np.uint8 and img.ndim == 3 and img.shape[2] == 3:
+        depth, color_type, raw = 8, 2, img
+    elif img.dtype == np.uint16 and img.ndim == 2:
+        depth, color_type, raw = 16, 0, img.astype(">u2")
+    else:
+        raise ValueError(f"png_bytes: {img.dtype} {img.shape}")
+    h, w = img.shape[:2]
+    rows = np.ascontiguousarray(raw).reshape(h, -1).view(np.uint8)
+    data = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1)
+
+    def chunk(tag, body):
+        return (struct.pack(">I", len(body)) + tag + body
+                + struct.pack(">I", zlib.crc32(tag + body)))
+
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, color_type,
+                                         0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(data.tobytes(), 6))
+            + chunk(b"IEND", b""))
 
 
 def form_probe_clouds(dev, n_valid):
@@ -1266,7 +1303,9 @@ def phase_fused_timing(fixed, moving, p, kernel_ms_iter):
 
 
 def phase_odometry(frames, p, adaptive, num_want=NUM_WANT):
-    """A main path, with the launch counts read around it."""
+    """A main path, with the launch counts read around it.  Returns
+    (launches by kernel line row, the run: its trajectory text, ATE and
+    frames/s)."""
     import numpy as np
     import torch
 
@@ -1306,6 +1345,7 @@ def phase_odometry(frames, p, adaptive, num_want=NUM_WANT):
     check(all(np.isfinite(m).all() for m in est.values()), "non-finite pose")
     check(ate < 0.02, f"{name} odometry ATE {ate} m against the exact "
           "ground truth")
+    run = {"traj": traj.getvalue(), "ate": ate, "fps": len(recs) / dt}
     # the capacity picks the fused kernel's mode for every pair of a run
     mode = "tiled" if num_want > RESIDENT_NUM_WANT else "resident"
     launches = fused_by_mode(launches, mode)
@@ -1318,7 +1358,7 @@ def phase_odometry(frames, p, adaptive, num_want=NUM_WANT):
               f"once a pair: {launches}")
         check(not any(launches[k] for k in KERNELS),
               f"the {name} main path launched another kernel: {launches}")
-        return launches
+        return launches, run
     # the direct step's two sweeps take the place of the moment sweep
     step = ("fused_flow", "fused_step_coeffs") if direct else (
         "fused_moments",)
@@ -1328,7 +1368,7 @@ def phase_odometry(frames, p, adaptive, num_want=NUM_WANT):
     check(not any(launches[k] for k in KERNELS if k not in used),
           f"the {name} main path launched another kernel: {launches}")
     check(n_fused == 0, f"the {name} main path launched align_fused")
-    return launches
+    return launches, run
 
 
 def phase_probes():
@@ -1784,7 +1824,7 @@ def phase_slam(scene, root):
     and finite poses, and launches the kernels its route owns.  Then the
     fast kernels at the shapes of these launches, timed in turns with
     their precise forms.  Returns (precise launches, fast launches) by
-    kernel line row."""
+    kernel line row, and the ground truth by timestamp."""
     import numpy as np
     import torch
 
@@ -1908,8 +1948,307 @@ def phase_slam(scene, root):
     # (at ell_min no pair of these sparse clouds is within the radius)
     phase_kernels(*acvo[:2], pa, fast=True, ells=(pa.ell_init,))
     phase_wsq(*acvo[:2], pa, fast=True)
-    return precise, fast
+    return precise, fast, gt
 
+
+
+def write_tum_folder(root, frames):
+    """10a: the render as a TUM folder (rgb/, depth/, assoc.txt,
+    groundtruth.txt), the PNGs written by `png_bytes`: 8-bit RGB and
+    16-bit depth, the values `synth.render_frames` gives."""
+    import numpy as np
+
+    from cvo_rgbd_torch.io.tum import write_trajectory_line
+
+    for d in ("rgb", "depth"):
+        os.makedirs(os.path.join(root, d))
+    lines = []
+    with open(os.path.join(root, "groundtruth.txt"), "w") as gt:
+        gt.write("# ground truth\n")
+        for _, nm, rgb, dep, pose in frames:
+            for d, img, ref in (("rgb", rgb.astype(np.uint8), rgb),
+                                ("depth", dep.astype(np.uint16), dep)):
+                check(np.array_equal(img.astype(np.float32), ref),
+                      f"frame {nm}: {d} is not integral")
+                with open(os.path.join(root, d, f"{nm}.png"), "wb") as fh:
+                    fh.write(png_bytes(img))
+            lines.append(f"{nm} rgb/{nm}.png {nm} depth/{nm}.png")
+            write_trajectory_line(gt, nm, pose)
+    with open(os.path.join(root, "assoc.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def phase_loader(root, frames):
+    """10a: write the render as a TUM folder, decode every PNG through
+    the native loader (`cvo_rgbd_torch.native`, built here with g++)
+    and require the render's bits; time the decoder and the prefetch
+    loader over the folder.  Returns the loader's frames/s."""
+    import numpy as np
+
+    from cvo_rgbd_torch import native
+
+    t0 = time.perf_counter()
+    native.get_lib()
+    t_build = time.perf_counter() - t0
+    write_tum_folder(root, frames)
+    paths = [(os.path.join(root, "rgb", f"{nm}.png"),
+              os.path.join(root, "depth", f"{nm}.png"))
+             for _, nm, _, _, _ in frames]
+    t0 = time.perf_counter()
+    for (rp, dp), (_, nm, rgb, dep, _) in zip(paths, frames):
+        r, d = native.decode_png(rp), native.decode_png(dp)
+        check(r.dtype == np.uint8 and d.dtype == np.uint16
+              and np.array_equal(r.astype(np.float32), rgb)
+              and np.array_equal(d.astype(np.float32), dep),
+              f"the loader's decode of frame {nm} is not the render's bits")
+    decode_ms = (time.perf_counter() - t0) * 1e3 / len(frames)
+    h, w = frames[0][2].shape[:2]
+    rates = []
+    for _ in range(LOADER_PASSES):
+        t0 = time.perf_counter()
+        loader = native.PrefetchLoader([a for a, _ in paths],
+                                       [b for _, b in paths], w, h)
+        got = [i for i, _, _ in loader]
+        loader.close()
+        rates.append(len(got) / (time.perf_counter() - t0))
+        check(got == list(range(len(frames))), f"loader order {got}")
+    fps = median(rates)
+    size = sum(os.path.getsize(f) for pair in paths for f in pair)
+    log(f"loader: {len(frames)} frames of {h}x{w} as PNG ({size} bytes), "
+        f"library built in {t_build:.3f} s, every decode the render's bits; "
+        f"decode_png {decode_ms:.3f} ms a frame (rgb + depth); "
+        f"PrefetchLoader {fps:.1f} frames/s (median of {LOADER_PASSES} "
+        f"passes: {[round(r, 1) for r in rates]})")
+    return fps
+
+
+def phase_cli_run(root, frames, odometry, p, paf, loader_fps):
+    """10b-c: `cli run` over the TUM folder through the native loader.
+    (c) acvo on the fused backend at 1024 over all frames: phase 5c's
+    trajectory and ATE; (b) the kernel backend on PROFILED_FRAMES frames
+    with --profile-dir: the trajectory line for line phase 5's in-memory
+    run, and the trace with CUDA kernel events of color_gram and
+    fused_moments; then (c) once more, after the profiled run: the same
+    trajectory, its frames/s logged beside the first.  Returns the
+    launches by kernel line row."""
+    import torch
+
+    from cvo_rgbd_torch import cli
+    from cvo_rgbd_torch.evaluation import ate_rmse
+    from cvo_rgbd_torch.io.tum import read_trajectory
+    from cvo_rgbd_torch.utils.timing import device_events
+
+    launches = {k: 0 for k in KERNELS + FUSED}
+    gt = {float(nm): pose for _, nm, _, _, pose in frames}
+
+    def drive(args):
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli.main(["run", root, "1", *args])
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, read_launches()
+
+    def fused(when):
+        """(c): acvo fused at 1024 over every frame."""
+        out = os.path.join(root, "acvo_fused.txt")
+        dt, got = drive(["--adaptive", "--backend", "fused", "--num-want",
+                         str(RESIDENT_NUM_WANT), "--output", out])
+        ref = odometry[paf, RESIDENT_NUM_WANT]
+        with open(out) as fh:
+            text = fh.read()
+        ate = ate_rmse(gt, read_trajectory(out))["rmse"]
+        fps = (len(frames) - 1) / dt
+        log(f"cli run acvo fused {RESIDENT_NUM_WANT}, loader, {when}: "
+            f"{fps:.3f} frames/s with start-up (phase 5c in memory "
+            f"{ref['fps']:.3f}); ATE {ate!r} (phase 5c {ref['ate']!r}); "
+            f"loader alone {loader_fps:.1f} frames/s, "
+            f"{100.0 * fps / loader_fps:.2f}% of a frame's time at most; "
+            f"launches {got}")
+        check(text == ref["traj"] and ate == ref["ate"],
+              f"cli run (fused, loader, {when}) is not phase 5c's run")
+        check(got["align_fused"] == len(frames) - 1
+              and not any(got[k] for k in KERNELS),
+              f"cli run (fused) launched {got}")
+        launches["align_fused_resident"] += got["align_fused"]
+
+    fused("first")
+
+    # (b) the kernel backend, profiled
+    out = os.path.join(root, "cvo_profiled.txt")
+    prof_dir = os.path.join(root, "profile")
+    dt, got = drive(["--num-want", str(NUM_WANT), "--max-frames",
+                     str(PROFILED_FRAMES), "--profile-dir", prof_dir,
+                     "--output", out])
+    with open(out) as fh:
+        lines = fh.read().splitlines()
+    ref = odometry[p, NUM_WANT]["traj"].splitlines()[:PROFILED_FRAMES]
+    check(lines == ref, f"cli run (kernel, loader): {lines} is not phase "
+          f"5's in-memory trajectory {ref}")
+    traces = os.listdir(prof_dir)
+    check(len(traces) == 1, f"--profile-dir wrote {traces}")
+    trace = os.path.join(prof_dir, traces[0])
+    t0 = time.perf_counter()
+    events = device_events(trace)
+    t_scan = time.perf_counter() - t0
+    by_kernel = {k: sum(n for name, n in events.items() if tag in name)
+                 for k, tag in (("color_gram", "color_gram_kernel"),
+                                ("fused_moments", "moments_"))}
+    log(f"cli run kernel backend, {PROFILED_FRAMES} frames, loader, "
+        f"--profile-dir: {dt:.2f} s; trajectory = phase 5's first "
+        f"{PROFILED_FRAMES} lines; trace {os.path.getsize(trace)} bytes, "
+        f"{sum(events.values())} device events ({len(events)} names, "
+        f"scanned in {t_scan:.2f} s), kernel events {by_kernel} for "
+        f"wrapper launches {got}")
+    check(all(by_kernel.values()),
+          f"the trace holds no CUDA kernel event of {by_kernel}")
+    check(got["color_gram"] > 0 and got["fused_moments"] > 0
+          and got["align_fused"] == 0, f"cli run (kernel) launched {got}")
+    for k in KERNELS:
+        launches[k] += got[k]
+
+    fused("after the profiled run")
+    return launches
+
+
+def phase_trace(cases):
+    """10d: `core.trace.align_trace` on the kernel backend at the first
+    3072 pair, cvo and acvo, for `align`'s iterations + 5: the record
+    freezes at align's stopping iteration, the final state is align's
+    bits, and acvo's ell moves as align's does.  Returns the launches by
+    kernel line row."""
+    import torch
+
+    from cvo_rgbd_torch import align
+    from cvo_rgbd_torch.core.trace import align_trace
+
+    launches = {k: 0 for k in KERNELS + FUSED}
+    for p, x, y in cases:
+        adaptive = hasattr(p, "self_mode")
+        name = "acvo" if adaptive else "cvo"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = align(p, x, y)
+        k = int(res.iterations)
+        t_align = time.perf_counter() - t0
+        reset_launches()
+        t0 = time.perf_counter()
+        final, rec = align_trace(p, x, y, k + 5)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = read_launches()
+        conv = rec.converged.cpu()
+        ell = rec.ell.cpu()
+        log(f"align_trace {name} N={x.capacity}: {k + 5} iterations in "
+            f"{dt:.2f} s (align: {k + 1} in {t_align:.2f} s), converged from {int(conv.int().argmax())} (align "
+            f"stopped at {k}), ell {float(ell[0]):.5f} -> {float(ell[-1]):.5f}"
+            f" ({len(set(ell.tolist()))} values), |omega| first/last "
+            f"{float(rec.omega_norm[0]):.3e}/{float(rec.omega_norm[k]):.3e}; "
+            f"launches {got}")
+        check(bool(res.converged) and not conv[:k].any() and conv[k:].all(),
+              f"align_trace {name}: the record does not freeze at {k}")
+        check(all(torch.equal(a, b) for a, b in (
+            (final.tf, res.tf), (final.R, res.R), (final.T, res.T),
+            (final.ell, res.ell))), f"align_trace {name}: not align's bits")
+        check(not adaptive or len(set(ell[:k + 1].tolist())) > 1,
+              f"align_trace {name}: ell never moved")
+        used = ("color_gram", "fused_moments") + (
+            ("fused_wsq",) if adaptive else ())
+        check(all(got[u] > 0 for u in used) and got["align_fused"] == 0,
+              f"align_trace {name} launched {got}")
+        for u in KERNELS:
+            launches[u] += got[u]
+    return launches
+
+
+def phase_slam_refine(root, gt):
+    """10e: `cli slam --refine` over phase 9's .pcd folder (MATLAB_PARAMS,
+    kernel backend): a lower BA cost and finite poses; the card's
+    `ba_solve` on that problem against the CPU's (poses and landmarks
+    within 1e-4, costs 1e-3 relative, tests/test_torch_ba.py), a rerun
+    on the card beside it (atomic scatter-adds: logged, not gated), the
+    BA time, and the keyframe ATE before and after.  Returns the
+    launches by kernel line row."""
+    import numpy as np
+    import torch
+
+    from cvo_rgbd_torch import cli, parallel
+    from cvo_rgbd_torch.evaluation import ate_rmse
+    from cvo_rgbd_torch.io.tum import read_trajectory
+    from cvo_rgbd_torch.slam import KeyframeSlam
+
+    # spies on the CLI's own calls: the slam, its BA problem and result
+    seen = {}
+    refine_map, ba_solve = KeyframeSlam.refine_map, parallel.ba_solve
+
+    def refine_spy(self, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = refine_map(self, *a, **kw)
+        torch.cuda.synchronize()
+        seen.update(slam=self, kf_poses=kw["kf_poses"], out=out,
+                    ms=(time.perf_counter() - t0) * 1e3)
+        return out
+
+    def solve_spy(problem, **kw):
+        seen.update(problem=problem, kw=kw)
+        return ba_solve(problem, **kw)
+
+    out = os.path.join(root, "slam_refined.txt")
+    buf = io.StringIO()
+    KeyframeSlam.refine_map, parallel.ba_solve = refine_spy, solve_spy
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli.main(["slam", root, "--refine", "--output", out])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        KeyframeSlam.refine_map, parallel.ba_solve = refine_map, ba_solve
+    got = fused_by_mode(read_launches(), "resident")
+    head, line = buf.getvalue().splitlines()[:2]
+    m = re.fullmatch(r"refine: BA cost (\S+) -> (\S+), (\d+) landmarks",
+                     line)
+    poses = read_trajectory(out)
+    check(m is not None and float(m[2]) < float(m[1]),
+          f"cli slam --refine: {line!r}")
+    check(len(poses) == len(gt)
+          and all(np.isfinite(q).all() for q in poses.values()),
+          "cli slam --refine: a missing or non-finite pose")
+    check(got["fused_moments"] > 0 and not any(got[k] for k in FUSED),
+          f"cli slam --refine launched {got}")
+
+    problem, kw, card = seen["problem"], seen["kw"], seen["out"]
+    cpu = parallel.ba_solve(problem.to("cpu"), **{**kw, "device": "cpu"})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = parallel.ba_solve(problem, **kw)
+    torch.cuda.synchronize()
+    ba_ms = (time.perf_counter() - t0) * 1e3
+    gaps = [float((a.cpu() - b).abs().max()) for a, b in zip(card[:2], cpu)]
+    cost_gap = float(((card[2].cpu() - cpu[2]).abs() / cpu[2].abs()).max())
+    rerun = [float((a - b).abs().max()) for a, b in zip(card, again)]
+    ts = sorted(gt)
+    kf_t = [ts[k.index] for k in seen["slam"].keyframes]
+    kf_gt = {t: gt[t] for t in kf_t}
+    before = ate_rmse(kf_gt, dict(zip(kf_t, np.asarray(seen["kf_poses"]))))
+    after = ate_rmse(kf_gt, dict(zip(kf_t, card[0].cpu().numpy())))
+    n_obs = int((problem.obs_w > 0).sum())
+    log(f"cli slam --refine: {head}; {line}; {dt:.2f} s; refine_map "
+        f"{seen['ms']:.1f} ms with the harvest, ba_solve {ba_ms:.1f} ms "
+        f"({kw}, {problem.poses.shape[0]} poses, {problem.landmarks.shape[0]}"
+        f" landmarks, {n_obs} observations, {problem.edge_pose.shape[0]} "
+        f"edges); card vs CPU: poses {gaps[0]:.2e}, landmarks "
+        f"{gaps[1]:.2e}, costs {cost_gap:.2e} relative; card rerun "
+        f"{rerun}; keyframe ATE {before['rmse']:.5f} m before, "
+        f"{after['rmse']:.5f} m after (not gated); launches {got}")
+    check(gaps[0] <= 1e-4 and gaps[1] <= 1e-4 and cost_gap <= 1e-3,
+          "the card's ba_solve is off the CPU's")
+    return got
 
 
 def main():
@@ -2052,8 +2391,11 @@ def main():
     # 5d. the kernel backend's two-sweep step on the cells of 5 and 5b
     runs += [(dataclasses.replace(q, step_mode="direct"), adaptive, NUM_WANT)
              for q, adaptive in ((p, False), (pa, True))]
+    odometry = {}
     for params, adaptive, nw in runs:
-        for k, v in phase_odometry(frames, params, adaptive, nw).items():
+        got, odometry[params, nw] = phase_odometry(frames, params, adaptive,
+                                                   nw)
+        for k, v in got.items():
             launches[k] += v
         mark(f"5 ({params.backend}, {params.step_mode}, "
              f"{type(params).__name__}, {nw})")
@@ -2093,14 +2435,32 @@ def main():
 
     # 9. keyframe SLAM: cli slam, then the fast kernels' main path
     tmp9 = tempfile.TemporaryDirectory()
-    got, got_fast = phase_slam(scene, tmp9.name)
-    tmp9.cleanup()
+    got, got_fast, slam_gt = phase_slam(scene, tmp9.name)
     for k, v in got.items():
         launches[k] += v
     for k, v in got_fast.items():
         launches[f"{k}/fast"] = v
     kernels.update(fast_rows)
     mark("9 (slam)")
+
+    # 10. the rest of cli run and cli slam: the loader, --profile-dir,
+    # align_trace, slam --refine
+    tmp10 = tempfile.TemporaryDirectory()
+    folder = os.path.join(tmp10.name, "tum")
+    loader_fps = phase_loader(folder, frames)
+    mark("10a (loader)")
+    for k, v in phase_cli_run(folder, frames, odometry, p, paf,
+                              loader_fps).items():
+        launches[k] += v
+    tmp10.cleanup()
+    mark("10b-c (cli run)")
+    for k, v in phase_trace([(p, c0, c1), (pa, a0, a1)]).items():
+        launches[k] += v
+    mark("10d (align_trace)")
+    for k, v in phase_slam_refine(tmp9.name, slam_gt).items():
+        launches[k] += v
+    tmp9.cleanup()
+    mark("10e (slam --refine)")
 
     sources = {
         "color_gram": ("cvo_rgbd_torch/csrc/color_gram.cu",

@@ -2,7 +2,7 @@
 
     python -m cvo_rgbd_torch.cli run <folder> <seq> [--adaptive]
         [--backend kernel|dense|fused] [--batch N [--motion-prior]]
-        [--device cpu]
+        [--no-native-io] [--profile-dir DIR] [--device cpu]
     python -m cvo_rgbd_torch.cli multiseq <seq> <folder>... [--adaptive]
         [--backend kernel|dense|fused] [--device cpu]
     python -m cvo_rgbd_torch.cli batch <pcd dir> [--grid 0.05]
@@ -10,7 +10,7 @@
     python -m cvo_rgbd_torch.cli stitch <pcd dir> [--output scene.ply]
         [--grid 0.05] [--merge-grid 0.01] [--device cpu]
     python -m cvo_rgbd_torch.cli slam <pcd dir> [--output f.txt]
-        [--grid 0.05] [--device cpu]
+        [--grid 0.05] [--refine] [--device cpu]
     python -m cvo_rgbd_torch.cli evaluate-ate <groundtruth> <estimate>
     python -m cvo_rgbd_torch.cli evaluate-rpe <groundtruth> <estimate>
 
@@ -19,7 +19,8 @@ and the adaptive one with `--adaptive`), or with `--batch N` registers N
 pairs per batched call offline; `multiseq` runs several folders in
 lockstep, one pair of each per batched call; `batch` and `stitch` the MATLAB
 batch runner (MATLAB_PARAMS: linear color mode, MATLAB stops); `slam`
-keyframe SLAM over a pcd folder (keyframes, loop closure, pose graph) on
+keyframe SLAM over a pcd folder (keyframes, loop closure, pose graph,
+and with `--refine` bundle adjustment of the keyframe map) on
 MATLAB_PARAMS.  All run on the CUDA device unless `--device cpu` is
 given.
 """
@@ -52,6 +53,20 @@ def _seq(args):
 
 
 def _cmd_run(args):
+    import contextlib
+
+    trace = contextlib.nullcontext()
+    if args.profile_dir:
+        # a torch.profiler trace of the whole drive, written into
+        # --profile-dir (open it in Perfetto or chrome://tracing)
+        from cvo_rgbd_torch.utils.timing import profiler_trace
+
+        trace = profiler_trace(args.profile_dir, device=args.device)
+    with trace:
+        _run_odometry_cmd(args)
+
+
+def _run_odometry_cmd(args):
     from cvo_rgbd_torch.odometry import run_odometry, run_odometry_batched
 
     seq = _seq(args)
@@ -62,8 +77,8 @@ def _cmd_run(args):
             args.folder, seq, adaptive=args.adaptive,
             params=_make_params(args), output=args.output,
             max_frames=args.max_frames, num_want=args.num_want,
-            batch=args.batch, motion_prior=args.motion_prior,
-            device=args.device,
+            batch=args.batch, use_native=not args.no_native_io,
+            motion_prior=args.motion_prior, device=args.device,
         )
         return
     run_odometry(
@@ -75,6 +90,7 @@ def _cmd_run(args):
         max_frames=args.max_frames,
         checkpoint=args.checkpoint,
         num_want=args.num_want,
+        use_native=not args.no_native_io,
         warm_start=not args.cold_start,
         fetch_every=args.fetch_every,
         device=args.device,
@@ -128,15 +144,14 @@ def _cmd_stitch(args):
 
 
 def _cmd_slam(args):
+    import numpy as np
+
     from cvo_rgbd_torch.batch import load_pcd_dir, pad_clouds
     from cvo_rgbd_torch.device import resolve_device
     from cvo_rgbd_torch.io.tum import write_trajectory_line
     from cvo_rgbd_torch.params import MATLAB_PARAMS
     from cvo_rgbd_torch.slam import KeyframeSlam, SlamConfig
 
-    if args.refine:
-        raise SystemExit("slam --refine (bundle adjustment) is not ported "
-                         "yet: ROADMAP queue 1, item 5")
     clouds = load_pcd_dir(args.directory, grid=args.grid)
     if not clouds:
         raise SystemExit(f"no .pcd files in {args.directory}")
@@ -144,9 +159,25 @@ def _cmd_slam(args):
     slam = KeyframeSlam(MATLAB_PARAMS, SlamConfig(), device=dev)
     for i, cloud in enumerate(pad_clouds(clouds, dev)):
         slam.process(i, cloud)
-    poses, _ = slam.solve()
+    poses, kf_nodes = slam.solve()
     print(f"{len(clouds)} frames, {len(slam.keyframes)} keyframes, "
           f"{len(slam.loop_edges)} loop closures")
+    if args.refine:
+        out = slam.refine_map(kf_poses=kf_nodes)
+        if out is None:
+            print("refine: too few correspondences, skipped")
+        else:
+            kf_ba, landmarks, costs = (t.cpu().numpy() for t in out)
+            print(f"refine: BA cost {float(costs[0]):.3e} -> "
+                  f"{float(costs[-1]):.3e}, {landmarks.shape[0]} landmarks")
+            # every frame follows its keyframe's correction
+            corr = {k.index: kf_ba[i] @ np.linalg.inv(kf_nodes[i])
+                    for i, k in enumerate(slam.keyframes)}
+            poses = [
+                corr.get(slam.keyframes[slam.frame_keyframe[i]].index,
+                         np.eye(4)) @ pose
+                for i, pose in enumerate(poses)
+            ]
     with open(args.output, "w") as fh:
         for (name, _, _), pose in zip(clouds, poses):
             write_trajectory_line(fh, name.removesuffix(".pcd"), pose)
@@ -226,6 +257,13 @@ def main(argv=None):
                     help="with --batch: warm-start each chunk with the "
                     "previous chunk's last relative transform "
                     "(constant-velocity approximation)")
+    pr.add_argument("--no-native-io", action="store_true",
+                    help="read the PNGs with PIL instead of the C++ "
+                    "prefetch loader")
+    pr.add_argument("--profile-dir",
+                    help="record a torch.profiler trace of the run (CPU "
+                    "and CUDA activities) into this directory; open the "
+                    "*.pt.trace.json in Perfetto or chrome://tracing")
     pr.set_defaults(fn=_cmd_run)
 
     pm = sub.add_parser(
@@ -277,8 +315,8 @@ def main(argv=None):
     psl.add_argument("--device", default=None,
                      help="torch device (default: cuda; 'cpu' to run on the CPU)")
     psl.add_argument("--refine", action="store_true",
-                     help="bundle-adjust the keyframe map (not ported: exits "
-                     "with an error)")
+                     help="bundle-adjust the keyframe map after the pose "
+                     "graph")
     psl.set_defaults(fn=_cmd_slam)
 
     pa = sub.add_parser("evaluate-ate", help="ATE RMSE of a trajectory")

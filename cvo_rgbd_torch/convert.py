@@ -3,7 +3,7 @@
 There are no learned weights: what crosses between the packages is the
 hyperparameters, the clouds, the odometry checkpoint (whose JSON format
 `odometry.OdometryState` reads as it is), the SLAM configuration and
-pose graphs.
+pose graphs and bundle-adjustment problems.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ from cvo_rgbd_torch.core.cloud import PointCloud
 from cvo_rgbd_torch.core.posegraph import PoseGraph
 from cvo_rgbd_torch.device import resolve_device
 from cvo_rgbd_torch.keyframes import KeyframePolicy
+from cvo_rgbd_torch.parallel.ba import BAProblem, problem_on
 from cvo_rgbd_torch.params import AcvoParams, CvoParams
 from cvo_rgbd_torch.slam import SlamConfig
 
@@ -50,6 +51,16 @@ def slam_config_from_jax_dict(d: dict) -> SlamConfig:
     d = dict(d)
     d["keyframe"] = KeyframePolicy(**d["keyframe"])
     return SlamConfig(**d)
+
+
+def ba_problem_from_numpy(poses, landmarks, obs_pose, obs_lm, obs_z, obs_w,
+                          obs_edge, edge_pose, edge_lm,
+                          device=None) -> BAProblem:
+    """A port BAProblem from a problem's numpy arrays (e.g. the fields of
+    a JAX BAProblem after `np.asarray`), on `device`: the same problem
+    for both packages' solvers."""
+    return problem_on((poses, landmarks, obs_pose, obs_lm, obs_z, obs_w,
+                       obs_edge, edge_pose, edge_lm), device)
 
 
 def posegraph_from_numpy(nodes, edge_i, edge_j, edge_z, edge_w,

@@ -220,7 +220,7 @@ def optimize(graph: PoseGraph, iters: int = 10, damping: float = 1e-6,
     if mesh is not None:
         raise NotImplementedError(
             "optimize over a mesh is not ported yet: ROADMAP queue 1, "
-            "item 5")
+            "\"Multi-device, on torch.distributed\"")
     pin_fp32()
     n = int(graph.nodes.shape[0])
     if solver == "auto":

@@ -398,14 +398,16 @@ def run_odometry_batched(
     max_frames=None,
     num_want=3000,
     batch=8,
+    use_native=True,
     motion_prior=False,
     min_valid=64,
     log=print,
     device=None,
 ):
     """`run_odometry_batched_frames` over a TUM-format folder, the
-    trajectory written to `output` (default as `run_odometry`).  Returns
-    list[FrameRecord]."""
+    trajectory written to `output` (default as `run_odometry`), the
+    frames read as `make_frame_source(use_native=...)` reads them.
+    Returns list[FrameRecord]."""
     entries = load_assoc(os.path.join(folder, "assoc.txt"))
     if max_frames:
         entries = entries[:max_frames]
@@ -414,13 +416,11 @@ def run_odometry_batched(
             folder, "acvo_poses_qt.txt" if adaptive else "cvo_poses_qt.txt"
         )
 
-    def frames():
-        for i, e in enumerate(entries):
-            yield (i, e.name, *load_image_pair(folder, e))
-
+    frames = ((i, entries[i].name, rgb, dep) for i, rgb, dep in
+              make_frame_source(folder, entries, 0, use_native))
     with open(output, "w") as traj:
         return run_odometry_batched_frames(
-            frames(), dataset_seq, adaptive=adaptive, params=params,
+            frames, dataset_seq, adaptive=adaptive, params=params,
             traj=traj, num_want=num_want, batch=batch,
             motion_prior=motion_prior, min_valid=min_valid, log=log,
             device=device,
@@ -441,6 +441,47 @@ def load_image_pair(folder, entry):
     return rgb, dep
 
 
+def make_frame_source(folder, entries, start, use_native=True):
+    """Yield (index, rgb [H,W,3] f32, depth [H,W] f32) for `entries` from
+    `start` (the JAX package's `odometry.make_frame_source`).
+
+    `use_native=True` reads through the native threaded prefetch loader
+    (`cvo_rgbd_torch.native`), which decodes upcoming frames while the
+    device registers the current pair; `use_native=False` reads each
+    frame through PIL (`load_image_pair`) when it is needed.  Unlike the
+    JAX package, a loader that cannot be built or fails does not fall
+    back to PIL: it raises, so a broken build is never hidden behind a
+    slower path."""
+    if not use_native:
+        def gen_pil():
+            for i in range(start, len(entries)):
+                yield (i, *load_image_pair(folder, entries[i]))
+
+        return gen_pil()
+
+    from cvo_rgbd_torch import native
+
+    todo = entries[start:]
+    if not todo:
+        return iter(())
+    rgb_paths = [os.path.join(folder, e.rgb_path) for e in todo]
+    dep_paths = [os.path.join(folder, e.depth_path) for e in todo]
+    h, w = native.png_shape(rgb_paths[0])
+    dh, dw = native.png_shape(dep_paths[0])
+    loader = native.PrefetchLoader(rgb_paths, dep_paths, w, h, dw, dh,
+                                   workers=2, ahead=8)
+
+    def gen():
+        try:
+            for off, rgb, dep in loader:
+                yield (start + off, rgb.astype(np.float32),
+                       dep.astype(np.float32))
+        finally:
+            loader.close()
+
+    return gen()
+
+
 def run_odometry(
     folder,
     dataset_seq,
@@ -450,6 +491,7 @@ def run_odometry(
     max_frames=None,
     checkpoint=None,
     num_want=3000,
+    use_native=True,
     warm_start=True,
     fetch_every=8,
     min_valid=64,
@@ -459,7 +501,9 @@ def run_odometry(
     """Run odometry over a TUM-format folder (assoc.txt + PNGs) and write
     the trajectory to `output` (default <folder>/acvo_poses_qt.txt for
     acvo, else <folder>/cvo_poses_qt.txt).  Resumes from `checkpoint`
-    when it exists.  Returns list[FrameRecord]."""
+    when it exists.  The PNGs are read by the native prefetch loader, or
+    by PIL with `use_native=False` (`make_frame_source`).  Returns
+    list[FrameRecord]."""
     params = params or (AcvoParams() if adaptive else CvoParams())
     check_supported(params)
     entries = load_assoc(os.path.join(folder, "assoc.txt"))
@@ -478,14 +522,11 @@ def run_odometry(
         log(f"resuming at frame {state.frame_index}")
     start = max(state.frame_index - 1, 0)
 
-    def frames():
-        for i in range(start, len(entries)):
-            rgb, dep = load_image_pair(folder, entries[i])
-            yield i, entries[i].name, rgb, dep
-
+    frames = ((i, entries[i].name, rgb, dep) for i, rgb, dep in
+              make_frame_source(folder, entries, start, use_native))
     with open(output, mode) as traj:
         return run_odometry_frames(
-            frames(), dataset_seq, adaptive=adaptive, params=params,
+            frames, dataset_seq, adaptive=adaptive, params=params,
             traj=traj, state=state,
             checkpoint=checkpoint, num_want=num_want, warm_start=warm_start,
             fetch_every=fetch_every, min_valid=min_valid, log=log,

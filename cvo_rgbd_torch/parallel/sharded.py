@@ -48,7 +48,7 @@ def align_batched(p, fixed_batch: PointCloud, moving_batch: PointCloud,
     if mesh is not None:
         raise NotImplementedError(
             f"align_batched over a mesh ({dp_axis!r} axis) is not ported "
-            "yet: ROADMAP queue 1, item 15"
+            "yet: ROADMAP queue 1, \"Multi-device, on torch.distributed\""
         )
     check_supported(p)
     dev = resolve_device(device)

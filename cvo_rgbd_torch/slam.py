@@ -347,8 +347,33 @@ class KeyframeSlam:
 
     def refine_map(self, kf_poses=None, mesh=None, iters=8, grid=0.05,
                    radius=0.03, feature_weight=2.0):
-        """Bundle adjustment of the keyframe map (the JAX package's
-        `parallel/ba.py`): not ported."""
-        raise NotImplementedError(
-            "refine_map (bundle adjustment) is not ported yet: ROADMAP "
-            "queue 1, item 5")
+        """Bundle-adjust keyframe poses and a landmark map on the slam's
+        device (`parallel.ba`).
+
+        Starts from `kf_poses` (default: the pose-graph solution of
+        `solve`).  Returns (refined keyframe poses [K,4,4], landmarks
+        [M,3], costs [iters]) as tensors on the slam's device, or None
+        below two keyframes or when the keyframes give no problem.
+        `mesh` (sharding the observations over devices) is not ported
+        and raises.
+
+        `radius` must stay below the clouds' typical point spacing: on
+        continuous surfaces a larger radius lets the landmark-to-point
+        association slide along the surface between views, and that bias
+        shows up as pose error; `feature_weight` pins each correspondence
+        to the same textured spot across views (the JAX package's
+        calibration, `parallel.ba.ba_from_keyframes`)."""
+        from cvo_rgbd_torch.parallel import ba_from_keyframes, ba_solve
+
+        if len(self.keyframes) < 2:
+            return None
+        if kf_poses is None:
+            _, kf_poses = self.solve()
+        problem = ba_from_keyframes(
+            [k.cloud for k in self.keyframes], np.asarray(kf_poses),
+            grid=grid, radius=radius, feature_weight=feature_weight,
+            device=self.device,
+        )
+        if problem is None:
+            return None
+        return ba_solve(problem, mesh=mesh, iters=iters, device=self.device)

@@ -71,6 +71,12 @@ per-block marks: the skip test, a kept item's copies and sweep, the
 ticket, the last block's sum.  The PYTHONPATH form runs it against an
 earlier checkout's package as well.
 
+    python -m cvo_rgbd_torch.time_fused --profiler
+
+counts the one-kernel torch.profiler windows that lose their kernel (its
+launch recorded, no device event in the results), alone and each after a
+throwaway window, in turns (`profiler_misses`).
+
     python -m cvo_rgbd_torch.time_fused --wsq --gram
 
 prints the launch floor (a one-element PyTorch kernel on CUDA events,
@@ -116,6 +122,7 @@ import re
 import shutil
 import subprocess
 import sys
+import time
 
 RUNS, WARMUP, REPEATS = 30, 5, 10
 # ~10 ms of device cycles ahead of the first event: longer than the
@@ -642,6 +649,107 @@ def kept_fraction(x, y, scal, rows=128, cols=32):
     return (md <= scal[S_D2_THRES] + SKIP_MARGIN).float().mean().item()
 
 
+# host sleep at each end of a 'padded' profiler window
+PAD_S = 0.002
+
+
+def _one_kernel_window(fn, variant):
+    """One torch.profiler window around a one-launch call, as
+    tests/test_torch_cuda.py::test_flow_sweeps_are_one_launch_a_call
+    opens it ('plain'); 'warm': a throwaway window with a device sync
+    opens and closes just before; 'padded': the window holds PAD_S of
+    host sleep before the launch and after the sync.  Returns (device
+    kernels in the window's results, its launch count, the kernel's
+    start from the trace's start and the sync's end from the kernel's
+    end in us, the profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    pad = variant == "padded"
+    if variant == "warm":
+        with profile(activities=acts):
+            torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        if pad:
+            time.sleep(PAD_S)
+        fn()
+        torch.cuda.synchronize()
+        if pad:
+            time.sleep(PAD_S)
+    events = prof.events()
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    syncs = [e for e in events if "Synchronize" in e.name]
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.key.startswith("cudaLaunch"))
+    margins = None
+    if kernels and syncs:
+        margins = (kernels[0].time_range.start,
+                   syncs[-1].time_range.end - kernels[0].time_range.end)
+    return len(kernels), launches, margins, prof
+
+
+def profiler_misses(blocks=40, per_case=10,
+                    variants=("plain", "warm", "padded")):
+    """How often a one-kernel profiler window loses its kernel.  Over
+    `blocks` blocks, each variant of `_one_kernel_window` in turns (the
+    order rotating), on three of `flow_cases()` (se 3072 with and without
+    the color cache, linear 384), `per_case` windows of one
+    `fused_flow_cuda` launch each, the first of them exported to a Chrome
+    trace (an export came just before the windows that lost their kernel
+    in the first runs).  Prints one JSON line a variant: windows, windows
+    whose launch was recorded but whose results hold no device kernel,
+    their positions after the export, and over the windows that kept it
+    the least and the median kernel start from the trace's start and
+    sync end from the kernel's end, in us."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from cvo_rgbd_torch.ops import flow, gram
+
+    want = (("cvo ck=True", 0.1), ("cvo ck=False", 0.1),
+            ("linear grid=0.05", 0.03))
+    cases = [c for c in flow_cases() if (c[0], c[5]) in want]
+    calls = []
+    for _, p, x, y, ck, ell in cases:
+        scal = gram.scalars(torch.full((), ell, device="cuda"), p)
+        linear = p.color_mode == "linear"
+        calls.append(lambda x=x, y=y, scal=scal, ck=ck, linear=linear:
+                     flow.fused_flow_cuda(*x, *y, scal, ck, linear))
+    stats = {v: {"windows": 0, "missed": 0, "after_export": []}
+             for v in variants}
+    margins = {v: [] for v in variants}
+    with tempfile.TemporaryDirectory() as tmp:
+        for b in range(blocks):
+            k0 = b % len(variants)
+            for variant in variants[k0:] + variants[:k0]:
+                for fn in calls:
+                    fn()
+                    torch.cuda.synchronize()
+                    for i in range(per_case):
+                        k, n, m, prof = _one_kernel_window(fn, variant)
+                        if i == 0:
+                            prof.export_chrome_trace(f"{tmp}/t.json")
+                        st = stats[variant]
+                        st["windows"] += 1
+                        if n == 1 and k == 0:
+                            st["missed"] += 1
+                            st["after_export"].append(i)
+                        if m is not None:
+                            margins[variant].append(m)
+    for variant, st in stats.items():
+        ms = np.array(margins[variant]).reshape(-1, 2)
+        spread = {name: [float(col.min()), float(np.median(col))]
+                  for name, col in (("kernel_start_us", ms[:, 0]),
+                                    ("sync_after_kernel_us", ms[:, 1]))
+                  if col.size}
+        print(json.dumps({"profiler_windows": variant, **st, **spread}),
+              flush=True)
+
+
 def launches_per_call(fn):
     """Kernel launches a call of fn, over REPEATS calls under
     torch.profiler."""
@@ -1009,6 +1117,10 @@ def main(argv=None):
             time_wsq()
         if "--gram" in argv:
             time_gram()
+        return 0
+    if argv[:1] == ["--profiler"]:
+        _build.build(("color_gram", "fused_flow"))
+        profiler_misses()
         return 0
     if argv[:1] == ["--flow"]:
         _build.build(("color_gram", "fused_flow"))

@@ -260,7 +260,7 @@ def test_warm_start_lanes(backend):
 def test_mesh_is_not_ported():
     x, y = (_port(c) for c in _pair(50))
     b = tcloud.stack_clouds([x])
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(NotImplementedError, match="Multi-device, on torch.distributed"):
         align_batched(ct.CvoParams(), b, tcloud.stack_clouds([y]),
                       mesh=object(), device="cpu")
 

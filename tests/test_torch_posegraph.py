@@ -91,7 +91,7 @@ def test_optimize_matches_jax(graph, solver, robust):
 
 def test_optimize_over_a_mesh_is_not_ported():
     _, jg = _drifted_square_graph()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5"):
+    with pytest.raises(NotImplementedError, match="Multi-device, on torch.distributed"):
         tpg.optimize(_graph(jg), mesh=object())
 
 
