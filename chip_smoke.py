@@ -107,6 +107,25 @@ and prints no result line):
    linear sweeps at the coarse grid's capacity, acvo's moment sweep and
    self-sweeps at 1024).
 
+10. the rest of `cli run` and `cli slam`: the native PNG loader,
+   `--profile-dir`, `align_trace`, `cli slam --refine`;
+11. the mesh paths (`cvo_rgbd_torch.parallel`): 11a. `color_gram`
+   [N/2, M], `fused_moments` [N/2, M] with the cache and [N/2, M/2]
+   without, `fused_wsq` cross [N/2, N] and [N/2, N/2] on the first
+   render pair at 3072, each against its plain version and timed, the
+   row blocks' moments and self-sweeps summed against the whole cloud's
+   launch; 11b. two ranks on the one card over gloo (`parallel.mesh.
+   launch`): `align_sharded` and `align_ring`, cvo and acvo, at the C++
+   stops and after 10 iterations, against the single-device `align` on
+   the card, and `align_sharded` with MATLAB_PARAMS on the 2816 pcd pair;
+   11c. four ranks, dp=2 x sp=2: `train_step_2d` on two render pairs,
+   `align_batched(mesh=)` on the pcd pairs at both grids (every lane the
+   unsharded launch's bits), `run_multiseq(mesh=)` on the render and a
+   2-frame prefix (the unsharded run's files), `optimize(mesh=)` and
+   `ba_solve(mesh=)` over 4 ranks on phase 10e's SLAM problem; 11d. one
+   rank over NCCL, `align_sharded` at sp=1.  Every rank must launch the
+   kernels of its path; their launches join the kernel line.
+
 The line before last is a JSON object with each kernel's launches on
 the main paths together, its error against the plain version, its
 time, the plain version's time and its bound (the batched rows of
@@ -186,6 +205,8 @@ ALIGN_SPIN_CYCLES = 20_000_000
 # the MATLAB batch runner's grid (rgbddataset_rkhs.m:40-47), and a finer
 # one whose clouds run tiled on the fused backend
 BATCH_GRID, FINE_GRID = 0.05, 0.015
+# phase 11: the mesh paths' sp (rows per block N/sp of the render pair)
+MESH_SP = 2
 # phase 8: the 9 pcd pairs stacked 7 times, 63 lanes
 LANE_REPEAT = 7
 # phase 8b: pairs per batched call (the render's 9 pairs in one batch)
@@ -2170,11 +2191,13 @@ def phase_slam_refine(root, gt):
     within 1e-4, costs 1e-3 relative, tests/test_torch_ba.py), a rerun
     on the card beside it (atomic scatter-adds: logged, not gated), the
     BA time, and the keyframe ATE before and after.  Returns the
-    launches by kernel line row."""
+    launches by kernel line row, and the keyframe pose graph and BA
+    problem (host arrays) with their solvers' arguments for phase 11."""
     import numpy as np
     import torch
 
     from cvo_rgbd_torch import cli, parallel
+    from cvo_rgbd_torch.core.posegraph import from_odometry
     from cvo_rgbd_torch.evaluation import ate_rmse
     from cvo_rgbd_torch.io.tum import read_trajectory
     from cvo_rgbd_torch.slam import KeyframeSlam
@@ -2248,7 +2271,604 @@ def phase_slam_refine(root, gt):
         f"{after['rmse']:.5f} m after (not gated); launches {got}")
     check(gaps[0] <= 1e-4 and gaps[1] <= 1e-4 and cost_gap <= 1e-3,
           "the card's ba_solve is off the CPU's")
-    return got
+    # phase 11's SLAM problem: the keyframe pose graph and the BA problem
+    slam = seen["slam"]
+    graph = from_odometry(np.stack([k.pose for k in slam.keyframes]),
+                          loop_edges=slam.loop_edges, device="cpu")
+    cfg = slam.config
+    opt_kw = dict(iters=cfg.optimize_iters, huber_delta=cfg.huber_delta,
+                  robust=cfg.robust_kernel,
+                  robust_warmup=cfg.robust_warmup_iters)
+    return got, {"graph": [t.numpy() for t in graph], "opt_kw": opt_kw,
+                 "problem": [t.cpu().numpy() for t in problem],
+                 "ba_kw": {k: v for k, v in kw.items()
+                           if k not in ("device", "mesh")}}
+
+
+def block_rows(cloud, r, nblocks):
+    """Row block `r` of `nblocks` of a cloud: rank r's block on an axis of
+    that size."""
+    from cvo_rgbd_torch.core.cloud import PointCloud
+
+    n = cloud.capacity // nblocks
+    return PointCloud(*(t[r * n:(r + 1) * n] for t in cloud))
+
+
+def filled(clouds, blocks):
+    """The clouds cut to one capacity, the largest multiple of 128 *
+    `blocks` that the fewest valid points among them fill, every row
+    valid: each of `blocks` row blocks of each cloud holds valid rows.
+    kd_sort puts a cloud's padding last, so at capacity 3072 the render's
+    1300-1700 valid points all fall in the first of 2 blocks."""
+    import torch
+
+    from cvo_rgbd_torch.core.cloud import PointCloud
+
+    step = 128 * blocks
+    cap = min(int(c.mask.sum().item()) for c in clouds) // step * step
+    check(cap > 0, f"fewer than {step} valid points to fill {blocks} blocks")
+    return [PointCloud(*(t[torch.nonzero(c.mask > 0)[:cap, 0]] for t in c))
+            for c in clouds]
+
+
+def phase_mesh_kernels(c0, c1, a0, p, pa, every_block=False):
+    """11a: rows 1-3 at the mesh paths' block shapes, in this process, on
+    a render pair at sp = MESH_SP: `color_gram` [N/sp, M] (align_sharded's
+    ck_xy), `fused_moments` [N/sp, M] with the cache and the skip
+    (align_sharded) and [N/sp, M/sp] recomputing color (align_ring's
+    hops r -> r), `fused_wsq` as the cross sweep [N/sp, N] with the cache
+    (acvo's Axx on a row block) and [N/sp, N/sp] without (the ring's),
+    each against its plain version at PERF.md section 2's gates; the
+    blocks' moments and self-sweeps summed against the whole cloud's
+    launch.  Every block that holds valid rows must give pairs (a block
+    past the valid points, which kd_sort puts last, has none and must
+    give exactly 0); with `every_block`, every block must hold valid
+    rows.  Returns {kernel: [(shape, ms, plain ms, bound ms, bound by,
+    max_abs_err)]} and each kernel's worst error."""
+    import torch
+
+    from cvo_rgbd_torch.core.cloud import aabb_min_d2, block_bounds, kd_sort
+    from cvo_rgbd_torch.core.registration import build_moments_pre
+    from cvo_rgbd_torch.ops import gram, moments, wsq
+
+    sp = MESH_SP
+    x, y, xa = kd_sort(c0), kd_sort(c1), kd_sort(a0)
+    dev = x.positions.device
+    n, m = x.capacity, y.capacity
+    nb, mb = n // sp, m // sp
+    rows = [slice(r * nb, (r + 1) * nb) for r in range(sp)]
+    cols = [slice(r * mb, (r + 1) * mb) for r in range(sp)]
+    # the blocks r where x's, y's and xa's block r all hold valid rows
+    held = [r for r in range(sp) if all(
+        c.mask[s].sum().item() > 0
+        for c, s in ((x, rows[r]), (y, cols[r]), (xa, rows[r])))]
+    log(f"11a at {n}x{m}: blocks {held} of {sp} hold valid rows "
+        f"(x {int(x.mask.sum().item())}, y {int(y.mask.sum().item())})")
+    check(held and (not every_block or len(held) == sp),
+          f"11a at {n}x{m}: only blocks {held} of {sp} hold valid rows")
+    out = {"color_gram": [], "fused_moments": [], "fused_wsq": []}
+    errs = dict.fromkeys(out, 0.0)
+
+    def record(name, shape, ms, plain_ms, nbytes, nops, err, note):
+        b_ms, b_by = bound(nbytes, nops)
+        errs[name] = max(errs[name], err)
+        out[name].append(dict(shape=shape, ms=ms, plain_ms=plain_ms,
+                              bound_ms=b_ms, bound_by=b_by, max_abs_err=err))
+        log(f"11a {name} {shape[0]}x{shape[1]}{note}: {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+            f"max_abs_err {err:.3e}")
+
+    # --- color_gram: the row block's cache against the whole moving cloud
+    scal_c = gram.scalars(torch.full((), p.ell_init, device=dev), p)
+    xs = [block_rows(x, r, sp) for r in range(sp)]
+    args = (xs[0].features, xs[0].mask, y.features, y.mask, scal_c)
+    ck = gram.color_gram_cuda(*args)
+    err = (ck - gram.color_gram_plain(*args)).abs().max().item()
+    check(err <= 1e-6, f"11a color_gram [{nb}, {m}] off its plain version: "
+          f"{err}")
+    record("color_gram", [nb, m], time_ms(lambda: gram.color_gram_cuda(*args)),
+           time_ms(lambda: gram.color_gram_plain(*args)),
+           (nb + m) * 6 * 4 + 8 * 4 + nb * m * 4, nb * m * OPS_COLOR, err,
+           " (tolerance 1e-6)")
+
+    # --- fused_moments: the row blocks (ck, skip), summed; a ring hop
+    c0_, x_c, phi = build_moments_pre(x)
+    y_c = y.positions - c0_
+    ell = p.ell_sched[-1][1]
+    scal = gram.scalars(torch.full((), ell, device=dev), p)
+    thr = scal[gram.S_D2_THRES] + moments.SKIP_MARGIN
+
+    def moment_case(rows, cols, use_ck):
+        """One launch of a block pair: its args, result and plain check."""
+        xb = [t[rows] for t in (x_c, x.features, x.mask)]
+        yb = [t[cols] for t in (y_c, y.features, y.mask)]
+        ckb = (gram.color_gram_cuda(x.features[rows], x.mask[rows],
+                                    yb[1], yb[2], scal_c) if use_ck else None)
+        md = aabb_min_d2(*block_bounds(xb[0], xb[2], moments.TILE_I),
+                         *block_bounds(yb[0], yb[2], moments.TILE_J))
+        a = (*xb, *yb, phi[rows], scal, ckb, md)
+        mom, nnz = moments.fused_moments_cuda(*a)
+        ref, ref_nnz = moments.fused_moments_plain(*a)
+        torch.cuda.synchronize()
+        colmax = ref.abs().amax(dim=0).clamp_min(1e-30)
+        rel = ((mom - ref).abs() / colmax).max().item()
+        check(rel <= 1e-4 and abs(nnz.item() - ref_nnz.item())
+              <= 1e-4 * max(ref_nnz.item(), 1.0),
+              f"11a fused_moments {xb[0].shape[0]}x{yb[0].shape[0]} "
+              f"ck={use_ck}: Mom {rel}, nnz {nnz.item()} vs "
+              f"{ref_nnz.item()}")
+        return a, mom, nnz.item(), (mom - ref).abs().max().item(), md
+
+    def moment_bound(a, nnz, md, use_ck):
+        nr, mr = a[0].shape[0], a[3].shape[0]
+        keep = md <= thr
+        pairs = int(keep.sum().item()) * moments.TILE_I * moments.TILE_J
+        nbytes = (nr * (3 + moments.NUM_MONO) + mr * 3 + mr * moments.NUM_MONO
+                  + md.numel() + 8 + 1) * 4
+        nbytes += pairs * 4 if use_ck else (nr + mr) * 6 * 4
+        return nbytes, pairs * pair_ops(not use_ck) + nnz * OPS_GATED
+
+    whole = slice(None)
+    parts = [moment_case(r, whole, True) for r in rows]
+    check(all(parts[r][2] > 0 for r in held),
+          f"11a fused_moments: a row block with valid rows has no pair: "
+          f"{[pt[2] for pt in parts]}")
+    a, _, nnz0, err, md = parts[0]
+    record("fused_moments", [nb, m],
+           time_ms(lambda: moments.fused_moments_cuda(*a)),
+           time_ms(lambda: moments.fused_moments_plain(*a)),
+           *moment_bound(a, nnz0, md, True),
+           max(pt[3] for pt in parts), f" ck=True skip=True ell={ell}")
+    _, mom_w, nnz_w, _, _ = moment_case(whole, whole, True)
+    summed = sum(pt[1] for pt in parts)
+    colmax = mom_w.abs().amax(dim=0).clamp_min(1e-30)
+    rel = ((summed - mom_w).abs() / colmax).max().item()
+    log(f"11a fused_moments: the {sp} row blocks summed vs the whole cloud's "
+        f"launch: {rel:.3e} of each column (tolerance 1e-4), nnz "
+        f"{sum(pt[2] for pt in parts):.0f} vs {nnz_w:.0f}")
+    check(rel <= 1e-4 and sum(pt[2] for pt in parts) == nnz_w,
+          f"11a: row-block moments do not sum to the whole: {rel}")
+    hops = [moment_case(rows[r], cols[r], False) for r in held]
+    check(all(h[2] > 0 for h in hops),
+          f"11a fused_moments: a ring hop has no pair: "
+          f"{[h[2] for h in hops]}")
+    a, _, nnz_r, _, md = hops[0]
+    record("fused_moments", [nb, mb],
+           time_ms(lambda: moments.fused_moments_cuda(*a)),
+           time_ms(lambda: moments.fused_moments_plain(*a)),
+           *moment_bound(a, nnz_r, md, False), max(h[3] for h in hops),
+           f" ck=None skip=True ell={ell} (ring hops {held})")
+
+    # --- fused_wsq: acvo's Axx on a row block (cross, ck), summed against
+    # the symmetric sweep; the ring's self-pair block (no ck)
+    tw = wsq.TILE_W
+    scal_a = gram.scalars(torch.full((), pa.ell_init, device=dev), pa)
+    thr_a = scal_a[gram.S_D2_THRES] + moments.SKIP_MARGIN
+    box = block_bounds(xa.positions, xa.mask, tw)
+    xas = [block_rows(xa, r, sp) for r in range(sp)]
+
+    def wsq_case(xb, yb, use_ck, symmetric=False):
+        ckb = (gram.color_gram_cuda(xb.features, xb.mask, yb.features,
+                                    yb.mask, scal_a) if use_ck else None)
+        md = aabb_min_d2(*block_bounds(xb.positions, xb.mask, tw),
+                         *block_bounds(yb.positions, yb.mask, tw))
+        tiles = wsq.tile_order(md, symmetric)
+        a = (*xb, *yb, scal_a, ckb, tiles)
+        w, nz = wsq.fused_wsq_cuda(*a, symmetric=symmetric)
+        ref_w, ref_n = wsq.fused_wsq_plain(*a)
+        torch.cuda.synchronize()
+        w, nz, ref_w, ref_n = (v.item() for v in (w, nz, ref_w, ref_n))
+        # kd_sort puts the padding last: a block past the valid points
+        # has no pair, and its sweep must give exactly 0 too
+        check(abs(w - ref_w) <= 1e-4 * abs(ref_w) and nz == ref_n,
+              f"11a fused_wsq {xb.capacity}x{yb.capacity} ck={use_ck}: "
+              f"{w} vs {ref_w}, nnz {nz} vs {ref_n}")
+        kept = int((md <= thr_a).sum().item())
+        pairs = kept * tw * tw
+        nbytes = ((xb.capacity + yb.capacity) * 3 + tiles.by_id.numel()
+                  + 8 + 2) * 4
+        nbytes += pairs * 4 if use_ck else (xb.capacity + yb.capacity) * 24
+        nops = pairs * pair_ops(not use_ck) + nz * OPS_WSQ_GATED
+        return a, w, nz, abs(w - ref_w), nbytes, nops
+
+    parts = [wsq_case(xb, xa, True) for xb in xas]
+    check(all(parts[r][2] > 0 for r in held),
+          f"11a fused_wsq: a row block with valid rows has no pair: "
+          f"{[pt[2] for pt in parts]}")
+    a, _, _, err, nbytes, nops = parts[0]
+    sym = dict(symmetric=False)
+    record("fused_wsq", [nb, n],
+           time_ms(lambda: wsq.fused_wsq_cuda(*a, **sym)),
+           time_ms(lambda: wsq.fused_wsq_plain(*a)), nbytes, nops,
+           max(pt[3] for pt in parts),
+           f" cross ck=True skip=True ell={pa.ell_init}")
+    _, w_full, n_full, _, _, _ = wsq_case(xa, xa, True, symmetric=True)
+    w_sum, n_sum = sum(pt[1] for pt in parts), sum(pt[2] for pt in parts)
+    log(f"11a fused_wsq: the {sp} cross row sweeps summed {w_sum:.6e} "
+        f"(nnz {n_sum:.0f}) vs the symmetric sweep {w_full:.6e} (nnz "
+        f"{n_full:.0f}); tolerance 1e-4 relative, nnz exact")
+    check(abs(w_sum - w_full) <= 1e-4 * abs(w_full) and n_sum == n_full,
+          "11a: the cross row sweeps do not sum to the symmetric sweep")
+    hops = [wsq_case(xas[r], xas[r], False) for r in held]
+    check(all(h[2] > 0 for h in hops),
+          f"11a fused_wsq: a ring hop has no pair: {[h[2] for h in hops]}")
+    a, _, _, _, nbytes, nops = hops[0]
+    record("fused_wsq", [nb, nb],
+           time_ms(lambda: wsq.fused_wsq_cuda(*a, **sym)),
+           time_ms(lambda: wsq.fused_wsq_plain(*a)), nbytes, nops,
+           max(h[3] for h in hops),
+           f" ck=None skip=True ell={pa.ell_init} (ring hops {held})")
+    return out, errs
+
+
+def host_arrays(cloud):
+    return tuple(t.cpu().numpy() for t in cloud)
+
+
+def _mesh_run(label, fn):
+    """(label, fn(), counts): fn's result with this rank's kernel launches
+    and collective calls counted from 0 and its host seconds (the card
+    synchronized around it)."""
+    import torch
+
+    from cvo_rgbd_torch import collectives
+
+    torch.cuda.synchronize()
+    reset_launches()
+    collectives.reset_stats()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return label, res, {"s": time.perf_counter() - t0,
+                        "launches": read_launches(),
+                        "collectives": dict(collectives.STATS)}
+
+
+def mesh_rank(job, data):
+    """One rank of a phase 11 launch (`parallel.mesh.launch`; every rank
+    on the card, `cuda:0` here): `job` names the runs, `data` holds their
+    inputs as host arrays.  Returns [(label, result, counts)]."""
+    import torch
+    import torch.distributed as dist
+
+    from cvo_rgbd_torch.convert import posegraph_from_numpy
+    from cvo_rgbd_torch.core.cloud import PointCloud, stack_clouds
+    from cvo_rgbd_torch.core.posegraph import optimize
+    from cvo_rgbd_torch.multiseq import run_multiseq
+    from cvo_rgbd_torch.parallel import (
+        align_batched,
+        align_ring,
+        align_sharded,
+        ba_solve,
+        make_mesh,
+        train_step_2d,
+    )
+    from cvo_rgbd_torch.parallel.ba import problem_on
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+
+    def cloud(arrays):
+        return PointCloud(*(torch.from_numpy(a).to(dev) for a in arrays))
+
+    def stacked(side):
+        return stack_clouds([cloud(a) for a in side])
+
+    def fields(r):
+        return {f: t.cpu().numpy() for f, t in zip(r._fields, r)}
+
+    if job == "sp":
+        mesh = make_mesh({"sp": dist.get_world_size()})
+        c = {k: cloud(v) for k, v in data["clouds"].items()}
+        entries = {"sharded": align_sharded, "ring": align_ring}
+        out = [_mesh_run(label, lambda: fields(entries[fn](
+            p, mesh, c[pair[0]], c[pair[1]])))
+            for label, fn, p, pair in data["cases"]]
+        return out + [("backend", dist.get_backend(mesh.axis("sp").group),
+                       {})]
+    # dp=2 x sp=2, then sp over the four ranks for the solvers
+    mesh = make_mesh({"dp": 2, "sp": 2})
+    out = [_mesh_run(label, lambda: fields(train_step_2d(
+        data["p"], mesh, *(stacked(s) for s in pairs))))
+        for label, pairs in data["pairs_2d"].items()]
+    for label, (fixed, moving) in data["lanes"].items():
+        out.append(_mesh_run(label, lambda: fields(align_batched(
+            data["pf_lin"], stacked(fixed), stacked(moving), mesh=mesh))))
+    out.append(_mesh_run("run_multiseq", lambda: run_multiseq(
+        data["folders"], 1, params=data["pf"], num_want=NUM_WANT,
+        mesh=mesh, warm_start=False, log=lambda *a: None)))
+    mesh4 = make_mesh({"sp": dist.get_world_size()})
+    slam = data["slam"]
+    out.append(_mesh_run("optimize", lambda: [t.cpu().numpy() for t in
+                                              optimize(posegraph_from_numpy(
+                                                  *slam["graph"], device=dev),
+                                                  mesh=mesh4,
+                                                  **slam["opt_kw"])]))
+    out.append(_mesh_run("ba_solve", lambda: [t.cpu().numpy() for t in
+                                              ba_solve(problem_on(
+                                                  slam["problem"], dev),
+                                                  mesh=mesh4,
+                                                  **slam["ba_kw"])]))
+    return out
+
+
+def _same_on_every_rank(ranks, label):
+    """The ranks' results of a launch, checked to be one result."""
+    import numpy as np
+
+    def flat(r):
+        if isinstance(r, dict):
+            return [r[k] for k in sorted(r)]
+        if isinstance(r, (list, tuple)):
+            return list(r)
+        return [r]
+
+    for other in ranks[1:]:
+        for (lb, a, _), (_, b, _) in zip(ranks[0], other):
+            check(all(np.array_equal(u, v) for u, v in zip(flat(a), flat(b))),
+                  f"{label} {lb}: the ranks' results differ")
+    return {lb: r for lb, r, _ in ranks[0]}
+
+
+def _rank_counts(ranks, label):
+    """Each run's counts on each rank: [{label: counts}] in rank order."""
+    return [{lb: c for lb, _, c in r if c} for r in ranks]
+
+
+def _close_align(label, got, ref, tol=3e-4, stops=True, acvo=False):
+    import numpy as np
+
+    gap = float(np.abs(got["tf"] - ref["tf"]).max())
+    ell = float(abs(got["ell"] - ref["ell"]) / ref["ell"])
+    log(f"11 {label}: |tf - single| {gap:.2e} (tolerance {tol:g}), "
+        f"iterations {int(got['iterations'])} vs {int(ref['iterations'])}, "
+        f"converged {bool(got['converged'])}/{bool(ref['converged'])}, ell "
+        f"{float(got['ell']):.5f} vs {float(ref['ell']):.5f}")
+    check(gap <= tol, f"11 {label}: tf off the single align by {gap}")
+    if stops:
+        check(bool(got["converged"]) and bool(ref["converged"]),
+              f"11 {label}: did not converge")
+        check(not acvo or ell <= 0.05, f"11 {label}: ell off by {ell}")
+
+
+def phase_mesh(clouds, sets, slam_problem, root):
+    """11b-d: the mesh paths in ranks launched on this host
+    (`parallel.mesh.launch`), every rank on the one card: 2 ranks over
+    gloo (align_sharded and align_ring), 4 over gloo (train_step_2d,
+    align_batched over dp, run_multiseq over dp, optimize and ba_solve
+    over sp=4), 1 over NCCL (align_sharded at sp=1), each against the
+    single-device call on the card in this process.  The sharded, ring and
+    train_step_2d runs take the render at capacity 3072, whose rank-1
+    blocks are padding, and the `filled` render, whose every block holds
+    valid rows.  Returns the kernel launches of every rank, by kernel line
+    row."""
+    import numpy as np
+    import torch
+
+    from cvo_rgbd_torch import align
+    from cvo_rgbd_torch.batch import pad_clouds
+    from cvo_rgbd_torch.convert import posegraph_from_numpy
+    from cvo_rgbd_torch.core.cloud import PointCloud, stack_clouds
+    from cvo_rgbd_torch.core.posegraph import optimize
+    from cvo_rgbd_torch.io.tum import read_trajectory
+    from cvo_rgbd_torch.multiseq import run_multiseq
+    from cvo_rgbd_torch.ops.align_fused import fused_mode
+    from cvo_rgbd_torch.parallel import align_batched, ba_solve
+    from cvo_rgbd_torch.parallel.ba import problem_on
+    from cvo_rgbd_torch.parallel.mesh import launch
+    from cvo_rgbd_torch.params import MATLAB_PARAMS, AcvoParams, CvoParams
+    from cvo_rgbd_torch.synth import BandScene, make_tum_dataset, revisit_path
+
+    dev = torch.device("cuda")
+    p, pa = CvoParams(), AcvoParams()
+    it10 = dict(max_iter=10, eps=0.0, eps_2=0.0)
+    pm = dataclasses.replace(MATLAB_PARAMS, eps=5e-5, eps_2=1e-5)
+    lin = pad_clouds(sets[FINE_GRID], "cpu")[:2]
+    host = {k: host_arrays(v) for k, v in clouds.items()}
+    host.update(l0=host_arrays(lin[0]), l1=host_arrays(lin[1]))
+    cases = []
+    for name, q, pair in (("cvo", p, ("c0", "c1")),
+                          ("acvo", pa, ("a0", "a1"))):
+        for fn in ("sharded", "ring"):
+            # the 10-iteration run first: it takes the ranks' warm-up
+            cases.append((f"{name} {fn} it10", fn,
+                          dataclasses.replace(q, **it10), pair))
+            cases.append((f"{name} {fn}", fn, q, pair))
+    # the render's valid points (1300-1700 of 3072) all sort into rank
+    # 0's block, so rank 1's partials are zeros there; the filled pairs
+    # (`filled`) and the pcd pair (2586 and 2635 of 2816) give both ranks
+    # valid rows
+    cases += [(f"{name} {fn} filled", fn, q, pair)
+              for name, q, pair in (("cvo", p, ("f0", "f1")),
+                                    ("acvo", pa, ("fa0", "fa1")))
+              for fn in ("sharded", "ring")]
+    cases += [(f"linear {fn}", fn, pm, ("l0", "l1"))
+              for fn in ("sharded", "ring")]
+    launches = {k: 0 for k in PER_ITER + BATCHED}
+
+    def add(counts, mode_of=lambda label: None):
+        for c in counts:
+            for label, cnt in c.items():
+                for k in PER_ITER:
+                    launches[k] += cnt["launches"][k]
+                mode = mode_of(label)
+                if mode:
+                    launches[f"align_fused_{mode}_batched"] += \
+                        cnt["launches"]["align_fused"]
+
+    # the single-device references on the card, in this process
+    def single(q, pair):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = align(q, *(clouds.get(k) or {"l0": lin[0], "l1": lin[1]}[k]
+                       for k in pair))
+        torch.cuda.synchronize()
+        return ({f: t.cpu().numpy() for f, t in zip(r._fields, r)},
+                time.perf_counter() - t0)
+
+    # 11b: two ranks share the card over gloo
+    log("11b: 2 ranks on cuda:0 over gloo, their CUDA payloads staged "
+        "through pinned host memory (NCCL refuses two ranks on one card): "
+        "a correctness run, not a scaling run")
+    t0 = time.perf_counter()
+    ranks = launch(mesh_rank, 2, ("sp", {"clouds": host, "cases": cases}),
+                   timeout=600)
+    log(f"11b: launch of 2 ranks in {time.perf_counter() - t0:.1f} s")
+    got = _same_on_every_rank(ranks, "11b")
+    counts = _rank_counts(ranks, "11b")
+    check(got["backend"] == "gloo", f"11b ran on {got['backend']}")
+    for label, fn, q, pair in cases:
+        ref, ref_s = single(q, pair)
+        stops = "it10" not in label
+        _close_align(label, got[label], ref, 3e-4 if stops else 1e-4, stops,
+                     label.startswith("acvo"))
+        if fn == "ring" and stops:
+            _close_align(f"{label} vs sharded", got[label],
+                         got[label.replace("ring", "sharded")], 3e-4, True,
+                         label.startswith("acvo"))
+        iters = int(got[label]["iterations"]) + 1
+        for r, c in enumerate(counts):
+            cnt = c[label]
+            kern = {k: cnt["launches"][k] for k in PER_ITER}
+            log(f"11b {label} rank {r}: {cnt['s'] * 1e3 / iters:.3f} ms an "
+                f"iteration on the host ({iters} iterations; the single "
+                f"align {ref_s * 1e3 / (int(ref['iterations']) + 1):.3f}), "
+                f"collectives {cnt['collectives']['calls']} calls, "
+                f"{cnt['collectives']['seconds'] * 1e3 / iters:.3f} ms an "
+                f"iteration; launches {kern}")
+            # the ring recomputes color, linear mode reads its CI
+            check(kern["fused_moments"] > 0
+                  and ("ring" in label or label.startswith("linear")
+                       or kern["color_gram"] > 0)
+                  and (not label.startswith("acvo") or kern["fused_wsq"] > 0),
+                  f"11b {label} rank {r}: a kernel of its path never "
+                  f"launched: {kern}")
+    add(counts)
+
+    # 11c: four ranks, dp=2 x sp=2
+    pf_lin = dataclasses.replace(MATLAB_PARAMS, backend="fused")
+    pf = dataclasses.replace(p, backend="fused")
+    lanes, modes = {}, {}
+    for grid in (BATCH_GRID, FINE_GRID):
+        padded = pad_clouds(sets[grid], "cpu")
+        n_lanes = 2 * ((len(padded) - 1) // 2)   # divides by dp = 2
+        side = (padded[:n_lanes], padded[1:n_lanes + 1])
+        label = f"align_batched grid={grid}"
+        lanes[label] = tuple([host_arrays(c) for c in s] for s in side)
+        modes[label] = fused_mode(pf_lin, *(stack_clouds(s) for s in side))
+    full, short = os.path.join(root, "render"), os.path.join(root, "prefix")
+    make_tum_dataset(full, revisit_path(FRAMES, period=33), BandScene(*SIZE))
+    os.makedirs(short)
+    for d in ("rgb", "depth"):
+        os.symlink(os.path.join(full, d), os.path.join(short, d))
+    with open(os.path.join(full, "assoc.txt")) as f:
+        head = f.read().splitlines()[:2]
+    with open(os.path.join(short, "assoc.txt"), "w") as f:
+        f.write("\n".join(head) + "\n")
+    pairs_2d = {f"train_step_2d{tag}": ([host[f"{c}0"], host[f"{c}1"]],
+                                        [host[f"{c}1"], host[f"{c}2"]])
+                for tag, c in (("", "c"), (" filled", "f"))}
+    data = {"p": p, "pairs_2d": pairs_2d, "lanes": lanes, "pf_lin": pf_lin,
+            "pf": pf, "folders": [full, short], "slam": slam_problem}
+    t0 = time.perf_counter()
+    ranks = launch(mesh_rank, 4, ("dp x sp", data), timeout=900)
+    log(f"11c: launch of 4 ranks (dp=2 x sp=2) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    got = _same_on_every_rank(ranks, "11c")
+    counts = _rank_counts(ranks, "11c")
+    for label, c in (("train_step_2d", "c"), ("train_step_2d filled", "f")):
+        for i in range(2):
+            ref, _ = single(p, (f"{c}{i}", f"{c}{i + 1}"))
+            _close_align(f"{label} pair {i}", {
+                f: v[i] for f, v in got[label].items()}, ref)
+    for label, (fixed, moving) in lanes.items():
+        fb, mb = (stack_clouds([PointCloud(*(torch.from_numpy(a).to(dev)
+                                             for a in c)) for c in side])
+                  for side in (fixed, moving))
+        ref = align_batched(pf_lin, fb, mb)
+        same = all(np.array_equal(got[label][f], t.cpu().numpy())
+                   for f, t in zip(ref._fields, ref))
+        log(f"11c {label} ({modes[label]}, {fb.positions.shape[0]} lanes "
+            f"over dp=2): every lane the bits of the unsharded launch: "
+            f"{same}")
+        check(same, f"11c {label}: a lane is not the unsharded bits")
+    solo = os.path.join(root, "solo")
+    solo_dirs = [os.path.join(solo, "render"), os.path.join(solo, "prefix")]
+    for src, dst in zip((full, short), solo_dirs):
+        os.makedirs(dst)
+        for d in ("rgb", "depth", "assoc.txt"):
+            os.symlink(os.path.realpath(os.path.join(src, d)),
+                       os.path.join(dst, d))
+    solo_outs = run_multiseq(solo_dirs, 1, params=pf, num_want=NUM_WANT,
+                             warm_start=False, log=lambda *a: None)
+    for src, dst in zip((full, short), solo_dirs):
+        with open(got["run_multiseq"][src]) as f, open(solo_outs[dst]) as g:
+            a, b = f.read(), g.read()
+        log(f"11c run_multiseq {os.path.basename(src)}: "
+            f"{a.count(chr(10))} poses, the file of the unsharded run: "
+            f"{a == b}")
+        check(a == b and len(read_trajectory(solo_outs[dst])) >= 2,
+              f"11c run_multiseq: {src} differs from the unsharded run")
+    slam = slam_problem
+    nodes, costs = optimize(posegraph_from_numpy(*slam["graph"], device=dev),
+                            solver="pcg", **slam["opt_kw"])
+    g_nodes, g_costs = got["optimize"]
+    gaps = (float(np.abs(g_nodes - nodes.cpu().numpy()).max()),
+            float((np.abs(g_costs - costs.cpu().numpy())
+                   / np.abs(costs.cpu().numpy())).max()))
+    log(f"11c optimize over sp=4 ({len(slam['graph'][1])} edges, "
+        f"{slam['graph'][0].shape[0]} nodes): poses {gaps[0]:.2e}, costs "
+        f"{gaps[1]:.2e} relative of the single PCG solve on the card")
+    check(gaps[0] <= 1e-4 and gaps[1] <= 1e-3, "11c optimize(mesh=) is off")
+    ref = ba_solve(problem_on(slam["problem"], dev), **slam["ba_kw"])
+    ref = [t.cpu().numpy() for t in ref]
+    ba = got["ba_solve"]
+    gaps = [float(np.abs(a - b).max()) for a, b in zip(ba[:2], ref[:2])]
+    cost_gap = float((np.abs(ba[2] - ref[2]) / np.abs(ref[2])).max())
+    log(f"11c ba_solve over sp=4 ({slam['problem'][0].shape[0]} poses, "
+        f"{slam['problem'][1].shape[0]} landmarks), the same bits on every "
+        f"rank: poses {gaps[0]:.2e}, landmarks {gaps[1]:.2e}, costs "
+        f"{cost_gap:.2e} relative of the single solve on the card")
+    check(gaps[0] <= 1e-4 and gaps[1] <= 1e-4 and cost_gap <= 1e-3,
+          "11c ba_solve(mesh=) is off")
+    for r, c in enumerate(counts):
+        log(f"11c rank {r}: " + "; ".join(
+            f"{lb} {cnt['s']:.2f} s, launches "
+            f"{ {k: v for k, v in cnt['launches'].items() if v} }"
+            for lb, cnt in c.items()))
+        check(all(c[lb]["launches"]["fused_moments"] > 0
+                  and c[lb]["launches"]["color_gram"] > 0 for lb in pairs_2d)
+              and all(c[lb]["launches"]["align_fused"] > 0
+                      for lb in list(lanes) + ["run_multiseq"]),
+              f"11c rank {r}: a kernel of its path never launched")
+    add(counts, lambda label: modes.get(label) or (
+        "tiled" if label == "run_multiseq" else None))
+
+    # 11d: NCCL at one rank (10 iterations first, for the warm-up)
+    t0 = time.perf_counter()
+    label = "cvo sharded sp=1"
+    ranks = launch(mesh_rank, 1, ("sp", {"clouds": host, "cases": [
+        (f"{label} it10", "sharded", dataclasses.replace(p, **it10),
+         ("c0", "c1")), (label, "sharded", p, ("c0", "c1"))]}),
+                   backend="nccl", timeout=300)
+    got = _same_on_every_rank(ranks, "11d")
+    log(f"11d: 1 rank over {got['backend']} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    check(got["backend"] == "nccl", f"11d ran on {got['backend']}")
+    ref, ref_s = single(p, ("c0", "c1"))
+    _close_align(f"{label} (NCCL)", got[label], ref)
+    counts = _rank_counts(ranks, "11d")
+    cnt, iters = counts[0][label], int(got[label]["iterations"]) + 1
+    ref_ms = ref_s * 1e3 / (int(ref["iterations"]) + 1)
+    log(f"11d {label}: {cnt['s'] * 1e3 / iters:.3f} ms an iteration on the "
+        f"host (the single align {ref_ms:.3f}), collectives "
+        f"{cnt['collectives']['calls']} calls, "
+        f"{cnt['collectives']['seconds'] * 1e3 / iters:.3f} ms an "
+        f"iteration; launches { {k: cnt['launches'][k] for k in PER_ITER} }")
+    check(cnt["launches"]["fused_moments"] > 0
+          and cnt["launches"]["color_gram"] > 0,
+          f"11d: a kernel of its path never launched: {cnt['launches']}")
+    add(counts)
+    return launches
 
 
 def main():
@@ -2457,10 +3077,35 @@ def main():
     for k, v in phase_trace([(p, c0, c1), (pa, a0, a1)]).items():
         launches[k] += v
     mark("10d (align_trace)")
-    for k, v in phase_slam_refine(tmp9.name, slam_gt).items():
+    got, slam_problem = phase_slam_refine(tmp9.name, slam_gt)
+    for k, v in got.items():
         launches[k] += v
     tmp9.cleanup()
     mark("10e (slam --refine)")
+
+    # 11. the mesh paths: rows 1-3 at their block shapes here, then ranks
+    # sharing the card; at capacity 3072, and cut to a capacity whose
+    # every row block holds valid rows (`filled`)
+    c2 = fe(frames[2][2], frames[2][3])
+    f0, f1, f2 = filled([c0, c1, c2], MESH_SP)
+    fa0, fa1 = filled([a0, a1], MESH_SP)
+    mesh_rows, mesh_errs = phase_mesh_kernels(c0, c1, a0, p, pa)
+    rows_filled, errs_filled = phase_mesh_kernels(f0, f1, fa0, p, pa,
+                                                  every_block=True)
+    for k, e in mesh_errs.items():
+        mesh_rows[k] += rows_filled[k]
+        kernels[k]["max_abs_err"] = max(kernels[k]["max_abs_err"], e,
+                                        errs_filled[k])
+    mark("11a (kernels at the mesh block shapes)")
+    tmp11 = tempfile.TemporaryDirectory()
+    for k, v in phase_mesh({"c0": c0, "c1": c1, "c2": c2, "a0": a0,
+                            "a1": a1, "f0": f0, "f1": f1, "f2": f2,
+                            "fa0": fa0, "fa1": fa1}, sets, slam_problem,
+                           tmp11.name).items():
+        launches[k] += v
+    tmp11.cleanup()
+    mark("11b-d (mesh paths)")
+    log("11a rows: " + json.dumps(mesh_rows))
 
     sources = {
         "color_gram": ("cvo_rgbd_torch/csrc/color_gram.cu",

@@ -21,8 +21,9 @@ Edge Jacobians take the small-residual form
   d r / d xi_i = -Jr^{-1}(r) Ad(X_j^{-1} X_i),   d r / d xi_j = Jr^{-1}(r)
 with the exact right-Jacobian inverse from se3.left_jacobian_se3.
 Everything is float32, as in the JAX package, with full-fp32 matmuls
-(`device.pin_fp32`).  The JAX package's `mesh=` (the edge set sharded
-over devices) is not ported.
+(`device.pin_fp32`).  Over a mesh (`optimize(mesh=...)`) the edge set
+shards over the ranks of an axis and the PCG solver's sums are psum'd
+(`collectives.py`).
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ import torch
 from cvo_rgbd_torch import se3
 from cvo_rgbd_torch.core.pcg import pcg
 from cvo_rgbd_torch.device import pin_fp32, resolve_device
+from cvo_rgbd_torch.collectives import psum
 
 _GAUGE = 1e6
 
@@ -174,9 +176,12 @@ def _gn_step_dense(graph, nodes, damping, huber_delta, robust, k, warmup):
 
 
 def _gn_step_pcg(graph, nodes, damping, cg_iters, huber_delta, robust, k,
-                 warmup):
+                 warmup, axis=None):
     """Sparse GN step: block-diagonal accumulation and edge-block
-    matrix-free PCG."""
+    matrix-free PCG.  Over a mesh axis (`axis`, a `parallel.mesh.Axis`)
+    the graph's edges are this rank's shard: the accumulators and each
+    matvec's off-diagonal scatter are psum'd, so every rank takes the
+    same step."""
     n = nodes.shape[0]
     ei, ej = graph.edge_i, graph.edge_j
     Hii, Hjj, B, bi, bj, cost = _edge_terms(
@@ -185,6 +190,8 @@ def _gn_step_pcg(graph, nodes, damping, cg_iters, huber_delta, robust, k,
     Hd = torch.zeros((n, 6, 6), dtype=nodes.dtype, device=nodes.device)
     Hd = Hd.index_add(0, ei, Hii).index_add(0, ej, Hjj)
     b = _gradient(n, ei, ej, bi, bj)
+    if axis is not None:
+        Hd, b, cost = psum((Hd, b, cost), axis)
     eye6 = torch.eye(6, dtype=nodes.dtype, device=nodes.device)
     Hd[0] += _GAUGE * eye6                      # gauge prior
     BT = B.transpose(-1, -2)
@@ -193,6 +200,8 @@ def _gn_step_pcg(graph, nodes, damping, cg_iters, huber_delta, robust, k,
         off = (torch.zeros_like(x)
                .index_add(0, ei, (B @ x[ej][..., None])[..., 0])
                .index_add(0, ej, (BT @ x[ei][..., None])[..., 0]))
+        if axis is not None:
+            off = psum(off, axis)
         return (Hd @ x[..., None])[..., 0] + damping * x + off
 
     Minv = torch.linalg.inv(Hd + damping * eye6)  # block-Jacobi
@@ -204,10 +213,32 @@ def _gn_step_pcg(graph, nodes, damping, cg_iters, huber_delta, robust, k,
     return _apply_update(nodes, delta), cost
 
 
+def _edge_shard(graph: PoseGraph, ax) -> PoseGraph:
+    """This rank's block of the edges over mesh axis `ax`, the edges first
+    padded with weight-0 self-loops of node 0 to a multiple of its size
+    (a zero weight adds nothing anywhere)."""
+    e = int(graph.edge_i.shape[0])
+    pad = -e % ax.size
+    i0 = graph.edge_i.new_zeros(pad)
+    graph = PoseGraph(
+        nodes=graph.nodes,
+        edge_i=torch.cat([graph.edge_i, i0]),
+        edge_j=torch.cat([graph.edge_j, i0]),
+        edge_z=torch.cat([graph.edge_z, torch.eye(
+            4, dtype=graph.edge_z.dtype,
+            device=graph.edge_z.device).expand(pad, 4, 4)]),
+        edge_w=torch.cat([graph.edge_w, graph.edge_w.new_zeros(pad)]),
+    )
+    per = (e + pad) // ax.size
+    sl = slice(ax.index * per, (ax.index + 1) * per)
+    return graph._replace(**{f: getattr(graph, f)[sl] for f in (
+        "edge_i", "edge_j", "edge_z", "edge_w")})
+
+
 def optimize(graph: PoseGraph, iters: int = 10, damping: float = 1e-6,
              solver: str = "auto", cg_iters: int | None = None, mesh=None,
-             huber_delta: float = 0.0, robust: str = "huber",
-             robust_warmup: int = 0):
+             axis: str = "sp", huber_delta: float = 0.0,
+             robust: str = "huber", robust_warmup: int = 0):
     """Gauss-Newton where the graph lies; returns (optimized nodes
     [N,4,4], costs [iters]), the cost of each iteration before its step.
 
@@ -215,20 +246,25 @@ def optimize(graph: PoseGraph, iters: int = 10, damping: float = 1e-6,
     matrix-free) or "auto" (dense up to 64 nodes).  `cg_iters` defaults
     to max(64, 2N): block-Jacobi CG moves a correction about one graph hop
     an iteration.  `huber_delta`, `robust` and `robust_warmup` as in
-    `_edge_terms` (0 = exact least squares, the default).  `mesh` (the
-    edge set sharded over devices) is not ported."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "optimize over a mesh is not ported yet: ROADMAP queue 1, "
-            "\"Multi-device, on torch.distributed\"")
+    `_edge_terms` (0 = exact least squares, the default).
+
+    `mesh` (a `parallel.make_mesh` mesh) shards the edge set over its
+    `axis` and forces PCG: every rank of the mesh calls it with the same
+    graph, on its own device, and gets the same result; the edges are
+    padded with weight-0 self-loops to a multiple of the axis size."""
     pin_fp32()
     n = int(graph.nodes.shape[0])
     if solver == "auto":
-        solver = "dense" if n <= 64 else "pcg"
+        solver = "dense" if n <= 64 and mesh is None else "pcg"
     if solver not in ("dense", "pcg"):
         raise ValueError(f"unknown solver {solver!r}")
     if cg_iters is None:
         cg_iters = max(64, 2 * n)
+    ax = None
+    if mesh is not None:
+        solver = "pcg"
+        ax = mesh.axis(axis)
+        graph = _edge_shard(graph, ax)
     nodes = graph.nodes
     costs = []
     for k in range(iters):
@@ -237,7 +273,8 @@ def optimize(graph: PoseGraph, iters: int = 10, damping: float = 1e-6,
                                          robust, k, robust_warmup)
         else:
             nodes, cost = _gn_step_pcg(graph, nodes, damping, cg_iters,
-                                       huber_delta, robust, k, robust_warmup)
+                                       huber_delta, robust, k, robust_warmup,
+                                       ax)
         costs.append(cost)
     return nodes, torch.stack(costs) if costs else graph.nodes.new_zeros(0)
 

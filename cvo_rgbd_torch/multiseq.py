@@ -4,7 +4,7 @@ Port of the JAX package's `multiseq.py`.  The reference processes one
 sequence at a time (cvo_main.cpp:36-66); here S sequences advance in
 lockstep, and each step registers S frame pairs, one per sequence, in
 one `parallel.align_batched` call (on the fused backend, one kernel
-launch).
+launch), whose lanes may shard over the ranks of a mesh.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from cvo_rgbd_torch.core.cloud import PointCloud, cloud_ok, stack_clouds
 from cvo_rgbd_torch.core.registration import check_supported
@@ -21,6 +22,7 @@ from cvo_rgbd_torch.device import pin_fp32, resolve_device
 from cvo_rgbd_torch.frontend import make_frontend
 from cvo_rgbd_torch.io.tum import load_assoc, write_trajectory_line
 from cvo_rgbd_torch.odometry import load_image_pair
+from cvo_rgbd_torch.parallel.mesh import rank_device
 from cvo_rgbd_torch.params import AcvoParams, CvoParams
 
 
@@ -77,11 +79,19 @@ def run_multiseq(
     cvo.cpp:43-45, 398-399) applies per lane, on the device
     (`lane_post`).  `fetch_every`: lockstep steps between device->host
     reads; pose chaining and trajectory writes happen at each read, from
-    the same per-pair transforms whatever the cadence.  `mesh` (lanes
-    sharded over devices) is not ported."""
+    the same per-pair transforms whatever the cadence.
+
+    `mesh` (a `parallel.make_mesh` mesh with a "dp" axis) shards the
+    lanes over its ranks (`parallel.align_batched`; the sequences must
+    divide by its size): every rank of the mesh calls this with the same
+    arguments, on its own device (the rank's card unless `device="cpu"`),
+    and computes the same trajectories; rank 0 writes the files and the
+    log."""
     params = params or (AcvoParams() if adaptive else CvoParams())
     check_supported(params)
-    dev = resolve_device(device)
+    writer = mesh is None or dist.get_rank() == 0
+    dev = resolve_device(device) if mesh is None else rank_device(device)
+    log = log if writer else (lambda *a: None)
     pin_fp32()
     frontend = make_frontend(dataset_seq, num_want, 0 if adaptive else 1,
                              device=str(dev))
@@ -96,7 +106,8 @@ def run_multiseq(
     n_steps = max(len(s["entries"]) for s in seqs)
     name = "acvo_poses_qt_batch.txt" if adaptive else "cvo_poses_qt_batch.txt"
     outs = {s["folder"]: os.path.join(s["folder"], name) for s in seqs}
-    handles = [open(outs[s["folder"]], "w") for s in seqs]
+    handles = [open(outs[s["folder"]] if writer else os.devnull, "w")
+               for s in seqs]
 
     t0 = time.time()
     pairs_done = 0

@@ -1,10 +1,13 @@
-"""Batch parallelism over frame pairs and bundle adjustment (the JAX
-package's `parallel/`).
+"""Multi-device registration and bundle adjustment over
+`torch.distributed` (the JAX package's `parallel/`).
 
-`align_batched` and the single-device bundle adjustment are ported; the
-mesh paths (`align_sharded`, `align_ring`, `train_step_2d`, the `dp`
-axis of `align_batched`, the sharded `ba_solve`) wait for ROADMAP queue
-1, "Multi-device, on torch.distributed".
+- `make_mesh`, `multihost_initialize` (`mesh.py`): named axes over the
+  ranks, and the process group; `mesh.launch` starts local ranks.
+- `align_sharded`, `align_ring`, `train_step_2d`, `align_batched`
+  (`sharded.py`): fixed-cloud rows over `sp`, both clouds around a ring,
+  pairs over `dp` (and a pair's rows over `sp`), pairs stacked on a lane
+  axis (sharded over `dp` with a mesh).
+- bundle adjustment (`ba.py`), on one device or over a mesh.
 """
 
 from cvo_rgbd_torch.parallel.ba import (
@@ -14,7 +17,13 @@ from cvo_rgbd_torch.parallel.ba import (
     ba_solve,
     make_ba_problem,
 )
-from cvo_rgbd_torch.parallel.sharded import align_batched
+from cvo_rgbd_torch.parallel.mesh import make_mesh, multihost_initialize
+from cvo_rgbd_torch.parallel.sharded import (
+    align_batched,
+    align_ring,
+    align_sharded,
+    train_step_2d,
+)
 
 __all__ = [
     "BAProblem",
@@ -22,5 +31,10 @@ __all__ = [
     "ba_from_keyframes",
     "ba_solve",
     "make_ba_problem",
+    "make_mesh",
+    "multihost_initialize",
     "align_batched",
+    "align_ring",
+    "align_sharded",
+    "train_step_2d",
 ]

@@ -354,8 +354,9 @@ class KeyframeSlam:
         `solve`).  Returns (refined keyframe poses [K,4,4], landmarks
         [M,3], costs [iters]) as tensors on the slam's device, or None
         below two keyframes or when the keyframes give no problem.
-        `mesh` (sharding the observations over devices) is not ported
-        and raises.
+        `mesh` (`parallel.make_mesh`) shards the observation reductions
+        over its ranks (`parallel.ba.ba_solve`); every rank of it then
+        calls this, each with its own slam on its own device.
 
         `radius` must stay below the clouds' typical point spacing: on
         continuous surfaces a larger radius lets the landmark-to-point

@@ -169,9 +169,3 @@ def test_ba_solve_recovers_ground_truth(rng):
     np.testing.assert_allclose(poses.numpy(), gt_poses, atol=1e-3)
     np.testing.assert_allclose(lms.numpy(), gt_lms, atol=1e-3)
     assert float(costs[-1]) < 1e-8
-
-
-def test_ba_solve_over_a_mesh_raises(rng):
-    problem = _port(_problem(rng, "clean"))
-    with pytest.raises(NotImplementedError, match="Multi-device"):
-        tba.ba_solve(problem, mesh=object(), device="cpu")

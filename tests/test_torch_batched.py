@@ -257,14 +257,6 @@ def test_warm_start_lanes(backend):
         align_batched(p, xs, ys, R0=R0, T0=T0, device="cpu")
 
 
-def test_mesh_is_not_ported():
-    x, y = (_port(c) for c in _pair(50))
-    b = tcloud.stack_clouds([x])
-    with pytest.raises(NotImplementedError, match="Multi-device, on torch.distributed"):
-        align_batched(ct.CvoParams(), b, tcloud.stack_clouds([y]),
-                      mesh=object(), device="cpu")
-
-
 # --- the drivers, mirroring tests/test_multiseq.py ---------------------
 # (at 512 points a frame and the MATLAB stops, to stay short on the CPU)
 

@@ -97,14 +97,14 @@ def test_align_on_card_matches_cpu(dev):
     assert (gpu.tf.cpu() - cpu.tf).abs().max().item() <= 3e-4
 
 
-def _rendered_pair(dev, num_want=512):
+def _rendered_pair(dev, num_want=512, size=(96, 128)):
     """The acvo frontend's clouds of the first rendered pair, on `dev`."""
     from cvo_rgbd_torch import synth
     from cvo_rgbd_torch.frontend import make_frontend
 
     fe = make_frontend(1, num_want, 0, device=str(dev))
     frames = synth.render_frames(synth.revisit_path(2, period=33),
-                                 synth.BandScene(h=96, w=128))
+                                 synth.BandScene(*size))
     return [fe(f[2], f[3]) for f in frames]
 
 
@@ -1519,3 +1519,143 @@ def test_align_trace_on_card_is_align(dev, cap, algo):
     for a, b in ((final.tf, res.tf), (final.R, res.R), (final.T, res.T),
                  (final.ell, res.ell)):
         assert torch.equal(a, b)
+
+
+# --- rows 1-3 at the mesh paths' block shapes (parallel/sharded.py) ---------
+
+def _filled_render(dev, sp):
+    """The 240x320 render pair (1325 and 1647 valid points of 3000 asked)
+    cut to one capacity, a multiple of 128 * sp that the fewer valid
+    points fill, every row valid, kd-sorted: each of sp row blocks holds
+    valid rows, where at capacity 3072 kd_sort would put them all in the
+    first block."""
+    from cvo_rgbd_torch.core.cloud import PointCloud, kd_sort
+    from cvo_rgbd_torch.ops.gram import pad_feat
+
+    pair = _rendered_pair(dev, 3000, (240, 320))
+    step = 128 * sp
+    cap = min(int(c.mask.sum().item()) for c in pair) // step * step
+    return [kd_sort(PointCloud(
+        c.positions[:cap], pad_feat(c.features)[:cap], c.mask[:cap]))
+        for c in (PointCloud(*(t[torch.nonzero(c.mask > 0)[:, 0]]
+                               for t in c)) for c in pair)]
+
+
+@pytest.mark.parametrize("sp", [2, 4])
+def test_kernels_on_row_and_ring_blocks_match_plain(dev, sp):
+    """align_sharded's blocks: color_gram [N/sp, M], fused_moments
+    [N/sp, M] with the cache and the skip, fused_wsq as the cross sweep
+    [N/sp, N]; align_ring's: fused_moments [N/sp, M/sp] and fused_wsq
+    [N/sp, N/sp] recomputing color; each against its plain version, and
+    the row blocks' moments and sweeps summed against the whole cloud's
+    launch.  Every row block holds valid rows and must give pairs; two
+    kd-sorted clouds' blocks r need not overlap, so a ring block must
+    give pairs in some hop."""
+    from cvo_rgbd_torch.core.cloud import aabb_min_d2, block_bounds
+    from cvo_rgbd_torch.core.registration import build_moments_pre
+    from cvo_rgbd_torch.ops import gram, moments, wsq
+    from cvo_rgbd_torch.params import AcvoParams
+
+    p = AcvoParams()
+    x, y = _filled_render(dev, sp)
+    n, m = x.capacity, y.capacity
+    nb, mb = n // sp, m // sp
+    ell = torch.full((), 0.1, device=dev)
+    scal = gram.scalars(ell, p)
+    c0, xc, phi = build_moments_pre(x)
+    yc = y.positions - c0
+
+    def moments_block(rows, cols, use_ck):
+        xb = [t[rows] for t in (xc, x.features, x.mask)]
+        yb = [t[cols] for t in (yc, y.features, y.mask)]
+        ck = None
+        if use_ck:
+            args = (x.features[rows], x.mask[rows], yb[1], yb[2], scal)
+            ck = gram.color_gram_cuda(*args)
+            assert (ck - gram.color_gram_plain(*args)).abs().max() <= 1e-6
+        md = aabb_min_d2(*block_bounds(xb[0], xb[2], moments.TILE_I),
+                         *block_bounds(yb[0], yb[2], moments.TILE_J))
+        a = (*xb, *yb, phi[rows], scal, ck, md)
+        mom, nnz = moments.fused_moments_cuda(*a)
+        ref, ref_nnz = moments.fused_moments_plain(*a)
+        scale = ref.abs().amax(dim=0).clamp_min(1e-30)
+        assert ((mom - ref).abs() / scale).max().item() <= 1e-4
+        assert abs(float(nnz) - float(ref_nnz)) <= 1e-4 * float(ref_nnz)
+        return mom, float(nnz)
+
+    every = slice(None)
+    rows = [slice(r * nb, (r + 1) * nb) for r in range(sp)]
+    whole, nnz = moments_block(every, every, True)
+    parts = [moments_block(r, every, True) for r in rows]
+    scale = whole.abs().amax(dim=0).clamp_min(1e-30)
+    assert ((sum(m_ for m_, _ in parts) - whole).abs() / scale).max() <= 1e-4
+    assert sum(c for _, c in parts) == nnz
+    assert all(c > 0 for _, c in parts)
+    # the ring's hops: every x block against every y block, summed against
+    # the whole launch; each block meets a pair in some hop
+    cols = [slice(s * mb, (s + 1) * mb) for s in range(sp)]
+    hops = [[moments_block(r, c, False) for c in cols] for r in rows]
+    whole, nnz = moments_block(every, every, False)
+    scale = whole.abs().amax(dim=0).clamp_min(1e-30)
+    # Mom is [M, 35]: a y block's rows sum over the x blocks
+    summed = torch.cat([sum(hop[s][0] for hop in hops) for s in range(sp)])
+    assert ((summed - whole).abs() / scale).max() <= 1e-4
+    assert sum(c for hop in hops for _, c in hop) == nnz
+    assert all(any(c > 0 for _, c in hop) for hop in hops)
+    assert all(any(hop[s][1] > 0 for hop in hops) for s in range(sp))
+
+    def sweep(xb, yb, use_ck, symmetric=False):
+        ck = gram.color_gram_cuda(xb.features, xb.mask, yb.features,
+                                  yb.mask, scal) if use_ck else None
+        md = aabb_min_d2(*block_bounds(xb.positions, xb.mask, wsq.TILE_W),
+                         *block_bounds(yb.positions, yb.mask, wsq.TILE_W))
+        a = (*xb, *yb, scal, ck, wsq.tile_order(md, symmetric))
+        w, nz = wsq.fused_wsq_cuda(*a, symmetric=symmetric)
+        ref_w, ref_n = wsq.fused_wsq_plain(*a)
+        assert abs(float(w) - float(ref_w)) <= 1e-4 * abs(float(ref_w))
+        assert float(nz) == float(ref_n)
+        return float(w), float(nz)
+
+    from cvo_rgbd_torch.core.cloud import PointCloud
+
+    xs = [PointCloud(*(t[r] for t in x)) for r in rows]
+    full = sweep(x, x, True, symmetric=True)
+    parts = [sweep(xb, x, True) for xb in xs]
+    assert abs(sum(w for w, _ in parts) - full[0]) <= 1e-4 * abs(full[0])
+    assert sum(c for _, c in parts) == full[1]
+    assert all(c > 0 for _, c in parts)
+    assert all(sweep(xb, xb, False)[1] > 0 for xb in xs)
+
+
+@pytest.mark.parametrize("entry", ["sharded", "ring"])
+def test_mesh_aligns_on_two_ranks_sharing_the_card(dev, entry):
+    """align_sharded / align_ring on 2 ranks on cuda:0 over gloo, cvo and
+    acvo at the C++ stops on a pair whose row blocks both hold valid
+    rows, against the single-device align on the card."""
+    import sys
+    from pathlib import Path
+
+    import cvo_rgbd_torch as ct
+    from cvo_rgbd_torch.parallel import mesh as tmesh
+
+    sys.path.insert(0, str(Path(__file__).parent))
+    import torch_ranks
+
+    x, y = _filled_render(dev, 2)
+    clouds = {"render": tuple(tuple(t.cpu().numpy() for t in c)
+                              for c in (x, y))}
+    params = [ct.CvoParams(), ct.AcvoParams()]
+    cases = [({"sp": 2}, entry, p, "render", {}) for p in params]
+    got = tmesh.launch(torch_ranks.aligns, 2, (cases, clouds, None),
+                       timeout=600)
+    for r in got[1:]:
+        for a, b in zip(got[0], r):
+            for f in a:
+                np.testing.assert_array_equal(a[f], b[f])
+    for p, res in zip(params, got[0]):
+        ref = ct.align(p, x, y)
+        np.testing.assert_allclose(res["tf"], ref.tf.cpu().numpy(),
+                                   atol=3e-4)
+        assert bool(res["converged"]) and bool(ref.converged)
+        np.testing.assert_allclose(res["ell"], ref.ell.cpu().numpy(),
+                                   rtol=0.05)

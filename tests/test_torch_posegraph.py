@@ -89,12 +89,6 @@ def test_optimize_matches_jax(graph, solver, robust):
                                rtol=1e-3, atol=1e-6)
 
 
-def test_optimize_over_a_mesh_is_not_ported():
-    _, jg = _drifted_square_graph()
-    with pytest.raises(NotImplementedError, match="Multi-device, on torch.distributed"):
-        tpg.optimize(_graph(jg), mesh=object())
-
-
 # ---- keyframe scores -------------------------------------------------------
 
 
