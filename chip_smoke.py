@@ -124,7 +124,27 @@ and prints no result line):
    2-frame prefix (the unsharded run's files), `optimize(mesh=)` and
    `ba_solve(mesh=)` over 4 ranks on phase 10e's SLAM problem; 11d. one
    rank over NCCL, `align_sharded` at sp=1.  Every rank must launch the
-   kernels of its path; their launches join the kernel line.
+   kernels of its path; their launches join the kernel line;
+12. degraded input and the rotation orbit (`synth.Degradation`,
+   `synth.linear_orbit_path`): 12a. tests/test_degradation.py's
+   sequence on the kernel backend: `run_odometry` over 13 frames fails
+   exactly the two pairs of the dropped frame and carries frame 9's
+   pose, the low-texture frame keeps the refill's quota, a cloud
+   poisoned with NaN fails its two pairs (this run caps max_iter at
+   100: a NaN pair runs to the cap) and the pairs after it converge,
+   `run_odometry_batched(batch=4)` on the fused backend fails the same
+   pairs with and without `motion_prior`, `run_multiseq` over the
+   degraded and a clean folder logs skips for the degraded lane alone,
+   and `KeyframeSlam` fed the dropped frame first seeds on the next;
+   12b. bench.py's degraded sequence (100 frames) on the fused backend,
+   resident: failed pairs {50, 51}, ATE < 0.08 m, frames/s logged, and
+   its first 25 frames' pairs replayed on the card from the CPU's plain
+   loop (`cvo_rgbd_torch.stop_skew`): equal stops agree in tf; 12c.
+   tests/test_odometry_rotation.py's orbit, cvo and acvo on the kernel
+   backend at the C++ stops, within that test's ATE and rotation
+   bounds; 12d. `cli generate-pointclouds`, `registered-cloud` along
+   12b's estimated trajectory, `plot-trajectory` and `associate` on
+   12b's folder, their files and lines checked.
 
 The line before last is a JSON object with each kernel's launches on
 the main paths together, its error against the plain version, its
@@ -247,6 +267,34 @@ PROBE_READS = {
     "j": ((0, (slice(256, 512), _ALL)), (1, (_ALL, slice(256, 512)))),
     "k": (),
 }
+# phase 12a: tests/test_degradation.py's sequence (24 frames of
+# revisit_path, 512 points, MATLAB stops); the drivers' runs take the
+# frames up to DEG_MAX_FRAMES, the NaN run up to DEG_NAN_FRAMES.  A NaN
+# pair runs to max_iter (2000, the same in JAX): at the kernel backend's
+# host launches that is minutes a pair, so the NaN run caps it
+DEG_FRAMES, DEG_NUM_WANT, DEG_MAX_FRAMES = 24, 512, 13
+DEG_DROP, DEG_LOW_TEXTURE, DEG_NAN, DEG_NAN_FRAMES = 10, 6, 3, 7
+DEG_NAN_MAX_ITER = 100
+DEG_BATCH = 4
+# the selector's refill takes one pixel an 8x8 block: 192 on 96x128
+DEG_REFILL_BLOCKS = (96 // 8) * (128 // 8)
+# phase 12b: bench.py's bench_degraded (100 frames, low texture every 25
+# from 12, total dropout at 50, 1024 points: resident on the fused
+# backend)
+BENCH_DEG_FRAMES, BENCH_DEG_DROP, BENCH_DEG_NUM_WANT = 100, 50, 1024
+# its first frames replayed (`cvo_rgbd_torch.stop_skew`): the CPU's plain
+# loop, each pair aligned again on the card from the CPU loop's inputs;
+# of its aligned pairs at least REPLAY_EQUAL_SHARE stop alike, those
+# within REPLAY_TF_TOL in tf (median REPLAY_TF_MEDIAN), and the card's
+# transforms put in at every pair move the ATE by at most REPLAY_ATE_TOL
+# m (over all 100 frames: 80 of 97 alike, 4.6e-4 at most, median 3.6e-7,
+# ATE 1.3e-4 m; PERF.md)
+REPLAY_FRAMES, REPLAY_EQUAL_SHARE = 25, 0.75
+REPLAY_TF_TOL, REPLAY_TF_MEDIAN, REPLAY_ATE_TOL = 1e-3, 1e-5, 1e-3
+# phase 12c: tests/test_odometry_rotation.py's orbit and its bounds,
+# (ATE m, largest rotation error mrad) for cvo and for acvo
+ORBIT_FRAMES, ORBIT_NUM_WANT = 6, 1024
+ORBIT_BOUNDS = {False: (0.015, 25.0), True: (0.02, 30.0)}
 
 
 def log(msg):
@@ -2871,6 +2919,357 @@ def phase_mesh(clouds, sets, slam_problem, root):
     return launches
 
 
+def _quiet(*a):
+    pass
+
+
+def _failed(recs):
+    return {r.index for r in recs if r.failed}
+
+
+def _check_carried(label, out, names, first):
+    """The two frames of the pairs failed from `first` carry frame
+    first-1's pose; every pose finite.  Returns the trajectory."""
+    import numpy as np
+
+    from cvo_rgbd_torch.io.tum import read_trajectory
+
+    est = read_trajectory(out)
+    keep = est[float(names[first - 1])]
+    for k in (first, first + 1):
+        check(np.array_equal(est[float(names[k])], keep),
+              f"{label}: frame {k} does not carry frame {first - 1}'s pose")
+    check(all(np.isfinite(v).all() for v in est.values()),
+          f"{label}: a non-finite pose")
+    return est
+
+
+def _drive(fn, *a, **kw):
+    """fn(*a, **kw) with the launch counts read around it: (its result,
+    the seconds it took, the launches)."""
+    import torch
+
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = fn(*a, **kw)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, read_launches()
+
+
+def _added(total, got):
+    """total plus the launches `got` of a run, whose align_fused launches
+    the caller has moved to their kernel line row (or there are none)."""
+    check(not got.pop("align_fused", 0),
+          f"align_fused launched where no kernel line row takes it: {got}")
+    for k, v in got.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def phase_failure_paths(root):
+    """12a: the failure paths on tests/test_degradation.py's sequence, on
+    the kernel backend (the batched driver on the fused one).  Returns
+    the launches by kernel line row."""
+    import numpy as np
+
+    from cvo_rgbd_torch import odometry
+    from cvo_rgbd_torch.evaluation import nan_cloud
+    from cvo_rgbd_torch.frontend import make_frontend
+    from cvo_rgbd_torch.io.tum import load_assoc, read_trajectory
+    from cvo_rgbd_torch.keyframes import KeyframePolicy
+    from cvo_rgbd_torch.multiseq import run_multiseq
+    from cvo_rgbd_torch.odometry import (
+        load_image_pair,
+        run_odometry,
+        run_odometry_batched,
+    )
+    from cvo_rgbd_torch.params import CvoParams
+    from cvo_rgbd_torch.slam import KeyframeSlam, SlamConfig
+    from cvo_rgbd_torch.synth import (
+        Degradation,
+        make_tum_dataset,
+        revisit_path,
+    )
+
+    folder = os.path.join(root, "degraded")
+    make_tum_dataset(folder, revisit_path(DEG_FRAMES, period=33),
+                     degrade=Degradation(
+                         depth_noise=2e-3, dropout=0.08,
+                         low_texture_frames=(DEG_LOW_TEXTURE,),
+                         drop_frames=(DEG_DROP,), seed=3))
+    entries = load_assoc(os.path.join(folder, "assoc.txt"))
+    names = [e.name for e in entries]
+    drop = {DEG_DROP, DEG_DROP + 1}
+    p = CvoParams(eps=5e-4, eps_2=1e-4)
+    launches = {}
+
+    # the sequential driver: exactly the dropped frame's two pairs fail
+    out = os.path.join(root, "deg_poses.txt")
+    recs, dt, got = _drive(run_odometry, folder, 1, params=p,
+                           num_want=DEG_NUM_WANT, max_frames=DEG_MAX_FRAMES,
+                           output=out, log=_quiet)
+    log(f"12a run_odometry (kernel): {len(recs)} pairs, failed "
+        f"{sorted(_failed(recs))}, iterations "
+        f"{[r.iterations for r in recs]}, {len(recs) / dt:.3f} frames/s, "
+        f"launches {got}")
+    check(_failed(recs) == drop, f"12a run_odometry failed {_failed(recs)}")
+    _check_carried("12a run_odometry", out, names, DEG_DROP)
+    check(got["color_gram"] and got["fused_moments"]
+          and not got["align_fused"], f"12a run_odometry launched {got}")
+    _added(launches, got)
+
+    # the low-texture frame: the block refill fills the quota
+    fe = make_frontend(1, DEG_NUM_WANT, 1)
+    n_low = int(fe(*load_image_pair(folder, entries[DEG_LOW_TEXTURE]))
+                .mask.sum().item())
+    log(f"12a low-texture frame {DEG_LOW_TEXTURE}: {n_low} valid points "
+        f"(refill budget {DEG_REFILL_BLOCKS})")
+    check(n_low > 0.6 * DEG_REFILL_BLOCKS and n_low >= 64,
+          f"12a the refill left {n_low} points on the low-texture frame")
+
+    # a NaN-poisoned cloud: its two pairs fail, the later ones converge
+    out = os.path.join(root, "nan_poses.txt")
+    with nan_cloud(odometry, DEG_NAN):
+        recs, _, got = _drive(
+            run_odometry, folder, 1,
+            params=dataclasses.replace(p, max_iter=DEG_NAN_MAX_ITER),
+            num_want=DEG_NUM_WANT, max_frames=DEG_NAN_FRAMES, output=out,
+            log=_quiet)
+    later = [r for r in recs if r.index > DEG_NAN + 1]
+    log(f"12a NaN cloud {DEG_NAN}: failed {sorted(_failed(recs))}, "
+        f"iterations {[r.iterations for r in recs]}, launches {got}")
+    check(_failed(recs) == {DEG_NAN, DEG_NAN + 1},
+          f"12a NaN run failed {_failed(recs)}")
+    check(later and all(r.converged and not r.failed for r in later),
+          "12a a pair after the NaN cloud did not converge")
+    _check_carried("12a NaN run", out, names, DEG_NAN)
+    _added(launches, got)
+
+    # the batched driver on the fused backend, one launch a batch, with
+    # and without the motion prior
+    pf = dataclasses.replace(p, backend="fused")
+    n_pairs = DEG_MAX_FRAMES - 1
+    for prior in (False, True):
+        out = os.path.join(root, f"deg_batched_{int(prior)}.txt")
+        recs, _, got = _drive(
+            run_odometry_batched, folder, 1, params=pf,
+            num_want=DEG_NUM_WANT, batch=DEG_BATCH,
+            max_frames=DEG_MAX_FRAMES, output=out, motion_prior=prior,
+            log=_quiet)
+        log(f"12a run_odometry_batched (fused, batch={DEG_BATCH}, "
+            f"motion_prior={prior}): failed {sorted(_failed(recs))}, "
+            f"iterations {[r.iterations for r in recs]}, launches {got}")
+        check(_failed(recs) == drop,
+              f"12a batched (prior {prior}) failed {_failed(recs)}")
+        _check_carried(f"12a batched (prior {prior})", out, names, DEG_DROP)
+        check(got["align_fused"] == -(-n_pairs // DEG_BATCH)
+              and not any(got[k] for k in KERNELS),
+              f"12a batched: not one launch a batch: {got}")
+        launches["align_fused_resident_batched"] = launches.get(
+            "align_fused_resident_batched", 0) + got.pop("align_fused")
+        _added(launches, got)
+
+    # multiseq: only the degraded lane logs skips
+    clean = os.path.join(root, "clean")
+    make_tum_dataset(clean, revisit_path(8, period=33))
+    msgs = []
+    outs, _, got = _drive(
+        run_multiseq, [folder, clean], 1, params=p, num_want=DEG_NUM_WANT,
+        max_frames=DEG_MAX_FRAMES,
+        log=lambda *a: msgs.append(" ".join(map(str, a))))
+    skips = [m for m in msgs if "skipping" in m]
+    t_deg, t_clean = (read_trajectory(outs[f]) for f in (folder, clean))
+    log(f"12a run_multiseq (kernel): skips {skips}, launches {got}")
+    check(len(skips) == 2 and all(m.startswith(folder + " ") for m in skips),
+          f"12a multiseq skips {skips}")
+    check(len(t_deg) == DEG_MAX_FRAMES and len(t_clean) == 8
+          and all(np.isfinite(v).all() for t in (t_deg, t_clean)
+                  for v in t.values()), "12a multiseq trajectories")
+    check(got["fused_moments"] > 0, f"12a multiseq launched {got}")
+    _added(launches, got)
+
+    # SLAM fed the dropped frame first seeds on the next frame
+    def slam_run():
+        slam = KeyframeSlam(p, SlamConfig(keyframe=KeyframePolicy(
+            max_span=6)))
+        for i, j in enumerate([DEG_DROP, 1, 2, 3]):
+            slam.process(i, fe(*load_image_pair(folder, entries[j])))
+        return slam
+
+    slam, _, got = _drive(slam_run)
+    kfs = [k.index for k in slam.keyframes]
+    log(f"12a KeyframeSlam, frame {DEG_DROP} first: keyframes {kfs}, "
+        f"launches {got}")
+    check(kfs and kfs[0] == 1 and slam.keyframes[0].self_fip > 0,
+          f"12a SLAM seeded on {kfs}")
+    check(np.array_equal(slam.frame_poses[0], np.eye(4))
+          and np.isfinite(slam.frame_poses[-1]).all(), "12a SLAM poses")
+    return _added(launches, got)
+
+
+def phase_degraded_sequence(root):
+    """12b: bench.py's degraded sequence on the fused backend (resident
+    at 1024).  Returns (launches by kernel line row, the folder)."""
+    from cvo_rgbd_torch.evaluation import ate_rmse
+    from cvo_rgbd_torch.io.tum import read_trajectory
+    from cvo_rgbd_torch.odometry import run_odometry
+    from cvo_rgbd_torch.params import CvoParams
+    from cvo_rgbd_torch.stop_skew import compare, make_sequence
+
+    folder = os.path.join(root, "bench_degraded")
+    make_sequence(folder, BENCH_DEG_FRAMES, BENCH_DEG_DROP)
+    p = CvoParams(eps=5e-4, eps_2=1e-4, backend="fused")
+    recs, dt, got = _drive(run_odometry, folder, 1, params=p,
+                           num_want=BENCH_DEG_NUM_WANT, log=_quiet)
+    gt = read_trajectory(os.path.join(folder, "groundtruth.txt"))
+    ate = ate_rmse(gt, read_trajectory(
+        os.path.join(folder, "cvo_poses_qt.txt")))["rmse"]
+    n = len(recs)
+    mean_it = sum(r.iterations for r in recs) / n
+    log(f"12b degraded sequence, fused num_want={BENCH_DEG_NUM_WANT}: {n} "
+        f"pairs, failed {sorted(_failed(recs))}, {n / dt:.3f} frames/s, "
+        f"mean iterations {mean_it:.1f}, ATE {ate:.5f} m, launches {got}")
+    check(_failed(recs) == {BENCH_DEG_DROP, BENCH_DEG_DROP + 1},
+          f"12b failed {_failed(recs)}")
+    check(ate < 0.08, f"12b ATE {ate} m")
+    check(got["align_fused"] == n and not any(got[k] for k in KERNELS),
+          f"12b: not one align_fused launch a pair: {got}")
+
+    # the resident kernel against the plain version on 12b's own pairs
+    t0 = time.perf_counter()
+    s = compare(folder, REPLAY_FRAMES, log=_quiet)["summary"]
+    rep, aligned = s["replay"], s["frames"] - 1
+    ate_gap = abs(s["ate"]["cpu_with_replay_everywhere"] - s["ate"]["cpu"])
+    log(f"12b replay of the first {REPLAY_FRAMES} frames "
+        f"({time.perf_counter() - t0:.1f} s): frontend masks equal on "
+        f"{s['frontend']['masks_equal']}, positions "
+        f"{s['frontend']['positions']:.2e}; {rep['equal_stops']} of "
+        f"{aligned} pairs stop alike, tf within "
+        f"{rep['equal_stops_tf_diff']:.2e} (median "
+        f"{rep['equal_stops_tf_diff_median']:.2e}), differing "
+        f"{rep['differing_pairs']} within "
+        f"{rep['differing_stops_tf_diff']:.2e}; ATE CPU "
+        f"{s['ate']['cpu']:.5f} m, with the card's transforms "
+        f"{s['ate']['cpu_with_replay_everywhere']:.5f} m, the card's loop "
+        f"{s['ate']['card']:.5f} m")
+    check(s["frontend"]["masks_equal"] == REPLAY_FRAMES,
+          f"12b replay: frontend masks differ: {s['frontend']}")
+    check(rep["equal_stops"] >= REPLAY_EQUAL_SHARE * aligned
+          and rep["equal_stops_tf_diff"] <= REPLAY_TF_TOL
+          and rep["equal_stops_tf_diff_median"] <= REPLAY_TF_MEDIAN
+          and ate_gap <= REPLAY_ATE_TOL, f"12b replay: {s}")
+    return fused_by_mode(got, "resident"), folder
+
+
+def phase_orbit(root):
+    """12c: tests/test_odometry_rotation.py's orbit, cvo and acvo on the
+    kernel backend at the C++ stops.  Returns the launches."""
+    from cvo_rgbd_torch.evaluation import ate_rmse, rotation_errors_mrad
+    from cvo_rgbd_torch.io.tum import read_trajectory
+    from cvo_rgbd_torch.odometry import run_odometry
+    from cvo_rgbd_torch.synth import (
+        BandScene,
+        linear_orbit_path,
+        make_tum_dataset,
+    )
+
+    folder = os.path.join(root, "orbit")
+    make_tum_dataset(folder, linear_orbit_path(ORBIT_FRAMES, 0.8, 0.15),
+                     BandScene(u_pad=80, v_pad=16))
+    gt = read_trajectory(os.path.join(folder, "groundtruth.txt"))
+    launches = {}
+    for adaptive in (False, True):
+        name = "acvo" if adaptive else "cvo"
+        out = os.path.join(root, f"orbit_{name}.txt")
+        recs, dt, got = _drive(run_odometry, folder, 1, adaptive=adaptive,
+                               num_want=ORBIT_NUM_WANT, output=out,
+                               log=_quiet)
+        est = read_trajectory(out)
+        ate = ate_rmse(gt, est)["rmse"]
+        rot = max(rotation_errors_mrad(gt, est))
+        ate_bound, rot_bound = ORBIT_BOUNDS[adaptive]
+        log(f"12c orbit {name} (kernel): {len(recs)} pairs, failed "
+            f"{sorted(_failed(recs))}, iterations "
+            f"{[r.iterations for r in recs]}, {len(recs) / dt:.3f} frames/s, "
+            f"ATE {ate:.5f} m (bound {ate_bound}), largest rotation error "
+            f"{rot:.3f} mrad (bound {rot_bound}), launches {got}")
+        check(len(est) == ORBIT_FRAMES and not _failed(recs),
+              f"12c {name}: a pair failed")
+        check(ate < ate_bound and rot < rot_bound,
+              f"12c {name}: ATE {ate} m, rotation {rot} mrad")
+        used = ("color_gram", "fused_moments") + (
+            ("fused_wsq",) if adaptive else ())
+        check(all(got[k] for k in used) and not got["align_fused"],
+              f"12c {name} launched {got}")
+        _added(launches, got)
+    return launches
+
+
+def phase_tooling(folder, root):
+    """12d: the file tools on 12b's folder, in process: generate-
+    pointclouds, registered-cloud along 12b's estimated trajectory,
+    plot-trajectory of it into frame 0, associate of rgb/depth lists."""
+    from PIL import Image
+
+    from cvo_rgbd_torch import cli
+    from cvo_rgbd_torch.io import load_assoc, read_pcd
+
+    def run(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(argv)
+        return buf.getvalue().splitlines()
+
+    t0 = time.perf_counter()
+    entries = load_assoc(os.path.join(folder, "assoc.txt"))
+    n = len(entries)
+    est = os.path.join(folder, "cvo_poses_qt.txt")
+
+    clouds = os.path.join(root, "clouds")
+    lines = run(["generate-pointclouds", folder, "1", "--out", clouds,
+                 "--stride", "2"])
+    files = sorted(os.listdir(clouds))
+    first = read_pcd(os.path.join(clouds, files[0]))
+    check(lines == [f"{n} clouds -> {clouds}"] and len(files) == n
+          and files[0] == f"{entries[0].name}.pcd"
+          and first["positions"].shape[0] > 0,
+          f"12d generate-pointclouds: {lines}, {len(files)} files")
+
+    ply = os.path.join(root, "registered.ply")
+    lines = run(["registered-cloud", folder, "1", est, "--output", ply,
+                 "--downsample", "0.01"])
+    with open(ply) as f:
+        text = f.read().split("end_header\n")
+    n_vertex = int(text[0].split("element vertex ")[1].split()[0])
+    check(n_vertex > 0 and len(text[1].splitlines()) == n_vertex
+          and lines == [f"{n_vertex} points from {n} frames -> {ply}"],
+          f"12d registered-cloud: {lines}")
+
+    png = os.path.join(root, "trajectory.png")
+    lines = run(["plot-trajectory", folder, "1", est, "--output", png])
+    with Image.open(png) as img:
+        size = img.size
+    check(size == (128, 96) and lines == [
+        f"frame {entries[0].name} + {n} poses -> {png}"],
+        f"12d plot-trajectory: {lines}, {size}")
+
+    lists = []
+    for kind, dt in (("rgb", 0.0), ("depth", 0.01)):
+        path = os.path.join(root, f"{kind}.txt")
+        with open(path, "w") as f:
+            f.write(f"# {kind}\n" + "".join(
+                f"{float(e.name) + dt:.6f} {kind}/{e.name}.png\n"
+                for e in entries))
+        lists.append(path)
+    lines = run(["associate", *lists])
+    check(len(lines) == n and lines[0].split()[1] == entries[0].rgb_path,
+          f"12d associate: {len(lines)} lines")
+    log(f"12d tools: {n} clouds, a registered PLY of {n_vertex} vertices, "
+        f"a {size[0]}x{size[1]} trajectory PNG, {len(lines)} associations "
+        f"in {time.perf_counter() - t0:.2f} s")
+
+
 def main():
     import torch
 
@@ -3106,6 +3505,24 @@ def main():
     tmp11.cleanup()
     mark("11b-d (mesh paths)")
     log("11a rows: " + json.dumps(mesh_rows))
+
+    # 12. degraded input and the rotation orbit: the failure paths on
+    # the kernel backend, bench_degraded's sequence on the fused one, the
+    # orbit, then the file tools on 12b's folder and trajectory
+    tmp12 = tempfile.TemporaryDirectory()
+    for k, v in phase_failure_paths(tmp12.name).items():
+        launches[k] += v
+    mark("12a (failure paths)")
+    got, folder = phase_degraded_sequence(tmp12.name)
+    for k, v in got.items():
+        launches[k] += v
+    mark("12b (degraded sequence)")
+    for k, v in phase_orbit(tmp12.name).items():
+        launches[k] += v
+    mark("12c (rotation orbit)")
+    phase_tooling(folder, tmp12.name)
+    tmp12.cleanup()
+    mark("12d (file tools)")
 
     sources = {
         "color_gram": ("cvo_rgbd_torch/csrc/color_gram.cu",

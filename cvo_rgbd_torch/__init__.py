@@ -4,13 +4,18 @@ A port of the JAX package (which stays the reference) to
 PyTorch, with the TPU kernels of the main path rewritten by hand in CUDA
 C++ for Hopper (`cvo_rgbd_torch/csrc/`).  The module layout and names
 follow the JAX package.  Entry points run on the CUDA device unless the
-caller passes `device="cpu"`.
+caller passes `device="cpu"`.  JAX's `align_jit` has no counterpart:
+the port compiles nothing ahead, so `align` is the one entry point.
 """
 
 from __future__ import annotations
 
 from cvo_rgbd_torch.core.cloud import PointCloud, pad_cloud
-from cvo_rgbd_torch.core.registration import AlignResult, align
+from cvo_rgbd_torch.core.registration import (
+    AlignResult,
+    align,
+    function_inner_product,
+)
 from cvo_rgbd_torch.params import MATLAB_PARAMS, AcvoParams, CvoParams
 from cvo_rgbd_torch.slam import KeyframeSlam, SlamConfig
 
@@ -21,6 +26,7 @@ __all__ = [
     "PointCloud",
     "align",
     "pad_cloud",
+    "function_inner_product",
     "CvoParams",
     "AcvoParams",
     "MATLAB_PARAMS",

@@ -13,6 +13,13 @@
         [--grid 0.05] [--refine] [--device cpu]
     python -m cvo_rgbd_torch.cli evaluate-ate <groundtruth> <estimate>
     python -m cvo_rgbd_torch.cli evaluate-rpe <groundtruth> <estimate>
+    python -m cvo_rgbd_torch.cli generate-pointclouds <folder> <seq>
+        [--out pcd_full] [--format pcd|ply] [--stride 1]
+    python -m cvo_rgbd_torch.cli registered-cloud <folder> <seq> <traj>
+        [--output registered.ply] [--stride 4] [--downsample 0.0]
+    python -m cvo_rgbd_torch.cli plot-trajectory <folder> <seq> <traj>
+        [--output trajectory.png] [--frame 0]
+    python -m cvo_rgbd_torch.cli associate <rgb.txt> <depth.txt>
 
 `run` mirrors the reference executables (`./cvo $data_path $tum_seq`,
 and the adaptive one with `--adaptive`), or with `--batch N` registers N
@@ -21,8 +28,9 @@ lockstep, one pair of each per batched call; `batch` and `stitch` the MATLAB
 batch runner (MATLAB_PARAMS: linear color mode, MATLAB stops); `slam`
 keyframe SLAM over a pcd folder (keyframes, loop closure, pose graph,
 and with `--refine` bundle adjustment of the keyframe map) on
-MATLAB_PARAMS.  All run on the CUDA device unless `--device cpu` is
-given.
+MATLAB_PARAMS.  These run on the CUDA device unless `--device cpu` is
+given.  The file tools (`generate-pointclouds`, `registered-cloud`,
+`plot-trajectory`, `associate`, `evaluate-*`) are host numpy.
 """
 
 from __future__ import annotations
@@ -48,8 +56,8 @@ def _make_params(args):
     return (AcvoParams if args.adaptive else CvoParams)(**kw)
 
 
-def _seq(args):
-    return int(args.seq) if args.seq.isdigit() else args.seq
+def _seq_key(seq):
+    return int(seq) if seq.isdigit() else seq
 
 
 def _cmd_run(args):
@@ -69,7 +77,7 @@ def _cmd_run(args):
 def _run_odometry_cmd(args):
     from cvo_rgbd_torch.odometry import run_odometry, run_odometry_batched
 
-    seq = _seq(args)
+    seq = _seq_key(args.seq)
     if args.batch > 1:
         if args.checkpoint:
             raise SystemExit("--batch does not support checkpointing")
@@ -101,7 +109,7 @@ def _cmd_multiseq(args):
     from cvo_rgbd_torch.multiseq import run_multiseq
 
     run_multiseq(
-        args.folders, _seq(args), adaptive=args.adaptive,
+        args.folders, _seq_key(args.seq), adaptive=args.adaptive,
         params=_make_params(args), num_want=args.num_want,
         max_frames=args.max_frames, warm_start=not args.cold_start,
         device=args.device,
@@ -184,6 +192,101 @@ def _cmd_slam(args):
     print(f"trajectory -> {args.output}")
 
 
+def _cmd_generate_pointclouds(args):
+    """Every assoc.txt frame as a cloud file (generate_pointcloud.py,
+    util/generate_pointclouds.m:1-47): the camera's depth scale, PLY or
+    PCD out."""
+    import os
+
+    from cvo_rgbd_torch.frontend.camera import get_camera
+    from cvo_rgbd_torch.io.export import depth_to_cloud, write_pcd, write_ply
+    from cvo_rgbd_torch.io.tum import load_assoc
+    from cvo_rgbd_torch.odometry import load_image_pair
+
+    cam = get_camera(_seq_key(args.seq))
+    entries = load_assoc(os.path.join(args.folder, "assoc.txt"))
+    if args.max_frames is not None:
+        entries = entries[: args.max_frames]
+    os.makedirs(args.out, exist_ok=True)
+    write = write_ply if args.format == "ply" else write_pcd
+    for e in entries:
+        rgb, dep = load_image_pair(args.folder, e)
+        pos, col = depth_to_cloud(rgb, dep, cam, stride=args.stride)
+        write(os.path.join(args.out, f"{e.name}.{args.format}"), pos, col)
+    print(f"{len(entries)} clouds -> {args.out}")
+
+
+def _matched_frames(args):
+    """The camera of `args.seq`, the folder's assoc.txt entries by
+    timestamp, the trajectory of `args.trajectory` and the (frame,
+    pose) timestamp matches; exits when nothing matches."""
+    import os
+
+    from cvo_rgbd_torch.evaluation.associate import associate
+    from cvo_rgbd_torch.frontend.camera import get_camera
+    from cvo_rgbd_torch.io.tum import load_assoc, read_trajectory
+
+    cam = get_camera(_seq_key(args.seq))
+    entries = {float(e.name): e for e in
+               load_assoc(os.path.join(args.folder, "assoc.txt"))}
+    traj = read_trajectory(args.trajectory)
+    matches = associate(entries, traj, 0.0, args.max_difference)
+    if not matches:
+        raise SystemExit("no frame matches the trajectory timestamps")
+    return cam, entries, traj, matches
+
+
+def _cmd_registered_cloud(args):
+    """One world-frame PLY along a trajectory
+    (generate_registered_pointcloud.py: frames matched to poses by
+    timestamp, backprojected, transformed, merged)."""
+    from cvo_rgbd_torch.io.export import merge_clouds, write_ply
+    from cvo_rgbd_torch.odometry import load_image_pair
+    from cvo_rgbd_torch.visualize import export_registered_clouds
+
+    cam, entries, traj, matches = _matched_frames(args)
+    # stride first, then the frame cap: --max-frames K --frame-stride S
+    # exports K frames spaced S apart
+    matches = matches[:: args.frame_stride]
+    if args.max_frames is not None:
+        matches = matches[: args.max_frames]
+    frames = []
+    for ft, tt in matches:
+        rgb, dep = load_image_pair(args.folder, entries[ft])
+        frames.append((tt, rgb, dep))
+    pos, col = export_registered_clouds(frames, traj, cam, stride=args.stride)
+    if args.downsample > 0:
+        pos, col = merge_clouds([(pos, col)], grid=args.downsample)
+    write_ply(args.output, pos, col)
+    print(f"{pos.shape[0]} points from {len(frames)} frames -> {args.output}")
+
+
+def _cmd_plot_trajectory(args):
+    """A trajectory projected into one frame's image
+    (plot_trajectory_into_image.py)."""
+    import numpy as np
+    from PIL import Image
+
+    from cvo_rgbd_torch.odometry import load_image_pair
+    from cvo_rgbd_torch.visualize import draw_trajectory_into_image
+
+    cam, entries, traj, matches = _matched_frames(args)
+    if args.frame < 0:
+        raise SystemExit(f"--frame must be >= 0 (got {args.frame})")
+    if args.frame >= len(matches):
+        print(
+            f"--frame {args.frame} out of range; using last matched "
+            f"frame {len(matches) - 1}"
+        )
+    ft, tt = matches[min(args.frame, len(matches) - 1)]
+    rgb, _ = load_image_pair(args.folder, entries[ft])
+    img = draw_trajectory_into_image(
+        np.asarray(rgb), cam, traj[tt], traj, radius=args.radius
+    )
+    Image.fromarray(img).save(args.output)
+    print(f"frame {entries[ft].name} + {len(traj)} poses -> {args.output}")
+
+
 def _cmd_ate(args):
     from cvo_rgbd_torch.evaluation import ate_rmse
     from cvo_rgbd_torch.io.tum import read_trajectory
@@ -211,6 +314,15 @@ def _cmd_rpe(args):
         fixed_delta=True,
     )
     print(json.dumps(stats, indent=2))
+
+
+def _cmd_associate(args):
+    from cvo_rgbd_torch.evaluation.associate import associate, read_file_list
+
+    first = read_file_list(args.first)
+    second = read_file_list(args.second)
+    for a, b in associate(first, second, args.offset, args.max_difference):
+        print(f"{a:f} {' '.join(first[a])} {b:f} {' '.join(second[b])}")
 
 
 def main(argv=None):
@@ -319,6 +431,50 @@ def main(argv=None):
                      "graph")
     psl.set_defaults(fn=_cmd_slam)
 
+    pg = sub.add_parser(
+        "generate-pointclouds",
+        help="export every assoc.txt frame as a .pcd/.ply cloud",
+    )
+    pg.add_argument("folder")
+    pg.add_argument("seq", help="camera key (intrinsics + depth scale)")
+    pg.add_argument("--out", default="pcd_full")
+    pg.add_argument("--format", default="pcd", choices=["pcd", "ply"])
+    pg.add_argument("--stride", type=int, default=1,
+                    help="pixel subsampling stride")
+    pg.add_argument("--max-frames", type=int)
+    pg.set_defaults(fn=_cmd_generate_pointclouds)
+
+    prc = sub.add_parser(
+        "registered-cloud",
+        help="merge frames along a trajectory into one world-frame PLY",
+    )
+    prc.add_argument("folder")
+    prc.add_argument("seq")
+    prc.add_argument("trajectory", help="TUM-format pose file")
+    prc.add_argument("--output", default="registered.ply")
+    prc.add_argument("--stride", type=int, default=4,
+                     help="pixel subsampling stride per frame")
+    prc.add_argument("--frame-stride", type=int, default=1)
+    prc.add_argument("--max-frames", type=int)
+    prc.add_argument("--downsample", type=float, default=0.0,
+                     help="grid size for a final merge downsample (m)")
+    prc.add_argument("--max-difference", type=float, default=0.02)
+    prc.set_defaults(fn=_cmd_registered_cloud)
+
+    ppt = sub.add_parser(
+        "plot-trajectory",
+        help="project a trajectory into one frame's image (png)",
+    )
+    ppt.add_argument("folder")
+    ppt.add_argument("seq")
+    ppt.add_argument("trajectory")
+    ppt.add_argument("--output", default="trajectory.png")
+    ppt.add_argument("--frame", type=int, default=0,
+                     help="index of the matched frame to draw into")
+    ppt.add_argument("--radius", type=int, default=2)
+    ppt.add_argument("--max-difference", type=float, default=0.02)
+    ppt.set_defaults(fn=_cmd_plot_trajectory)
+
     pa = sub.add_parser("evaluate-ate", help="ATE RMSE of a trajectory")
     pa.add_argument("groundtruth")
     pa.add_argument("estimate")
@@ -333,6 +489,14 @@ def main(argv=None):
     pp.add_argument("--delta-unit", default="s",
                     choices=["s", "m", "rad", "deg", "f"])
     pp.set_defaults(fn=_cmd_rpe)
+
+    ps = sub.add_parser("associate",
+                        help="match rgb.txt and depth.txt timestamps")
+    ps.add_argument("first")
+    ps.add_argument("second")
+    ps.add_argument("--offset", type=float, default=0.0)
+    ps.add_argument("--max-difference", type=float, default=0.02)
+    ps.set_defaults(fn=_cmd_associate)
 
     args = p.parse_args(argv)
     args.fn(args)

@@ -60,3 +60,16 @@ def ate_rmse(gt_traj, est_traj, max_difference=0.02, offset=0.0):
         "max": float(np.max(trans_error)),
         "pairs": len(matches),
     }
+
+
+def rotation_errors_mrad(gt_traj, est_traj):
+    """Each estimated pose's rotation error against the ground-truth pose
+    of the nearest timestamp, in mrad (unaligned: both trajectories
+    start at the first frame's pose)."""
+    errs = []
+    for t, T in est_traj.items():
+        k = min(gt_traj, key=lambda g: abs(g - t))
+        dR = T[:3, :3] @ gt_traj[k][:3, :3].T
+        errs.append(float(np.arccos(np.clip((np.trace(dR) - 1) / 2, -1, 1))
+                          * 1e3))
+    return errs

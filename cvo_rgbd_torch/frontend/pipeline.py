@@ -93,3 +93,12 @@ def make_frontend(camera_key, num_want=3000, feature_type=1,
         )
 
     return frontend
+
+
+def process_frame(rgb, depth, camera_key, num_want=3000, feature_type=1,
+                  bgr_quirk=False, device=None):
+    """One-shot frontend call: `make_frontend`'s processor for this
+    config, applied to one frame (on the card unless `device="cpu"`)."""
+    fn = make_frontend(camera_key, num_want, feature_type,
+                       bgr_quirk=bgr_quirk, device=device)
+    return fn(rgb, depth)

@@ -8,7 +8,13 @@ truth is closed-form.
 - `make_tum_dataset` writes the TUM folder layout (rgb/, depth/,
   assoc.txt, groundtruth.txt) and needs PIL;
 - `render_frames` yields the same frames in memory, quantized exactly
-  as the 8-bit/16-bit PNGs would store them, for machines without PIL.
+  as the 8-bit/16-bit PNGs would store them, for machines without PIL;
+- `Degradation` is the Kinect-like sensor model `make_tum_dataset`
+  applies before it writes (`degrade=`).
+
+Camera paths: `linear_orbit_path` (constant yaw+pitch a frame about the
+pivot), `revisit_path` and `depth_loop_path` (periodic, so frames i and
+i + period share a pose).
 """
 
 from __future__ import annotations
@@ -55,6 +61,17 @@ class CameraPath:
     @property
     def n_frames(self):
         return len(self.yaw)
+
+
+def linear_orbit_path(n_frames, yaw_step_deg=0.8, pitch_step_deg=0.15):
+    """Monotone orbit: frame i yaws i*yaw_step (and pitches
+    i*pitch_step) about the pivot."""
+    i = np.arange(n_frames)
+    return CameraPath(
+        yaw=np.deg2rad(yaw_step_deg) * i,
+        pitch=np.deg2rad(pitch_step_deg) * i,
+        offset=np.zeros((n_frames, 3)),
+    )
 
 
 def revisit_path(n_frames, period=40, yaw_amp_deg=3.0, pitch_amp_deg=0.5,
@@ -166,11 +183,70 @@ class BandScene:
         return rgb, depth
 
 
-def _frame(scene: BandScene, path: CameraPath, i, start_time, frame_dt):
+@dataclasses.dataclass
+class Degradation:
+    """Kinect-like sensor degradation, deterministic per (seed, frame).
+
+    Real sensor data has quantized noisy depth with holes and
+    texture-poor frames, which the selector's block refill
+    (pcd_generator.cpp:135-163) and the drivers' skip-and-mark
+    (rgbddataset_rkhs.m:49-81) exist for; a noise-free render never
+    reaches either.
+
+    - `depth_noise`: Gaussian depth noise of sigma_z = depth_noise * z^2
+      (Kinect-1 disparity quantization, ~1.4e-3 * z^2 m measured by
+      Khoshelham & Elberink 2012);
+    - `dropout`: fraction of depth pixels zeroed in smooth blobs (the
+      `dropout` quantile of band-limited noise);
+    - `low_texture_frames`: frames whose RGB contrast is scaled by
+      `low_texture_scale` about 128;
+    - `drop_frames`: frames whose depth is zeroed whole (total sensor
+      dropout: an empty cloud).
+    """
+
+    depth_noise: float = 2e-3
+    dropout: float = 0.0
+    low_texture_frames: tuple = ()
+    low_texture_scale: float = 0.04
+    drop_frames: tuple = ()
+    seed: int = 0
+
+    def apply(self, i, rgb, depth):
+        """Degrade frame i (returns new rgb, depth)."""
+        r = np.random.default_rng(self.seed * 100003 + i)
+        if i in self.low_texture_frames:
+            rgb = 128.0 + (rgb - 128.0) * self.low_texture_scale
+        if self.depth_noise > 0:
+            valid = depth > 0
+            depth = np.where(
+                valid,
+                depth + r.normal(size=depth.shape) * self.depth_noise
+                * depth * depth,
+                0.0,
+            )
+            depth = np.clip(depth, 0.0, None)  # negative = invalid (0)
+        if self.dropout > 0:
+            from scipy.ndimage import gaussian_filter
+
+            field = gaussian_filter(
+                r.normal(size=depth.shape), 3.0, mode="wrap"
+            )
+            depth = np.where(
+                field < np.quantile(field, self.dropout), 0.0, depth
+            )
+        if i in self.drop_frames:
+            depth = np.zeros_like(depth)
+        return rgb, depth
+
+
+def _frame(scene: BandScene, path: CameraPath, i, start_time, frame_dt,
+           degrade: Degradation | None = None):
     """(name, rgb uint8 [H,W,3], depth uint16 [H,W], pose [4,4]) of frame
-    i: the values the PNG files hold."""
+    i, degraded by `degrade` if given: the values the PNG files hold."""
     R, c = scene.pose(path, i)
     rgb, depth = scene.render(R, c)
+    if degrade is not None:
+        rgb, depth = degrade.apply(i, rgb, depth)
     pose = np.eye(4)
     pose[:3, :3] = R
     pose[:3, 3] = c
@@ -193,9 +269,11 @@ def render_frames(path: CameraPath, scene: BandScene | None = None,
 
 
 def make_tum_dataset(root, path: CameraPath, scene: BandScene | None = None,
-                     start_time=200.0, frame_dt=0.1):
-    """Render `path` into a TUM-layout dataset folder at `root`.  Returns
-    (scene, poses) with poses [n,4,4] camera-to-world ground truth."""
+                     start_time=200.0, frame_dt=0.1,
+                     degrade: Degradation | None = None):
+    """Render `path` into a TUM-layout dataset folder at `root`, each
+    frame degraded by `degrade` if given.  Returns (scene, poses) with
+    poses [n,4,4] camera-to-world ground truth."""
     from PIL import Image
 
     scene = scene or BandScene()
@@ -209,7 +287,7 @@ def make_tum_dataset(root, path: CameraPath, scene: BandScene | None = None,
         gt.write("# ground truth\n")
         for i in range(path.n_frames):
             name, rgb, depth, pose = _frame(scene, path, i, start_time,
-                                            frame_dt)
+                                            frame_dt, degrade)
             Image.fromarray(rgb).save(os.path.join(root, "rgb", f"{name}.png"))
             Image.fromarray(depth).save(
                 os.path.join(root, "depth", f"{name}.png")

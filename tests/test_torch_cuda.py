@@ -1659,3 +1659,46 @@ def test_mesh_aligns_on_two_ranks_sharing_the_card(dev, entry):
         assert bool(res["converged"]) and bool(ref.converged)
         np.testing.assert_allclose(res["ell"], ref.ell.cpu().numpy(),
                                    rtol=0.05)
+
+
+@pytest.fixture(scope="module")
+def degraded(tmp_path_factory):
+    """tests/test_degradation.py's sequence: total dropout at frame 10."""
+    from cvo_rgbd_torch.synth import Degradation, make_tum_dataset
+    from cvo_rgbd_torch.synth import revisit_path
+
+    root = tmp_path_factory.mktemp("degraded")
+    make_tum_dataset(root, revisit_path(24, period=33),
+                     degrade=Degradation(depth_noise=2e-3, dropout=0.08,
+                                         low_texture_frames=(6,),
+                                         drop_frames=(10,), seed=3))
+    return root
+
+
+@pytest.mark.parametrize("driver", ["sequential", "batched",
+                                    "batched_prior"])
+def test_degraded_failed_pairs_on_card(dev, degraded, tmp_path, driver):
+    """The drivers' skip-and-mark on the card (kernel backend; the
+    batched driver fused, one launch a batch of 4) fails the pairs the
+    CPU run fails: exactly the dropped frame's two."""
+    import dataclasses
+
+    from cvo_rgbd_torch.odometry import run_odometry, run_odometry_batched
+    from cvo_rgbd_torch.params import CvoParams
+
+    p = CvoParams(eps=5e-4, eps_2=1e-4)
+
+    def failed(device):
+        kw = dict(num_want=512, max_frames=13, use_native=False,
+                  output=str(tmp_path / f"{device}.txt"),
+                  log=lambda *a: None, device=device)
+        if driver == "sequential":
+            recs = run_odometry(str(degraded), 1, params=p, **kw)
+        else:
+            recs = run_odometry_batched(
+                str(degraded), 1,
+                params=dataclasses.replace(p, backend="fused"), batch=4,
+                motion_prior=driver == "batched_prior", **kw)
+        return {r.index for r in recs if r.failed}
+
+    assert failed("cuda") == failed("cpu") == {10, 11}
