@@ -50,21 +50,30 @@ and prints no result line):
    then one align with `"cheb"`, its tables one launch); 4c. the
    same aligns on the fused backend, each run twice (the iterations must
    repeat), ms/iteration by slope (10 against 60 iterations) and a
-   profile of one align;
+   profile of one align; 4d. `align_jit` (the kernel backend's loop
+   captured as CUDA graphs of 8 iterations, `core/compiled.py`) against
+   `align` on cvo, acvo exact and cheb and the direct step at 3072 and
+   linear at 2816: every field the eager bits, one replay a block of 8
+   iterations started, the eager launches, host ms an iteration of
+   both, the captures' seconds and bytes; three pairs through one
+   compiled align, a 100-iteration cap (the tail graph of 4) and the
+   device busy share of one replayed align;
 5. the main paths: `run_odometry_frames` over the rendered sequence for
    cvo, 5b. then for acvo (`adaptive=True`), 5c. then for both on the
    fused backend at capacity 3072 (tiled) and 1024 (resident), 5d. then
    for both on the kernel backend with `step_mode="direct"` (`fused_flow`
    and `fused_step_coeffs` in place of `fused_moments`), each with every
    kernel's launch count set to 0 just before and read just after, and
-   the trajectory scored (ATE) against the exact ground truth.  The
-   fused runs must launch `align_fused` once a pair and none of the
+   the trajectory scored (ATE) against the exact ground truth.  Every
+   pair goes through `align_jit` (graph replays on the kernel backend).
+   The fused runs must launch `align_fused` once a pair and none of the
    per-iteration kernels;
 6. the MATLAB path on the pcd files at both grids: `cli batch` (kernel
    backend: `fused_moments`, never `color_gram`), `run_batch` on the
    fused backend (`align_fused` once a pair) and with
    `step_mode="direct"` (`fused_flow` and `fused_step_coeffs` each
-   iteration), each scored against the exact relative ground truth; one
+   iteration), each pair through `align_jit`, each scored against the
+   exact relative ground truth; one
    small linear pair on the card and on the CPU; `cli stitch`.  3d and
    3e take the linear pairs at the batch's capacity for the grid;
 7. the construct probes: `python -m cvo_rgbd_torch.probes` (its `main`)
@@ -92,7 +101,8 @@ and prints no result line):
    its solo run;
 9. keyframe SLAM over a 40-frame path along the optical axis and back
    (`synth.depth_loop_path`), written as .pcd: `python -m
-   cvo_rgbd_torch.cli slam` (MATLAB_PARAMS, kernel backend) with its
+   cvo_rgbd_torch.cli slam` (MATLAB_PARAMS, kernel backend, its aligns
+   through `align_jit`) with its
    frames, keyframes, loop closures, s/frame and ATE against the exact
    ground truth; then `KeyframeSlam` with exp_mode="fast" on the kernel
    backend (moment and direct step) and on the fused one at both grids,
@@ -1083,6 +1093,7 @@ def phase_batch(root, grid, label, gt, params=None):
     lines = []
     torch.cuda.synchronize()
     reset_launches()
+    jit0 = jit_counts()
     t0 = time.perf_counter()
     if params is None:
         buf = io.StringIO()
@@ -1095,6 +1106,7 @@ def phase_batch(root, grid, label, gt, params=None):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = read_launches()
+    calls, replays = (b - a for a, b in zip(jit0, jit_counts()))
     res = np.load(out)["results"]
     pairs = [ln for ln in lines if ln.startswith("pair ")]
     iters = [int(ln.split("iters=")[1].split()[0]) for ln in pairs
@@ -1106,7 +1118,11 @@ def phase_batch(root, grid, label, gt, params=None):
         f"{len(pairs) / dt:.3f} pairs/s ({dt:.3f} s with loading), "
         f"iterations {iters}, translation error against the exact relative "
         f"ground truth mean {np.mean(err):.5f} m max {np.max(err):.5f} m "
-        f"(identity: mean {np.mean(motion):.5f} m), launches {launches}")
+        f"(identity: mean {np.mean(motion):.5f} m), launches {launches}; "
+        f"align_jit calls {calls}, replays {replays}")
+    fused = params is not None and params.backend == "fused"
+    check(calls == len(gt) and (replays == 0) == fused,
+          f"batch {label}: align_jit calls {calls}, replays {replays}")
     check(len(iters) == len(pairs) == len(gt) and np.isfinite(res).all()
           and not any("not converged" in ln for ln in pairs),
           f"batch {label}: a pair failed or did not converge: {pairs}")
@@ -1371,6 +1387,129 @@ def phase_fused_timing(fixed, moving, p, kernel_ms_iter):
     check(slope > 0, "fused ms/iteration by slope is not positive")
 
 
+def jit_counts():
+    """(calls, replays) of `align_jit` so far: its calls, and its graph
+    replays (host launches of the captured align blocks)."""
+    from cvo_rgbd_torch.core import compiled
+
+    return compiled.align_jit.calls, compiled.align_jit.replays
+
+
+def compiled_for(p, fixed, moving):
+    """The compiled align `align_jit` built last for `p` and these
+    capacities."""
+    from cvo_rgbd_torch.core import compiled
+
+    objs = [v for k, v in compiled.CACHE.items()
+            if k[0] == p and k[1:3] == (fixed.capacity, moving.capacity)]
+    check(objs, f"no compiled align for {p.backend} {fixed.capacity}")
+    return objs[-1]
+
+
+def phase_align_jit(cases, pairs, p):
+    """4d. `align_jit` (the align loop as CUDA graphs, one replay a block
+    of 8 iterations) against `align` on the card.  Each case: an eager
+    `align`, a first `align_jit` (capture included) and a second one,
+    every field of both the eager bits, replays = ceil(iterations / 8),
+    the second call's kernel launches those of the eager align; host ms
+    an iteration of both, replays and kernel launches an iteration, the
+    capture's seconds and the card's allocated and reserved bytes
+    across it.  Then three pairs through one compiled align (the first
+    result unchanged after the third), a 100-iteration cap on an align
+    that cannot stop (the block 12 times, then the tail graph of 4), and
+    the device busy share of one replayed align from a profile."""
+    import math
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from cvo_rgbd_torch import align, align_jit
+    from cvo_rgbd_torch.core import compiled
+
+    def run(fn):
+        torch.cuda.synchronize()
+        reset_launches()
+        r0 = jit_counts()[1]
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return (res, time.perf_counter() - t0, jit_counts()[1] - r0,
+                read_launches())
+
+    def same(a, b):
+        return all(torch.equal(getattr(a, f), getattr(b, f))
+                   for f in a._fields)
+
+    for name, q, x, y in cases:
+        ref, dt_e, _, l_e = run(lambda: align(q, x, y))
+        first, dt_1, _, _ = run(lambda: align_jit(q, x, y))
+        got, dt_j, reps, l_j = run(lambda: align_jit(q, x, y))
+        k = int(got.iterations) + 1
+        caps = compiled_for(q, x, y).captures
+        kern = sum(l_j[n] for n in KERNELS)
+        log(f"align_jit {name} N={x.capacity} M={y.capacity}: {k} "
+            f"iterations, the bits of align {same(got, ref)} (first call "
+            f"{same(first, ref)}); host ms/iteration eager "
+            f"{dt_e * 1e3 / k:.3f}, compiled {dt_j * 1e3 / k:.3f} (first "
+            f"call with capture {dt_1:.3f} s); replays {reps} "
+            f"({reps / k:.4f} an iteration), kernel launches "
+            f"{kern / k:.3f} an iteration {l_j} (eager {l_e}); captures "
+            f"{caps}")
+        check(same(got, ref) and same(first, ref),
+              f"align_jit {name}: not the bits of align")
+        check(reps == math.ceil(k / 8),
+              f"align_jit {name}: {reps} replays for {k} iterations")
+        check(l_j == l_e, f"align_jit {name}: launches {l_j}, align {l_e}")
+
+    # three pairs through one compiled align: fresh results
+    q = dataclasses.replace(p, max_iter=48)
+    refs = [align(q, *pr) for pr in pairs]
+    got = [align_jit(q, *pairs[0])]
+    kept = [t.clone() for t in got[0]]
+    got += [align_jit(q, *pr) for pr in pairs[1:]]
+    n_obj = sum(1 for k in compiled.CACHE if k[0] == q)
+    alias = all(torch.equal(a, b) for a, b in zip(got[0], kept))
+    log(f"align_jit: 3 pairs through {n_obj} compiled align, each the bits "
+        f"of align {[same(a, b) for a, b in zip(got, refs)]}, the first "
+        f"unchanged after the third {alias}")
+    check(n_obj == 1 and alias and all(same(a, b) for a, b in zip(got, refs)),
+          "align_jit: three pairs through one compiled align")
+
+    # the cap: 100 iterations that cannot stop, 12 blocks and the tail
+    q = dataclasses.replace(p, max_iter=100, eps=0.0, eps_2=0.0)
+    x, y = pairs[0]
+    ref = align(q, x, y)
+    got, dt_1, reps, _ = run(lambda: align_jit(q, x, y))
+    graphs = sorted(compiled_for(q, x, y).graphs)
+    log(f"align_jit cap 100: iterations {int(got.iterations) + 1}, "
+        f"converged {bool(got.converged)}, the bits of align "
+        f"{same(got, ref)}, replays {reps}, graphs of {graphs} iterations, "
+        f"{dt_1:.3f} s with both captures")
+    check(int(got.iterations) == 99 and not bool(got.converged)
+          and same(got, ref) and reps == 13 and graphs == [4, 8],
+          "align_jit: the 100-iteration cap")
+
+    # the device's busy share of one replayed align (graphs built)
+    x, y = pairs[0]
+    align_jit(p, x, y)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = align_jit(p, x, y)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    gpu = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(e.time_range.elapsed_us() for e in gpu) / 1e3
+    keys = {e.key: e.count for e in prof.key_averages()
+            if e.key.startswith(("cudaGraphLaunch", "cudaLaunch"))}
+    log(f"align_jit profile cvo N={x.capacity}: {int(res.iterations) + 1} "
+        f"iterations, {host_ms:.3f} ms host, device busy {dev_ms:.3f} ms "
+        f"({100 * dev_ms / host_ms:.1f}%) over {len(gpu)} device events; "
+        f"host launch calls {keys}")
+
+
 def phase_odometry(frames, p, adaptive, num_want=NUM_WANT):
     """A main path, with the launch counts read around it.  Returns
     (launches by kernel line row, the run: its trajectory text, ATE and
@@ -1389,6 +1528,7 @@ def phase_odometry(frames, p, adaptive, num_want=NUM_WANT):
     traj = io.StringIO()
     torch.cuda.synchronize()
     reset_launches()
+    jit0 = jit_counts()
     t0 = time.perf_counter()
     recs = run_odometry_frames(
         ((i, nm, rgb, dep) for i, nm, rgb, dep, _ in frames), 1,
@@ -1398,6 +1538,7 @@ def phase_odometry(frames, p, adaptive, num_want=NUM_WANT):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = read_launches()
+    calls, replays = (b - a for a, b in zip(jit0, jit_counts()))
     est = parse_trajectory(traj.getvalue().splitlines())
     gt = {float(nm): pose for _, nm, _, _, pose in frames}
     ate = ate_rmse(gt, est)["rmse"]
@@ -1406,7 +1547,11 @@ def phase_odometry(frames, p, adaptive, num_want=NUM_WANT):
     log(f"odometry {name}: {len(recs)} pairs, {failed} failed, "
         f"{len(recs) / dt:.3f} frames/s, iterations {iters}, "
         f"all converged {all(r.converged for r in recs)}, ATE {ate:.5f} m, "
-        f"launches {launches}")
+        f"launches {launches}; align_jit calls {calls}, replays {replays}")
+    # every pair through align_jit: graph replays on the kernel backend,
+    # align's route on the fused one
+    check(calls == len(recs) and (replays == 0) == (p.backend == "fused"),
+          f"{name}: align_jit calls {calls}, replays {replays}")
     check(len(recs) == len(frames) - 1 and failed == 0,
           f"{name} odometry pairs failed")
     check(all(r.converged for r in recs), f"{name} odometry: a pair did "
@@ -1921,17 +2066,23 @@ def phase_slam(scene, root):
     buf = io.StringIO()
     torch.cuda.synchronize()
     reset_launches()
+    jit0 = jit_counts()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         cli.main(["slam", root, "--output", out])
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     got = fused_by_mode(read_launches(), "resident")
+    calls, replays = (b - a for a, b in zip(jit0, jit_counts()))
     head = buf.getvalue().splitlines()[0]
     n_frames, n_kf, n_loops = (int(head.split()[k]) for k in (0, 2, 4))
     cli_poses = read_trajectory(out)
     log(f"cli slam: {head}; {dt / n_frames:.4f} s/frame with loading; ATE "
-        f"{ate_rmse(gt, cli_poses)['rmse']:.5f} m; launches {got}")
+        f"{ate_rmse(gt, cli_poses)['rmse']:.5f} m; launches {got}; "
+        f"align_jit calls {calls}, replays {replays}")
+    # a frame's align and each loop closure's two
+    check(calls >= n_frames - 1 + 2 * n_loops and replays > 0,
+          f"cli slam: align_jit calls {calls}, replays {replays}")
     check(n_frames == len(frames) and n_loops >= 1,
           f"cli slam closed no loop: {head}")
     check(all(np.isfinite(q).all() for q in cli_poses.values()),
@@ -3403,6 +3554,18 @@ def main():
     phase_fused_timing(a0, a1, paf, ms_iter_a)
     mark("4c")
 
+    # 4d. align_jit, the loop as CUDA graphs, against align; frames 2-3
+    # give the three pairs through one compiled align
+    c2 = fe(frames[2][2], frames[2][3])
+    c3 = fe(frames[3][2], frames[3][3])
+    phase_align_jit([
+        ("cvo", p, c0, c1), ("acvo exact", pa, a0, a1),
+        ("acvo cheb", dataclasses.replace(pa, self_mode="cheb"), a0, a1),
+        ("direct", dataclasses.replace(p, step_mode="direct"), c0, c1),
+        ("linear", MATLAB_PARAMS, *lin[FINE_GRID][:2]),
+    ], [(c0, c1), (c1, c2), (c2, c3)], p)
+    mark("4d (align_jit)")
+
     launches = {k: 0 for k in KERNELS + FUSED + BATCHED + (PROBE,)}
     runs = [(p, False, NUM_WANT), (pa, True, NUM_WANT)]
     runs += [(q, adaptive, nw) for nw in (NUM_WANT, RESIDENT_NUM_WANT)
@@ -3485,7 +3648,6 @@ def main():
     # 11. the mesh paths: rows 1-3 at their block shapes here, then ranks
     # sharing the card; at capacity 3072, and cut to a capacity whose
     # every row block holds valid rows (`filled`)
-    c2 = fe(frames[2][2], frames[2][3])
     f0, f1, f2 = filled([c0, c1, c2], MESH_SP)
     fa0, fa1 = filled([a0, a1], MESH_SP)
     mesh_rows, mesh_errs = phase_mesh_kernels(c0, c1, a0, p, pa)

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from cvo_rgbd_torch.core.cloud import cloud_ok, pad_cloud, round_up
-from cvo_rgbd_torch.core.registration import align
+from cvo_rgbd_torch.core.compiled import align_jit
 from cvo_rgbd_torch.device import resolve_device
 from cvo_rgbd_torch.io.pcd import read_pcd
 from cvo_rgbd_torch.params import MATLAB_PARAMS
@@ -63,7 +63,7 @@ def align_pairs(params, padded, min_valid=None):
     handles, errors = {}, {}
     for i in range(1, len(padded)):
         try:
-            res = align(params, padded[i - 1], padded[i], device=dev)
+            res = align_jit(params, padded[i - 1], padded[i], device=dev)
             handles[i] = (res.tf, res.iterations, res.converged)
         except Exception as e:  # skip-and-mark (rgbddataset_rkhs.m:75-80)
             errors[i] = str(e)

@@ -1,0 +1,231 @@
+"""The compiled align loop: the JAX package's `align_jit` on the card.
+
+JAX compiles the whole align, a `lax.while_loop` around its kernels,
+once per (params, capacity).  Here the kernel and dense backends' loop
+is captured once per (params, fixed capacity, moving capacity, device)
+as CUDA graphs: a block of CHECK_EVERY iterations of `make_align_step`'s
+body, run in place on a static state, and, when `max_iter` is not a
+multiple of CHECK_EVERY, a tail of the last `max_iter % CHECK_EVERY`
+iterations (past `max_iter` an unconverged state would move on).  A
+call replays the block until `converged` reads true, one `.item()` a
+replay, as `align` reads it every CHECK_EVERY iterations, so the host
+launches one graph where `align` launches ~1250 kernels an iteration.
+
+What is per align stays outside the graphs and runs as `align` runs
+it: the routing, the feature padding, the kd-sorts and `prepare`
+(`color_gram`, the moment precompute, the tile orders, acvo's
+Chebyshev tables, whose span depends on a host ell0).  Each call copies
+the pair, its `prepare` output and the warm state into the compiled
+object's static tensors; the graphs read only those.
+
+The result is `align`'s bits: the graphs hold the same launches in the
+same order, and the kernels take no float atomics.  On the CPU
+(`device="cpu"`) the very same block function runs on the same static
+tensors, uncaptured.  The fused backend's loop is one launch already:
+`align_jit` takes `align`'s route for it.
+
+Capture on the card never falls back: a block that cannot be captured
+raises.  Before capture, one eager warm-up block on the capture stream
+loads the kernels' libraries and modules, and the stream's kernel
+tickets (`ops.gram.stream_tickets`) exist, zeroed, outside the graph's
+memory pool.  The wrappers' launch counters count at capture, not at
+replay: each graph records its counts, adds them on every replay, and
+`align_jit.replays` counts the replays (on the CPU, the blocks run).
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+from cvo_rgbd_torch import ops
+from cvo_rgbd_torch.core.registration import (
+    CHECK_EVERY,
+    AlignResult,
+    check_supported,
+    init_state,
+    make_align_step,
+    prepare,
+    route,
+)
+from cvo_rgbd_torch.device import pin_fp32, resolve_device
+from cvo_rgbd_torch.ops.align_fused import align_fused
+from cvo_rgbd_torch.ops.gram import stream_tickets
+from cvo_rgbd_torch.ops.wsq import MAX_SWEEPS
+
+# the wrappers whose launches a graph holds
+COUNTED = (ops.color_gram, ops.fused_moments, ops.fused_wsq, ops.fused_flow,
+           ops.fused_step_coeffs)
+
+# the compiled aligns, one per (params, fixed capacity, moving capacity,
+# device, layout), kept for the life of the process as JAX keeps its
+# compiled aligns; `align_jit.cache_clear()` drops them
+CACHE: dict = {}
+
+
+def _strides(x) -> tuple:
+    """The strides of the tensors of `x` (nested tuples of tensors): a
+    compiled align keeps its first inputs' layout, and eager torch may
+    round another layout otherwise (a transposed R0 takes another
+    matmul path on the first iteration)."""
+    if isinstance(x, torch.Tensor):
+        return (x.stride(),)
+    return sum((_strides(v) for v in x if v is not None), ())
+
+
+def _static(x):
+    """A copy of `x` (a tensor, None or a tuple of them, nested), each
+    tensor with its own storage of the same shape, type and strides."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, tuple):
+        items = [_static(v) for v in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    return x
+
+
+def _copy_in(dst, src):
+    """Copy `src` into the static `dst` of the same structure; raises
+    where a tensor's shape or type differs from the compiled one."""
+    if isinstance(dst, torch.Tensor):
+        if src.shape != dst.shape or src.dtype != dst.dtype:
+            raise ValueError(
+                f"align_jit: compiled for {dst.dtype} {tuple(dst.shape)}, "
+                f"got {src.dtype} {tuple(src.shape)}")
+        dst.copy_(src)
+    elif isinstance(dst, tuple):
+        for d, s in zip(dst, src, strict=True):
+            _copy_in(d, s)
+    elif src is not None:
+        raise ValueError("align_jit: an input the compiled align lacks")
+
+
+class CompiledAlign:
+    """The align loop of one cache key (params, capacities, device,
+    layout) on static tensors; built from the first call's inputs, after
+    `route` and `prepare`.  `captures` records, per graph length, the
+    capture's seconds and the growth of the card's allocated and
+    reserved bytes across it (the graph's pool: the blocks its launches
+    write, which stay reserved for its replays)."""
+
+    def __init__(self, p, fixed, moving, pre, state):
+        self.p = p
+        self.fixed, self.moving = _static(fixed), _static(moving)
+        self.pre, self.state = _static(pre), _static(state)
+        self.body = make_align_step(p)
+        self.device = state.R.device
+        self.graphs = {}     # length -> (CUDAGraph, [(wrapper, launches)])
+        self.captures = {}   # length -> capture seconds and bytes
+        if self.device.type == "cuda":
+            self.stream = torch.cuda.Stream(self.device)
+            self.pool = torch.cuda.graph_pool_handle()
+            # the capture stream's tickets, zero, held for the graphs
+            with torch.cuda.stream(self.stream):
+                self.tickets, _ = stream_tickets(self.device, MAX_SWEEPS)
+
+    def block(self, n):
+        """`n` iterations of the body on the static state, in place."""
+        state = self.state
+        for _ in range(n):
+            state = self.body(state, self.fixed, self.moving, self.pre)
+        for dst, src in zip(self.state, state):
+            dst.copy_(src)
+
+    def _capture(self, n):
+        """Warm up, then capture, the block of `n` iterations; the static
+        state is left as it was."""
+        dev = self.device
+        saved = [t.clone() for t in self.state]
+        self.stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(self.stream):
+            self.block(n)
+        torch.cuda.current_stream(dev).wait_stream(self.stream)
+        before = [w.launches for w in COUNTED]
+        # what torch.cuda.graph frees on entry, freed first, so that the
+        # reserved bytes' growth is the graph's pool
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        mem0 = (torch.cuda.memory_allocated(dev),
+                torch.cuda.memory_reserved(dev))
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+                self.block(n)
+        except Exception as e:
+            raise RuntimeError(
+                f"align_jit: capturing {n} iterations of the {self.p.backend} "
+                f"backend failed: {e}") from e
+        finally:
+            counts = [(w, w.launches - b) for w, b in zip(COUNTED, before)]
+            for w, b in zip(COUNTED, before):
+                w.launches = b
+        self.captures[n] = {
+            "seconds": time.perf_counter() - t0,
+            "allocated_bytes": torch.cuda.memory_allocated(dev) - mem0[0],
+            "reserved_bytes": torch.cuda.memory_reserved(dev) - mem0[1]}
+        for dst, src in zip(self.state, saved):
+            dst.copy_(src)
+        self.graphs[n] = (graph, [(w, k) for w, k in counts if k])
+        return self.graphs[n]
+
+    def run(self, n):
+        """One block of `n` iterations: a graph replay on the card (the
+        graph captured on first use), the block itself on the CPU."""
+        if self.device.type != "cuda":
+            self.block(n)
+        else:
+            graph, counts = self.graphs.get(n) or self._capture(n)
+            graph.replay()
+            for wrapper, k in counts:
+                wrapper.launches += k
+        align_jit.replays += 1
+
+    def __call__(self, fixed, moving, pre, state) -> AlignResult:
+        for dst, src in ((self.fixed, fixed), (self.moving, moving),
+                         (self.pre, pre), (self.state, state)):
+            _copy_in(dst, src)
+        full, tail = divmod(self.p.max_iter, CHECK_EVERY)
+        for _ in range(full):
+            self.run(CHECK_EVERY)
+            if bool(self.state.converged.item()):
+                break
+        else:
+            if tail:
+                self.run(tail)
+        s = self.state
+        # fresh tensors: the next call overwrites the static state
+        return AlignResult(
+            tf=s.tf.clone(), R=s.R.clone(), T=s.T.clone(),
+            iterations=s.k - 1, converged=s.converged.clone(),
+            ell=s.ell.clone(), omega=s.omega.clone(), v=s.v.clone())
+
+
+def align_jit(p, fixed, moving, R0=None, T0=None, ell0=None,
+              device=None) -> AlignResult:
+    """`align` (core/registration.py) with its loop compiled once per
+    (params, fixed capacity, moving capacity, device) and layout of the
+    clouds and the warm state: the same arguments, the same result
+    bits, in fresh tensors.  The fused backend takes `align`'s route."""
+    check_supported(p)
+    dev = resolve_device(device)
+    pin_fp32()
+    p, fixed, moving = route(p, fixed.to(dev), moving.to(dev))
+    align_jit.calls += 1
+    if p.backend == "fused":
+        return align_fused(p, fixed, moving, R0, T0, ell0)
+    dev = fixed.positions.device
+    state = init_state(p, dev, R0, T0, ell0)
+    pre = prepare(p, fixed, moving, ell0)
+    key = (p, fixed.capacity, moving.capacity, dev,
+           _strides((fixed, moving, state)))
+    compiled = CACHE.get(key)
+    if compiled is None:
+        compiled = CACHE[key] = CompiledAlign(p, fixed, moving, pre, state)
+    return compiled(fixed, moving, pre, state)
+
+
+align_jit.calls = 0
+align_jit.replays = 0
+align_jit.cache_clear = CACHE.clear

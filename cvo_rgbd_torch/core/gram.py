@@ -23,8 +23,10 @@ from cvo_rgbd_torch.core.numerics import gram_exp
 
 
 def _log32(v, device):
-    """log of a host constant, taken in fp32 as jnp.log does."""
-    return torch.log(torch.tensor(v, dtype=torch.float32, device=device))
+    """log of a host constant, taken in fp32 as jnp.log does.  The
+    constant is filled on the device (no host copy, so a CUDA graph can
+    capture it)."""
+    return torch.log(torch.full((), v, dtype=torch.float32, device=device))
 
 
 def pairwise_sqdist(x, y):

@@ -44,6 +44,8 @@ freeze-on-converge), so iterations run past convergence are exact
 no-ops, and the host reads `converged` once every CHECK_EVERY
 iterations with a single `.item()`.  The result is bit-identical to
 stopping at the first converged iteration, because `k` freezes too.
+`core/compiled.align_jit` runs the same body as CUDA graphs of
+CHECK_EVERY iterations, for `align`'s bits.
 """
 
 from __future__ import annotations
@@ -504,6 +506,33 @@ def init_state(p, device, R0=None, T0=None, ell0=None) -> AlignState:
     )
 
 
+def route(p, fixed: PointCloud, moving: PointCloud):
+    """(p, fixed, moving) as the backend runs them, the clouds on its
+    device already: a problem the fused backend cannot run goes to the
+    dense or the kernel backend (see `align`), the features are padded
+    to the kernels' NFEAT planes (the zero planes change no color term
+    and no CI), and the kernel and fused backends kd-sort the clouds."""
+    if p.backend == "fused" and not fused_eligible(p, fixed, moving):
+        adaptive = isinstance(p, AcvoParams)
+        to_dense = (
+            (adaptive and (p.yy_quirk or p.color_mode == "linear"))
+            or fixed.capacity % 128 or moving.capacity % 128
+        )
+        p = dataclasses.replace(p, backend="dense" if to_dense else "kernel")
+    fixed, moving = (c._replace(features=pad_feat(c.features))
+                     for c in (fixed, moving))
+    if p.backend == "fused":
+        # compact tiles for the in-kernel skip, sorted whether or not
+        # tile_skip is on, so skip on and off stay comparable
+        if fixed.capacity % 128 == 0:
+            fixed = kd_sort(fixed)
+        if moving.capacity % 128 == 0:
+            moving = kd_sort(moving)
+    elif p.backend == "kernel":
+        fixed, moving = kd_sort(fixed), kd_sort(moving)
+    return p, fixed, moving
+
+
 def align(p, fixed: PointCloud, moving: PointCloud, R0=None, T0=None,
           ell0=None, device=None) -> AlignResult:
     """Register `moving` onto `fixed` on `device` (the card unless
@@ -531,28 +560,9 @@ def align(p, fixed: PointCloud, moving: PointCloud, R0=None, T0=None,
     check_supported(p)
     dev = resolve_device(device)
     pin_fp32()
-    fixed, moving = fixed.to(dev), moving.to(dev)
-    if p.backend == "fused" and not fused_eligible(p, fixed, moving):
-        adaptive = isinstance(p, AcvoParams)
-        to_dense = (
-            (adaptive and (p.yy_quirk or p.color_mode == "linear"))
-            or fixed.capacity % 128 or moving.capacity % 128
-        )
-        p = dataclasses.replace(p, backend="dense" if to_dense else "kernel")
-    # the kernels read NFEAT feature planes; the zero planes change no
-    # color term and no CI
-    fixed, moving = (c._replace(features=pad_feat(c.features))
-                     for c in (fixed, moving))
+    p, fixed, moving = route(p, fixed.to(dev), moving.to(dev))
     if p.backend == "fused":
-        # compact tiles for the in-kernel skip, sorted whether or not
-        # tile_skip is on, so skip on and off stay comparable
-        if fixed.capacity % 128 == 0:
-            fixed = kd_sort(fixed)
-        if moving.capacity % 128 == 0:
-            moving = kd_sort(moving)
         return align_fused(p, fixed, moving, R0, T0, ell0)
-    if p.backend == "kernel":
-        fixed, moving = kd_sort(fixed), kd_sort(moving)
     state = init_state(p, dev, R0, T0, ell0)
     pre = prepare(p, fixed, moving, ell0)
     body = make_align_step(p)

@@ -33,7 +33,8 @@ import numpy as np
 import torch
 
 from cvo_rgbd_torch.core.cloud import cloud_ok, stack_clouds
-from cvo_rgbd_torch.core.registration import align, check_supported
+from cvo_rgbd_torch.core.compiled import align_jit
+from cvo_rgbd_torch.core.registration import check_supported
 from cvo_rgbd_torch.device import pin_fp32, resolve_device
 from cvo_rgbd_torch.frontend import make_frontend
 from cvo_rgbd_torch.io.tum import load_assoc, write_trajectory_line
@@ -98,7 +99,7 @@ def _odom_step(params, adaptive, fixed, moving, warm, min_valid, device):
     cloud on either side) resets the warm state to cold; acvo's next ell
     is always ell_init (adaptive_cvo.cpp:475)."""
     R0, T0, ell0 = warm
-    res = align(params, fixed, moving, R0, T0, ell0, device=device)
+    res = align_jit(params, fixed, moving, R0, T0, ell0, device=device)
     finite = (
         torch.isfinite(res.tf).all()
         & cloud_ok(fixed, min_valid)

@@ -112,7 +112,9 @@ def make_se3(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     t = t.expand(batch + (3,))
     top = torch.cat([R, t[..., None]], dim=-1)
     bot = torch.zeros(batch + (1, 4), dtype=R.dtype, device=R.device)
-    bot[..., 0, 3] = 1.0
+    # fill_, not an assignment: no host scalar is copied in (a CUDA
+    # graph captures the align loop's body, core/compiled.py)
+    bot[..., 0, 3].fill_(1.0)
     return torch.cat([top, bot], dim=-2)
 
 

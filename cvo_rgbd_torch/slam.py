@@ -29,7 +29,7 @@ import torch
 
 from cvo_rgbd_torch.core.cloud import cloud_ok
 from cvo_rgbd_torch.core.posegraph import from_odometry, optimize
-from cvo_rgbd_torch.core.registration import align
+from cvo_rgbd_torch.core.compiled import align_jit
 from cvo_rgbd_torch.device import resolve_device
 from cvo_rgbd_torch.keyframes import (
     KeyframePolicy,
@@ -65,7 +65,7 @@ def _slam_step(params, key_cloud, cloud, warm, min_valid, device):
     k>19 schedule, cvo.cpp:408-410) narrows the kernel support so much
     that the flow dies before covering the extra offset; the warm
     transform is the right prior, the warm length-scale is not."""
-    res = align(params, key_cloud, cloud, *warm, device=device)
+    res = align_jit(params, key_cloud, cloud, *warm, device=device)
     finite = torch.isfinite(res.tf).all() & cloud_ok(cloud, min_valid)
     f32 = torch.float32
     Rw = torch.where(finite, res.R, torch.eye(3, dtype=f32, device=device))
@@ -135,9 +135,13 @@ class KeyframeSlam:
         # a near-exact prior for the next frame's
         self._warm = None       # (R0, T0, ell0)
         self._warm_kf = -1
-        # the explicit cold start: identity and ell_init
-        self._cold = (np.eye(3, dtype=np.float32), np.zeros(3, np.float32),
-                      np.float32(params.ell_init))
+        # the explicit cold start: identity and ell_init, on the device,
+        # so a warm start uploads nothing
+        f32 = torch.float32
+        self._cold = (torch.eye(3, dtype=f32, device=self.device),
+                      torch.zeros(3, dtype=f32, device=self.device),
+                      torch.full((), params.ell_init, dtype=f32,
+                                 device=self.device))
 
     def process(self, index, cloud):
         """Register one frame; returns its (odometry) world pose."""
@@ -161,7 +165,8 @@ class KeyframeSlam:
         kf_id = len(self.keyframes) - 1
         warm = (self._warm if self._warm is not None
                 and self._warm_kf == kf_id else self._cold)
-        res = align(self.params, key.cloud, cloud, *warm, device=self.device)
+        res = align_jit(self.params, key.cloud, cloud, *warm,
+                        device=self.device)
         cross_d = inner_product_async(self.params, key.cloud, cloud)
         rel, cloud_self, cross, ok = _fetch(res.tf, cloud_self_d, cross_d,
                                             ok_d)
@@ -174,7 +179,7 @@ class KeyframeSlam:
             self._warm = None
         else:
             # warm R/T, fresh ell (see _slam_step)
-            self._warm = (res.R, res.T, np.float32(self.params.ell_init))
+            self._warm = (res.R, res.T, self._cold[2])
             self._warm_kf = kf_id
         pose = key.pose @ rel
         self.frame_poses.append(pose)
@@ -225,7 +230,7 @@ class KeyframeSlam:
             prior = np.linalg.inv(key.pose) @ self.frame_poses[-1]
             R0 = prior[:3, :3].T.astype(np.float32)
             T0 = (-prior[:3, :3].T @ prior[:3, 3]).astype(np.float32)
-            warm = (R0, T0, np.float32(self.params.ell_init))
+            warm = (R0, T0, self._cold[2])
         pend = []
         for index, cloud in items:
             cloud = cloud.to(self.device)
@@ -299,10 +304,10 @@ class KeyframeSlam:
         prior = priors[cand_id]
         R0 = prior[:3, :3].T.astype(np.float32)
         T0 = (-prior[:3, :3].T @ prior[:3, 3]).astype(np.float32)
-        res_p = align(self.params, cand.cloud, kf.cloud, R0, T0,
-                      device=self.device)
-        res_c = align(self.params, cand.cloud, kf.cloud, *self._cold,
-                      device=self.device)
+        res_p = align_jit(self.params, cand.cloud, kf.cloud, R0, T0,
+                          device=self.device)
+        res_c = align_jit(self.params, cand.cloud, kf.cloud, *self._cold,
+                          device=self.device)
         quals = aligned_fip(self.params, cand.cloud, kf.cloud,
                             (res_p.tf, res_c.tf))
         rel_p, cv_p, rel_c, cv_c, quals = _fetch(

@@ -1702,3 +1702,142 @@ def test_degraded_failed_pairs_on_card(dev, degraded, tmp_path, driver):
         return {r.index for r in recs if r.failed}
 
     assert failed("cuda") == failed("cpu") == {10, 11}
+
+
+# ---- align_jit: the align loop captured as CUDA graphs ---------------------
+
+
+def _jit_cases(dev):
+    """(params, fixed, moving, warm start) of each compiled configuration
+    at the main path's sizes: the rendered pair at capacity 3072 (cvo
+    and acvo frontends) and a linear pair at 2816."""
+    import dataclasses
+
+    import cvo_rgbd_torch as ct
+
+    x, y = _rendered_pair(dev, num_want=3000, size=(240, 320))
+    lx, ly, _ = _linear_clouds(dev, n=2800, cap=2816, seed=9)
+    stops = dict(eps=5e-4, eps_2=1e-4, max_iter=60)
+    warm = (torch.eye(3, device=dev), torch.full((3,), 0.002, device=dev),
+            torch.full((), 0.1, device=dev))
+    return {
+        "cvo": (ct.CvoParams(max_iter=60), x, y, ()),
+        "acvo exact": (ct.AcvoParams(**stops), x, y, ()),
+        "acvo cheb": (ct.AcvoParams(self_mode="cheb", **stops), x, y, ()),
+        "direct": (ct.CvoParams(step_mode="direct", max_iter=60), x, y, ()),
+        "linear": (dataclasses.replace(ct.MATLAB_PARAMS, max_iter=60), lx,
+                   ly, ()),
+        "dense": (ct.CvoParams(backend="dense", max_iter=60), x, y, ()),
+        "cvo fast": (ct.CvoParams(exp_mode="fast", max_iter=60), x, y, ()),
+        "warm start": (ct.CvoParams(max_iter=60), x, y, warm),
+    }
+
+
+_JIT_FIELDS = ("tf", "R", "T", "iterations", "converged", "ell", "omega",
+               "v")
+
+
+def _launch_counts():
+    from cvo_rgbd_torch.core.compiled import COUNTED
+
+    return [w.launches for w in COUNTED]
+
+
+@pytest.mark.parametrize("case", ["cvo", "acvo exact", "acvo cheb", "direct",
+                                  "linear", "dense", "cvo fast",
+                                  "warm start"])
+def test_align_jit_gives_the_bits_of_align_on_the_card(dev, case):
+    """The replayed graphs launch what `align` launches, in its order:
+    the same bits, one replay every 8 iterations started, and on a
+    second call (the graphs built) the same kernel launches as `align`."""
+    import math
+
+    import cvo_rgbd_torch as ct
+    from cvo_rgbd_torch.core import compiled
+
+    p, x, y, warm = _jit_cases(dev)[case]
+    ref = ct.align(p, x, y, *warm)
+    first = ct.align_jit(p, x, y, *warm)
+    before = _launch_counts()
+    eager = ct.align(p, x, y, *warm)
+    eager_counts = [a - b for a, b in zip(_launch_counts(), before)]
+    replays = compiled.align_jit.replays
+    before = _launch_counts()
+    got = ct.align_jit(p, x, y, *warm)
+    jit_counts = [a - b for a, b in zip(_launch_counts(), before)]
+    torch.cuda.synchronize()
+    for f in _JIT_FIELDS:
+        assert torch.equal(getattr(got, f), getattr(ref, f)), f
+        assert torch.equal(getattr(first, f), getattr(ref, f)), f
+        assert torch.equal(getattr(eager, f), getattr(ref, f)), f
+    assert compiled.align_jit.replays - replays == math.ceil(
+        (int(got.iterations) + 1) / 8)
+    assert jit_counts == eager_counts
+
+
+def test_align_jit_tail_graph_on_the_card(dev):
+    """max_iter=13 that cannot stop: the block of 8, then the tail of 5
+    in a graph of its own, and exactly 13 iterations."""
+    import cvo_rgbd_torch as ct
+    from cvo_rgbd_torch.core import compiled
+
+    p = ct.CvoParams(max_iter=13, eps=0.0, eps_2=0.0)
+    x, y = _clouds(dev, n=3000, cap=3072, seed=2)
+    replays = compiled.align_jit.replays
+    got = ct.align_jit(p, x, y)
+    assert compiled.align_jit.replays - replays == 2
+    ref = ct.align(p, x, y)
+    assert int(got.iterations) == 12 and not bool(got.converged)
+    for f in _JIT_FIELDS:
+        assert torch.equal(getattr(got, f), getattr(ref, f)), f
+    (obj,) = [v for k, v in compiled.CACHE.items()
+              if k[0] == p and k[1:3] == (3072, 3072)]
+    assert sorted(obj.graphs) == [5, 8]
+
+
+def test_align_jit_three_pairs_through_one_graph_on_the_card(dev):
+    """Each result a fresh tensor: the first is unchanged after two more
+    pairs have run through the same graphs."""
+    import cvo_rgbd_torch as ct
+    from cvo_rgbd_torch.core import compiled
+
+    p = ct.CvoParams(max_iter=40, eps=5e-4, eps_2=1e-4)
+    pairs = [_clouds(dev, n=3000, cap=3072, seed=s) for s in (3, 4, 5)]
+    got = [ct.align_jit(p, *pairs[0])]
+    first = got[0].tf.clone()
+    got += [ct.align_jit(p, *pr) for pr in pairs[1:]]
+    assert len([k for k in compiled.CACHE
+                if k[0] == p and k[1:3] == (3072, 3072)]) == 1
+    assert torch.equal(got[0].tf, first)
+    for res, pr in zip(got, pairs):
+        ref = ct.align(p, *pr)
+        for f in _JIT_FIELDS:
+            assert torch.equal(getattr(res, f), getattr(ref, f)), f
+
+
+def test_align_jit_raises_when_capture_fails(dev, monkeypatch):
+    """A block with a host read cannot be captured: the call raises and
+    nothing falls back to the eager loop."""
+    import cvo_rgbd_torch as ct
+    from cvo_rgbd_torch.core import compiled
+
+    real = compiled.make_align_step
+
+    def with_host_read(p):
+        body = real(p)
+
+        def reads(state, *args):
+            float(state.ell.item())
+            return body(state, *args)
+        return reads
+
+    monkeypatch.setattr(compiled, "make_align_step", with_host_read)
+    p = ct.CvoParams(max_iter=16, eps=1e-3)
+    x, y = _clouds(dev, n=500, cap=512, seed=6)
+    replays = compiled.align_jit.replays
+    with pytest.raises(RuntimeError, match="capturing 8 iterations"):
+        ct.align_jit(p, x, y)
+    assert compiled.align_jit.replays == replays
+    torch.cuda.synchronize()
+    for key in [k for k in compiled.CACHE if k[0] == p]:
+        del compiled.CACHE[key]
