@@ -95,10 +95,15 @@ and prints no result line):
    precise one), whose rows are logged and not in the kernel line;
    8b. `run_odometry_batched(batch=9)` over the render on
    the fused backend (cvo and acvo, 3072, tiled) and on the kernel
-   backend (cvo), each against `run_odometry_frames(warm_start=False)`
-   in the same run, and `run_multiseq` over the render written as a TUM
-   folder and a 2-frame prefix of it (ragged lanes), each lane against
-   its solo run;
+   backend (cvo and acvo: one `color_gram` launch a batch, three for
+   acvo, the lanes through the compiled loop, the trajectory the cold
+   sequential run's, pose for pose), each against
+   `run_odometry_frames(warm_start=False)` in the same run, and
+   `run_multiseq` over the render written as a TUM folder and a 2-frame
+   prefix of it (ragged lanes), each lane against its solo run; 8c.
+   `color_gram` with a lane axis at 8b's batch (9 x 3072) and at 8's
+   (63 x 384): one launch against its plain version and every lane the
+   bits of the one-pair launch, timed beside the B one-pair launches;
 9. keyframe SLAM over a 40-frame path along the optical axis and back
    (`synth.depth_loop_path`), written as .pcd: `python -m
    cvo_rgbd_torch.cli slam` (MATLAB_PARAMS, kernel backend, its aligns
@@ -160,7 +165,9 @@ The line before last is a JSON object with each kernel's launches on
 the main paths together, its error against the plain version, its
 time, the plain version's time and its bound (the batched rows of
 `align_fused`: a 63-lane launch of exactly 10 iterations, and their
-launches those of phases 8 and 8b; the "<kernel>/fast" rows: phase 3f,
+launches those of phases 8 and 8b; `color_gram_batched`: 8c's 9 x 3072
+batch, its launches those of the kernel backend's batched drivers in 8b
+and 12a; the "<kernel>/fast" rows: phase 3f,
 each max_abs_err the worst of every case it checks, their launches
 those of phase 9's fast runs); the last line is
 {"ok": true, "device": {...}}.
@@ -213,6 +220,9 @@ FUSED = ("align_fused_tiled", "align_fused_resident")
 PROBE = "construct_probe"
 # the batched launches of the fused kernel, one row each in the kernel line
 BATCHED = ("align_fused_tiled_batched", "align_fused_resident_batched")
+# color_gram on a lane axis (align_batched's kernel lanes, one launch a
+# cache a batch): its row's launches are those of phases 8b and 12a
+LANE_GRAM = "color_gram_batched"
 # the exp_mode="fast" forms, one row each (color_gram has none)
 FAST = tuple(f"{k}/fast" for k in KERNELS[1:] + FUSED)
 FUSED_ITERS = (1, 3, 10)
@@ -1870,7 +1880,10 @@ def phase_batched_fused(sets, fast=False):
 def phase_batched_odometry(frames, p, adaptive, root=None):
     """8b: run_odometry_batched over the render against
     run_odometry_frames(warm_start=False) in the same run; on the fused
-    backend one launch a batch.  Given `root`, the render as a TUM folder
+    backend one launch a batch; on the kernel backend one `color_gram`
+    launch a batch (three for acvo), the lanes through the compiled
+    loop, and the trajectory the sequential cold run's (its pairs through
+    `align_jit`), pose for pose.  Given `root`, the render as a TUM folder
     and a 2-frame prefix of it also run through run_multiseq (ragged
     lanes), each lane against its solo cold run.  Returns the launches
     of the batched runs, by kernel."""
@@ -1902,8 +1915,10 @@ def phase_batched_odometry(frames, p, adaptive, root=None):
         est = parse_trajectory(traj.getvalue().splitlines())
         return recs, est, dt, read_launches()
 
+    r0 = jit_counts()[1]
     recs, est, dt, launches = drive(run_odometry_batched_frames,
                                     batch=ODOM_BATCH)
+    replays = jit_counts()[1] - r0
     seq_recs, seq_est, seq_dt, _ = drive(run_odometry_frames,
                                          warm_start=False)
     ate, ate_seq = ate_rmse(gt, est)["rmse"], ate_rmse(gt, seq_est)["rmse"]
@@ -1919,13 +1934,24 @@ def phase_batched_odometry(frames, p, adaptive, root=None):
           f"batched odometry {name}: a pair failed or did not converge")
     check(abs(ate - ate_seq) <= 0.002,
           f"batched odometry {name}: ATE {ate} against {ate_seq}")
+    batches = -(-n // ODOM_BATCH)
     if fused:
-        check(launches["align_fused"] == -(-n // ODOM_BATCH)
+        check(launches["align_fused"] == batches
               and not any(launches[k] for k in KERNELS),
               f"batched odometry {name}: not one launch a batch: {launches}")
     else:
-        check(launches["fused_moments"] > 0 and launches["align_fused"] == 0,
-              f"batched odometry {name} launched {launches}")
+        gap = max(float(np.abs(est[t] - seq_est[t]).max()) for t in seq_est)
+        log(f"batched odometry {name}: {replays} graph replays, color_gram "
+            f"launches {launches['color_gram']} for {batches} batch(es), "
+            f"max |pose - sequential cold| {gap!r}")
+        check(launches["color_gram"] == batches * (3 if adaptive else 1)
+              and launches["fused_moments"] > 0 and replays > 0
+              and launches["align_fused"] == 0,
+              f"batched odometry {name}: launched {launches}, {replays} "
+              "replays")
+        check(set(est) == set(seq_est) and gap == 0.0,
+              f"batched odometry {name}: lanes are not the sequential cold "
+              f"aligns' bits ({gap!r})")
     if root is None:
         return launches
 
@@ -1965,6 +1991,69 @@ def phase_batched_odometry(frames, p, adaptive, root=None):
         check(ms_launches["align_fused"] == FRAMES - 1,
               f"multiseq {name}: not one launch a step: {ms_launches}")
     return {k: v + ms_launches[k] for k, v in launches.items()}
+
+
+def phase_color_gram_batched(clouds, sets, p):
+    """8c. `color_gram` with a lane axis on align_batched's inputs (the
+    kd-sorted stacks): the render's 9 pairs at 3072 (8b's batch) and the
+    coarse pcd pairs x LANE_REPEAT (8's 63 lanes at 384, features padded
+    to NFEAT).  One launch a batch against its plain version (1e-6) and
+    every lane against the one-pair launch on its pair (the same bits);
+    the batched launch, the B one-pair launches and the plain version
+    timed, with the bound of the batch.  Returns the kernel line's row:
+    the 9 x 3072 batch's numbers, the worst error of both."""
+    import torch
+
+    from cvo_rgbd_torch.batch import pad_clouds
+    from cvo_rgbd_torch.core.cloud import kd_sort, stack_clouds
+    from cvo_rgbd_torch.ops import gram
+
+    dev = torch.device("cuda")
+    pcd = [c._replace(features=gram.pad_feat(c.features))
+           for c in pad_clouds(sets[BATCH_GRID], dev)]
+    cases = [("render", clouds[:-1], clouds[1:], 1),
+             (f"pcd grid={BATCH_GRID}", pcd[:-1], pcd[1:], LANE_REPEAT)]
+    scal = gram.scalars(torch.full((), p.ell_init, device=dev), p)
+    row, err_all = None, 0.0
+    for name, xs, ys, repeat in cases:
+        x = kd_sort(stack_clouds(xs, repeat=repeat))
+        y = kd_sort(stack_clouds(ys, repeat=repeat))
+        b, n, m = x.positions.shape[0], x.capacity, y.capacity
+        args = (x.features, x.mask, y.features, y.mask, scal)
+        lanes = [(x.features[i], x.mask[i], y.features[i], y.mask[i], scal)
+                 for i in range(b)]
+        before = gram.color_gram.launches
+        ck = gram.color_gram_cuda(*args)
+        torch.cuda.synchronize()
+        one_launch = gram.color_gram.launches - before
+        same = sum(torch.equal(ck[i], gram.color_gram_cuda(*a))
+                   for i, a in enumerate(lanes))
+        err = (ck - gram.color_gram_plain(*args)).abs().max().item()
+        err_all = max(err_all, err)
+        ms = time_ms(lambda: gram.color_gram_cuda(*args))
+        # B host launches outlast SPIN_CYCLES at 63 lanes
+        singles_ms = time_ms(
+            lambda: [gram.color_gram_cuda(*a) for a in lanes],
+            spin=ALIGN_SPIN_CYCLES)
+        plain_ms = time_ms(lambda: gram.color_gram_plain(*args))
+        nbytes = b * ((n + m) * 6 * 4 + n * m * 4) + 8 * 4
+        b_ms, b_by = bound(nbytes, b * n * m * OPS_COLOR)
+        torch.cuda.synchronize()
+        log(f"8c color_gram {name}: {b} lanes x {n} x {m}, {one_launch} "
+            f"launch(es), max_abs_err={err:.3e} (tolerance 1e-6), lanes the "
+            f"one-pair launch's bits {same}/{b}; {ms:.4f} ms batched, "
+            f"{singles_ms:.4f} ms as {b} one-pair launches, plain "
+            f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); the card "
+            f"holds {b * n * m * 4} bytes of caches")
+        check(one_launch == 1, f"8c color_gram {name}: {one_launch} launches")
+        check(err <= 1e-6, f"8c color_gram {name} disagrees with its plain "
+              f"version: {err}")
+        check(same == b, f"8c color_gram {name}: {b - same} lanes are not "
+              "the one-pair launch's bits")
+        if row is None:
+            row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    row["max_abs_err"] = err_all
+    return row
 
 
 def fast_params(p):
@@ -3238,6 +3327,7 @@ def phase_failure_paths(root):
           and all(np.isfinite(v).all() for t in (t_deg, t_clean)
                   for v in t.values()), "12a multiseq trajectories")
     check(got["fused_moments"] > 0, f"12a multiseq launched {got}")
+    got[LANE_GRAM] = got.pop("color_gram")
     _added(launches, got)
 
     # SLAM fed the dropped frame first seeds on the next frame
@@ -3566,7 +3656,7 @@ def main():
     ], [(c0, c1), (c1, c2), (c2, c3)], p)
     mark("4d (align_jit)")
 
-    launches = {k: 0 for k in KERNELS + FUSED + BATCHED + (PROBE,)}
+    launches = {k: 0 for k in KERNELS + FUSED + BATCHED + (LANE_GRAM, PROBE)}
     runs = [(p, False, NUM_WANT), (pa, True, NUM_WANT)]
     runs += [(q, adaptive, nw) for nw in (NUM_WANT, RESIDENT_NUM_WANT)
              for q, adaptive in ((pf, False), (paf, True))]
@@ -3604,16 +3694,22 @@ def main():
     mark("8 (batched fused)")
 
     # 8b. batched odometry and multiseq over the render; the fused runs
-    # are tiled (3072)
+    # are tiled (3072); the kernel runs' color_gram launches are batched
     tmp8 = tempfile.TemporaryDirectory()
     for q, adaptive, root in ((pf, False, tmp8.name), (paf, True, None),
-                              (p, False, None)):
+                              (p, False, None), (pa, True, None)):
         got = phase_batched_odometry(frames, q, adaptive, root)
         launches["align_fused_tiled_batched"] += got.pop("align_fused")
-        for k in KERNELS:
+        launches[LANE_GRAM] += got.pop("color_gram")
+        for k in KERNELS[1:]:
             launches[k] += got[k]
     tmp8.cleanup()
     mark("8b (batched odometry)")
+    # 8c. color_gram's lane axis at 8b's batch (9 render pairs at 3072)
+    # and at 8's (63 pcd lanes at the coarse grid)
+    kernels[LANE_GRAM] = phase_color_gram_batched(
+        [fe(f[2], f[3]) for f in frames], sets, p)
+    mark("8c (color_gram lanes)")
 
     # 9. keyframe SLAM: cli slam, then the fast kernels' main path
     tmp9 = tempfile.TemporaryDirectory()
@@ -3706,14 +3802,16 @@ def main():
         "align_fused_resident_batched": (
             "cvo_rgbd_torch/csrc/align_fused.cu",
             "cvo_rgbd_tpu/ops/pallas_align.py:1379"),
+        LANE_GRAM: ("cvo_rgbd_torch/csrc/color_gram.cu",
+                    "cvo_rgbd_tpu/ops/pallas_gram.py:401"),
         PROBE: ("cvo_rgbd_torch/csrc/construct_probe.cu",
                 "scripts/tpu_construct_probe.py:24"),
     }
-    missing = [k for k in KERNELS + FUSED + BATCHED + (PROBE,) + FAST
-               if not launches[k]]
+    names = KERNELS + FUSED + BATCHED + (LANE_GRAM, PROBE) + FAST
+    missing = [k for k in names if not launches[k]]
     check(not missing, f"kernels never launched on a main path: {missing}")
     rows = []
-    for name in KERNELS + FUSED + BATCHED + (PROBE,) + FAST:
+    for name in names:
         k = kernels[name]
         src, rep = sources[name.removesuffix("/fast")]
         rows.append({

@@ -17,6 +17,10 @@ it: the routing, the feature padding, the kd-sorts and `prepare`
 Chebyshev tables, whose span depends on a host ell0).  Each call copies
 the pair, its `prepare` output and the warm state into the compiled
 object's static tensors; the graphs read only those.
+`parallel.align_batched` on the kernel and dense backends routes and
+prepares a batch of pairs at once (`prepare_batch`: one `color_gram`
+launch a cache for all the lanes) and runs each lane here
+(`run_compiled`), every lane of one key through one compiled align.
 
 The result is `align`'s bits: the graphs hold the same launches in the
 same order, and the kernels take no float atomics.  On the CPU
@@ -202,6 +206,22 @@ class CompiledAlign:
             ell=s.ell.clone(), omega=s.omega.clone(), v=s.v.clone())
 
 
+def run_compiled(p, fixed, moving, pre, state) -> AlignResult:
+    """The compiled loop of this key on a pair as `align` runs it:
+    clouds already routed, `pre` their `prepare` output, `state` from
+    `init_state`.  The compiled align is built on the key's first call.
+    Lanes of a batch (`parallel.align_batched`) come here one by one: a
+    lane view of a contiguous stack has the strides of a fresh tensor of
+    its shape, and another layout keys its own compiled align."""
+    dev = fixed.positions.device
+    key = (p, fixed.capacity, moving.capacity, dev,
+           _strides((fixed, moving, state)))
+    compiled = CACHE.get(key)
+    if compiled is None:
+        compiled = CACHE[key] = CompiledAlign(p, fixed, moving, pre, state)
+    return compiled(fixed, moving, pre, state)
+
+
 def align_jit(p, fixed, moving, R0=None, T0=None, ell0=None,
               device=None) -> AlignResult:
     """`align` (core/registration.py) with its loop compiled once per
@@ -218,12 +238,7 @@ def align_jit(p, fixed, moving, R0=None, T0=None, ell0=None,
     dev = fixed.positions.device
     state = init_state(p, dev, R0, T0, ell0)
     pre = prepare(p, fixed, moving, ell0)
-    key = (p, fixed.capacity, moving.capacity, dev,
-           _strides((fixed, moving, state)))
-    compiled = CACHE.get(key)
-    if compiled is None:
-        compiled = CACHE[key] = CompiledAlign(p, fixed, moving, pre, state)
-    return compiled(fixed, moving, pre, state)
+    return run_compiled(p, fixed, moving, pre, state)
 
 
 align_jit.calls = 0

@@ -1,9 +1,12 @@
-// color_gram: the [N,M] masked color-kernel cache of one point-cloud pair.
+// color_gram: the [B,N,M] masked color-kernel caches of B point-cloud pairs.
 //
-// Replaces the JAX package's ops/pallas_gram.py:color_gram (_color_kernel):
-// ck_ij = cs2 * exp_neg(|f_i - f_j|^2 / 2 c_ell^2), zero where the color
-// gate d2c < d2_c_thres or either validity mask fails.  Built once per
-// pair; the moment kernel reads it every iteration.
+// Replaces the JAX package's ops/pallas_gram.py:color_gram (_color_kernel),
+// and its vmap over a batch of pairs: ck_ij = cs2 * exp_neg(|f_i - f_j|^2 /
+// 2 c_ell^2), zero where the color gate d2c < d2_c_thres or either validity
+// mask fails.  Built once per pair; the moment kernel reads it every
+// iteration.  The lane (pair) is grid z, one launch a batch: a lane's
+// entries are computed as the one-pair launch computes them, so lane b of
+// a batch is the bits of the launch on pair b alone (B = 1).
 //
 // Bound on the H100: the N*M*4-byte store (37.7 MB at N=M=3072, ~11 us
 // at 3.35 TB/s).  The ~32 instructions an entry (the 5-feature d2c,
@@ -42,6 +45,13 @@ color_gram_kernel(const float* __restrict__ xf, const float* __restrict__ xm,
                   const float* __restrict__ yf, const float* __restrict__ ym,
                   const float* __restrict__ scal, float* __restrict__ out,
                   int n, int m) {
+  // this block's lane: its clouds and its [n, m] output
+  const size_t lane = blockIdx.z;
+  xf += lane * n * cvo::NFEAT;
+  xm += lane * n;
+  yf += lane * m * cvo::NFEAT;
+  ym += lane * m;
+  out += lane * n * m;
   __shared__ float s_f[cvo::NFEAT][TR];
   __shared__ float s_m[TR];
   const int i0 = blockIdx.y * TR;
@@ -95,14 +105,16 @@ color_gram_kernel(const float* __restrict__ xf, const float* __restrict__ xm,
 
 }  // namespace
 
-// out: [n, m] f32, its rows 16-byte aligned when m % 4 == 0 (a fresh
-// allocation is).
+// xf [b, n, 5], xm [b, n], yf [b, m, 5], ym [b, m], out [b, n, m] f32,
+// contiguous; out's rows 16-byte aligned when m % 4 == 0 (a fresh
+// allocation is).  b is grid z: at most 65535 lanes.
 extern "C" int color_gram_launch(const float* xf, const float* xm,
                                  const float* yf, const float* ym,
-                                 const float* scal, float* out, int n, int m,
-                                 cudaStream_t stream) {
+                                 const float* scal, float* out, int b, int n,
+                                 int m, cudaStream_t stream) {
+  if (b < 1 || b > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 block(TX, TY);
-  const dim3 grid((m + TX * CW - 1) / (TX * CW), (n + TR - 1) / TR);
+  const dim3 grid((m + TX * CW - 1) / (TX * CW), (n + TR - 1) / TR, b);
   if (m % CW == 0) {
     color_gram_kernel<true><<<grid, block, 0, stream>>>(xf, xm, yf, ym, scal,
                                                         out, n, m);

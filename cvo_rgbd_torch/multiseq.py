@@ -4,7 +4,9 @@ Port of the JAX package's `multiseq.py`.  The reference processes one
 sequence at a time (cvo_main.cpp:36-66); here S sequences advance in
 lockstep, and each step registers S frame pairs, one per sequence, in
 one `parallel.align_batched` call (on the fused backend, one kernel
-launch), whose lanes may shard over the ranks of a mesh.
+launch; on the kernel and dense backends the lanes one after another
+through the compiled align loop, with one `color_gram` launch a color
+cache for the step), whose lanes may shard over the ranks of a mesh.
 """
 
 from __future__ import annotations
@@ -82,11 +84,11 @@ def run_multiseq(
     the same per-pair transforms whatever the cadence.
 
     `mesh` (a `parallel.make_mesh` mesh with a "dp" axis) shards the
-    lanes over its ranks (`parallel.align_batched`; the sequences must
-    divide by its size): every rank of the mesh calls this with the same
-    arguments, on its own device (the rank's card unless `device="cpu"`),
-    and computes the same trajectories; rank 0 writes the files and the
-    log."""
+    lanes over its ranks (`parallel.align_batched`, each rank's lanes as
+    the unsharded call runs them; the sequences must divide by its
+    size): every rank of the mesh calls this with the same arguments, on
+    its own device (the rank's card unless `device="cpu"`), and computes
+    the same trajectories; rank 0 writes the files and the log."""
     params = params or (AcvoParams() if adaptive else CvoParams())
     check_supported(params)
     writer = mesh is None or dist.get_rank() == 0

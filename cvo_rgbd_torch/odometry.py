@@ -19,7 +19,9 @@ happens on the host in float64 from those per-pair transforms.
 `run_odometry_batched[_frames]` is the offline form (the JAX package's
 `odometry.py:run_odometry_batched`): the frame pairs are independent,
 so `batch` of them are registered per `parallel.align_batched` call (on
-the fused backend, one kernel launch) and chained afterwards.
+the fused backend, one kernel launch; on the kernel and dense backends
+each lane through the compiled align loop, the kernel backend's color
+caches one `color_gram` launch a batch) and chained afterwards.
 """
 
 from __future__ import annotations
@@ -266,9 +268,12 @@ def run_odometry_batched_frames(
     """Offline odometry over `frames` (as `run_odometry_frames` takes
     them) with batched pair registration: `batch` pairs per
     `parallel.align_batched` call, the last chunk padded by repeating its
-    last pair, then the poses chained on the host.  Every pair starts
-    cold (identity, ell_init).  Returns list[FrameRecord]; the TUM lines
-    go to `traj` (an open text file, or None).
+    last pair (an ordinary lane, the same bits), then the poses chained
+    on the host.  Every pair starts cold (identity, ell_init), so on the
+    kernel and dense backends a pair's transform is the bits of
+    `align_jit` on it, as the cold sequential driver has it.  Returns
+    list[FrameRecord]; the TUM lines go to `traj` (an open text file, or
+    None).
 
     `motion_prior` (default False): warm-start every lane of chunk k+1
     with the last sane relative transform of chunk k, a constant-velocity

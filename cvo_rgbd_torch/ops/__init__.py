@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain torch version.
 
-- `gram.color_gram` (csrc/color_gram.cu): the per-pair color cache.
+- `gram.color_gram` (csrc/color_gram.cu): the per-pair color cache, or
+  the caches of B pairs stacked on a lane axis in one launch.
 - `moments.fused_moments` (csrc/fused_moments.cu): the per-iteration
   moment sweep.
 - `wsq.fused_wsq` (csrc/fused_wsq.cu): the adaptive self-kernel sweep;

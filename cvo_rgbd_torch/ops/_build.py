@@ -41,7 +41,7 @@ _I = ctypes.c_int
 # argtypes of each C entry point; pointers and the stream are c_void_p so
 # ctypes never cuts a 64-bit address to an int
 SIGNATURES = {
-    "color_gram": ("color_gram_launch", [_P] * 6 + [_I, _I, _P]),
+    "color_gram": ("color_gram_launch", [_P] * 6 + [_I] * 3 + [_P]),
     "fused_moments": (
         "fused_moments_launch", [_P] * 14 + [_I] * 4 + [_P]
     ),

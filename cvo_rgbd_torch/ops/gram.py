@@ -63,9 +63,12 @@ def color_terms(fx, fy, scal, fast=False):
 
 def color_gram_plain(xf, xm, yf, ym, scal):
     """Plain torch version of the kernel: ck, zero where the color gate
-    or a validity mask fails."""
-    ck, d2c = color_terms(xf[:, None, :], yf[None, :, :], scal)
-    gate = (d2c < scal[S_D2_C_THRES]) & (xm[:, None] > 0) & (ym[None, :] > 0)
+    or a validity mask fails; [N,M], or [B,N,M] for clouds on a leading
+    lane axis, each lane the bits of the one-pair call (elementwise ops
+    broadcast over the lanes)."""
+    ck, d2c = color_terms(xf[..., :, None, :], yf[..., None, :, :], scal)
+    gate = ((d2c < scal[S_D2_C_THRES]) & (xm[..., :, None] > 0)
+            & (ym[..., None, :] > 0))
     return torch.where(gate, ck, 0.0)
 
 
@@ -116,21 +119,31 @@ def stream_tickets(dev, count):
     return tickets, stream
 
 
-def check_cloud(name, pos, feat, mask):
-    n = pos.shape[0]
-    if pos.shape != (n, 3) or feat.shape != (n, NFEAT) or mask.shape != (n,):
+def check_cloud(name, pos, feat, mask, lanes=False):
+    """Raise unless the cloud is positions [N,3], features [N,NFEAT] and
+    mask [N], or, where `lanes`, the same with a leading lane axis too."""
+    lead = pos.shape[:-2] if lanes and pos.dim() == 3 else ()
+    n = pos.shape[-2] if pos.dim() >= 2 else -1
+    if (pos.shape != (*lead, n, 3) or feat.shape != (*lead, n, NFEAT)
+            or mask.shape != (*lead, n)):
         raise ValueError(
             f"{name}: expected positions [N,3], features [N,{NFEAT}], "
-            f"mask [N]; got {tuple(pos.shape)}, {tuple(feat.shape)}, "
-            f"{tuple(mask.shape)}"
+            f"mask [N]{' (or [B,...] each)' if lanes else ''}; got "
+            f"{tuple(pos.shape)}, {tuple(feat.shape)}, {tuple(mask.shape)}"
         )
 
 
 def color_gram(xp, xf, xm, yp, yf, ym, *, p):
     """[N,M] masked color-kernel cache, loop-invariant across align
-    iterations (features never transform, c_ell is fixed)."""
-    check_cloud("color_gram", xp, xf, xm)
-    check_cloud("color_gram", yp, yf, ym)
+    iterations (features never transform, c_ell is fixed).  Clouds on a
+    leading lane axis ([B,N,*] and [B,M,*]) give the [B,N,M] caches of
+    the B pairs in one launch, as JAX's vmap gives the Pallas kernel a
+    lane axis; the scalars come from `p.ell_init`, shared by the lanes."""
+    check_cloud("color_gram", xp, xf, xm, lanes=True)
+    check_cloud("color_gram", yp, yf, ym, lanes=True)
+    if xp.shape[:-2] != yp.shape[:-2]:
+        raise ValueError(f"color_gram: lanes {tuple(xp.shape[:-2])} and "
+                         f"{tuple(yp.shape[:-2])} differ")
     dev = xf.device
     scal = scalars(
         torch.full((), p.ell_init, dtype=torch.float32, device=dev), p
@@ -142,17 +155,27 @@ def color_gram(xp, xf, xm, yp, yf, ym, *, p):
     return color_gram_cuda(xf, xm, yf, ym, scal)
 
 
+# grid z of csrc/color_gram.cu holds the lanes
+MAX_LANES = 65535
+
+
 def color_gram_cuda(xf, xm, yf, ym, scal):
     """Launch csrc/color_gram.cu on CUDA tensors (shapes checked by
-    `color_gram`); counts one launch in `color_gram.launches`."""
+    `color_gram`): one launch for [N,5] features ([N,M] out, one lane) or
+    for [B,N,5] ([B,N,M], B lanes); counts one in `color_gram.launches`."""
     dev = xf.device
     check_inputs("color_gram", (xf, xm, yf, ym, scal), dev)
-    n, m = xf.shape[0], yf.shape[0]
-    out = torch.empty((n, m), dtype=torch.float32, device=dev)
+    lead = xf.shape[:-2]
+    b = xf.shape[0] if lead else 1
+    if b > MAX_LANES:
+        raise ValueError(f"color_gram: {b} lanes, the kernel takes at most "
+                         f"{MAX_LANES}")
+    n, m = xf.shape[-2], yf.shape[-2]
+    out = torch.empty((*lead, n, m), dtype=torch.float32, device=dev)
     launch = _build.entry("color_gram")
     err = launch(
         xf.data_ptr(), xm.data_ptr(), yf.data_ptr(), ym.data_ptr(),
-        scal.data_ptr(), out.data_ptr(), n, m,
+        scal.data_ptr(), out.data_ptr(), b, n, m,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check("color_gram", err)

@@ -14,8 +14,9 @@ mesh axis here (`collectives.psum`):
 - `align_ring`: both clouds shard; blocks of them ride the ring of `sp`
   (`collectives.ppermute`), so no rank holds a whole cloud or an [N, M]
   block.
-- `align_batched`: pairs stacked on a lane axis; with a mesh, the lanes
-  shard over `dp`.
+- `align_batched`: pairs stacked on a lane axis, one fused launch or
+  compiled lanes (`core/compiled.py`) with one `color_gram` launch a
+  batch; with a mesh, the lanes shard over `dp`.
 
 The port is SPMD (`parallel/mesh.py`): every rank calls an entry point
 with the same global clouds, kd-sorts them itself (`kd_sort` is
@@ -50,16 +51,18 @@ from cvo_rgbd_torch.core.cloud import (
     kd_sort,
     transform_cloud,
 )
+from cvo_rgbd_torch.core.compiled import run_compiled
 from cvo_rgbd_torch.core.cubic import cubic_roots, min_positive_root
 from cvo_rgbd_torch.core.gram import linear_color_gram, matlab_gram, se_gram
 from cvo_rgbd_torch.core.moments import flow_from_moments, step_from_moments
 from cvo_rgbd_torch.core.registration import (
     CHECK_EVERY,
     AlignResult,
-    align,
     check_supported,
     init_state,
     integrate,
+    prepare_batch,
+    route,
 )
 from cvo_rgbd_torch.core.step_factored import (
     NUM_MONO,
@@ -68,7 +71,7 @@ from cvo_rgbd_torch.core.step_factored import (
 )
 from cvo_rgbd_torch.device import pin_fp32, resolve_device
 from cvo_rgbd_torch.ops import color_gram, fused_moments
-from cvo_rgbd_torch.ops.align_fused import align_fused_batched, fused_eligible
+from cvo_rgbd_torch.ops.align_fused import align_fused_batched
 from cvo_rgbd_torch.ops.gram import pad_feat
 from cvo_rgbd_torch.ops.moments import TILE_I, TILE_J
 from cvo_rgbd_torch.ops.wsq import TILE_W, Sweep, fused_wsq_sweeps, tile_order
@@ -604,9 +607,16 @@ def align_batched(p, fixed_batch: PointCloud, moving_batch: PointCloud,
       (`ops/align_fused.align_fused_batched`), every lane running its own
       loop, as vmap makes the Pallas kernel a grid dimension.  A problem
       the kernel cannot run is routed as `align` routes one pair.
-    - `backend="kernel"` and `"dense"`: the lanes run one after another
-      through the single-pair `align`, so each lane's result is
-      `align`'s on its pair, and the launches grow with the lanes.
+    - `backend="kernel"` and `"dense"`: the counterpart of JAX's
+      jit(vmap(align)).  The batch is routed once (`route`: the feature
+      padding, and on "kernel" the kd-sort, lane by lane in one call),
+      the kernel backend's color caches are built for all the lanes in
+      one `color_gram` launch a cache (`prepare_batch`; three for exact
+      and cheb acvo), and the lanes run one after another through the
+      compiled align loop (`core/compiled.run_compiled`, one compiled
+      align for every lane of a key, graph replays on the card).  Each
+      lane's result is the bits of `align` on its pair; the kernels of
+      the loop launch once a lane an iteration.
 
     With a `mesh`, the lanes shard over its `dp_axis` (B must divide by
     its size): each dp rank registers its B/dp lanes as above, on its
@@ -634,17 +644,14 @@ def align_batched(p, fixed_batch: PointCloud, moving_batch: PointCloud,
         return _gather_lanes(local, ax)
     dev = resolve_device(device)
     pin_fp32()
-    fixed, moving = fixed_batch.to(dev), moving_batch.to(dev)
-    if p.backend == "fused" and fused_eligible(p, fixed, moving):
-        # as align: the kernels' NFEAT planes, compact tiles for the skip
-        fixed, moving = (c._replace(features=pad_feat(c.features))
-                         for c in (fixed, moving))
-        fixed, moving = (kd_sort(c) if c.capacity % 128 == 0 else c
-                         for c in (fixed, moving))
+    p, fixed, moving = route(p, fixed_batch.to(dev), moving_batch.to(dev))
+    if p.backend == "fused":
         return align_fused_batched(p, fixed, moving, *warm)
+    R0, T0, ell0 = ([None if w is None else w[i] for i in
+                     range(fixed.positions.shape[0])] for w in warm)
     lanes = [
-        align(p, fixed.lane(i), moving.lane(i),
-              *(None if w is None else w[i] for w in warm), device=dev)
-        for i in range(fixed.positions.shape[0])
+        run_compiled(p, fixed.lane(i), moving.lane(i), pre,
+                     init_state(p, dev, R0[i], T0[i], ell0[i]))
+        for i, pre in enumerate(prepare_batch(p, fixed, moving, ell0))
     ]
     return AlignResult(*(torch.stack(field) for field in zip(*lanes)))

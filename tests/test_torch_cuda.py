@@ -1841,3 +1841,105 @@ def test_align_jit_raises_when_capture_fails(dev, monkeypatch):
     torch.cuda.synchronize()
     for key in [k for k in compiled.CACHE if k[0] == p]:
         del compiled.CACHE[key]
+
+
+# ---- color_gram's lane axis and align_batched's compiled lanes ---------------
+
+
+def _lane_clouds(dev, b, n, m, seed=11):
+    """b kd-sorted pairs of capacities (n, m) stacked on a lane axis, the
+    fixed cloud of lane 1 (where b > 1) all masked."""
+    from cvo_rgbd_torch.core.cloud import kd_sort, stack_clouds
+
+    xs, ys = [], []
+    for i in range(b):
+        x, _ = _clouds(dev, n=n - 100, cap=n, seed=seed + i)
+        y, _ = _clouds(dev, n=m - 60, cap=m, seed=seed + 50 + i)
+        if i == 1:
+            x = x._replace(mask=torch.zeros_like(x.mask))
+        xs.append(x)
+        ys.append(y)
+    return kd_sort(stack_clouds(xs)), kd_sort(stack_clouds(ys))
+
+
+@pytest.mark.parametrize("n,m", [(1024, 1024), (512, 1152)])
+@pytest.mark.parametrize("b", [1, 3, 9])
+def test_batched_color_gram_kernel_matches_plain(dev, b, n, m):
+    """One launch a batch: within 1e-6 of the plain version, every lane
+    the bits of the one-pair launch on its pair, a masked lane zero."""
+    from cvo_rgbd_torch.ops import gram
+    from cvo_rgbd_torch.params import CvoParams
+
+    x, y = _lane_clouds(dev, b, n, m)
+    p = CvoParams()
+    launches = gram.color_gram.launches
+    ck = gram.color_gram(*x, *y, p=p)
+    assert gram.color_gram.launches == launches + 1
+    assert ck.shape == (b, n, m)
+    scal = gram.scalars(torch.full((), p.ell_init, device=dev), p)
+    ref = gram.color_gram_plain(x.features, x.mask, y.features, y.mask, scal)
+    assert (ck - ref).abs().max().item() <= 1e-6
+    for i in range(b):
+        one = gram.color_gram(*x.lane(i), *y.lane(i), p=p)
+        assert one.shape == (n, m) and torch.equal(ck[i], one)
+    if b > 1:
+        assert not ck[1].any() and ck[0].any()
+
+
+def test_batched_color_gram_refuses_too_many_lanes(dev):
+    from cvo_rgbd_torch.ops import gram
+
+    f = torch.zeros((65536, 1, 5), device=dev)
+    mask = torch.zeros((65536, 1), device=dev)
+    scal = torch.zeros(8, device=dev)
+    with pytest.raises(ValueError, match="65535"):
+        gram.color_gram_cuda(f, mask, f, mask, scal)
+
+
+@pytest.mark.parametrize("algo", ["cvo", "acvo exact", "acvo cheb", "dense",
+                                  "warm transposed"])
+def test_align_batched_compiled_lanes_on_the_card(dev, algo):
+    """align_batched on the kernel (and dense) backend: each lane the
+    bits of `align` on its pair on the card (warm-started from a
+    transposed view of R0 in the last case), one compiled align for the
+    lanes, graph replays, and one color_gram launch a cache a batch."""
+    import math
+
+    import cvo_rgbd_torch as ct
+    from cvo_rgbd_torch.core import compiled
+    from cvo_rgbd_torch.core.cloud import stack_clouds
+    from cvo_rgbd_torch.ops import gram
+    from cvo_rgbd_torch.parallel import align_batched
+
+    stops = dict(eps=5e-4, eps_2=1e-4, max_iter=60)
+    p = {"cvo": ct.CvoParams(**stops), "acvo exact": ct.AcvoParams(**stops),
+         "acvo cheb": ct.AcvoParams(self_mode="cheb", **stops),
+         "dense": ct.CvoParams(backend="dense", **stops),
+         "warm transposed": ct.CvoParams(max_iter=59)}[algo]
+    pairs = [_clouds(dev, n=2900, cap=3072, seed=20 + s) for s in range(3)]
+    xs = stack_clouds([x for x, _ in pairs])
+    ys = stack_clouds([y for _, y in pairs])
+    warm = [None] * 3
+    if algo == "warm transposed":
+        R = ct.se3.exp_so3(torch.tensor(
+            [[0.004, 0.0, -0.003], [0.0, 0.002, 0.0], [-0.002, 0.001, 0.003]],
+            device=dev))
+        warm = [R.transpose(1, 2).contiguous().transpose(1, 2),
+                torch.full((3, 3), 0.002, device=dev),
+                torch.full((3,), 0.1, device=dev)]
+        assert warm[0][0].stride() == (1, 3)
+    launches = gram.color_gram.launches
+    replays = compiled.align_jit.replays
+    R0, T0, ell0 = warm
+    res = align_batched(p, xs, ys, R0=R0, T0=T0, ell0=ell0)
+    torch.cuda.synchronize()
+    want = 0 if p.backend == "dense" else (3 if "acvo" in algo else 1)
+    assert gram.color_gram.launches - launches == want
+    assert compiled.align_jit.replays - replays == sum(
+        math.ceil((int(k) + 1) / 8) for k in res.iterations)
+    assert len([k for k in compiled.CACHE
+                if k[0] == p and k[1:3] == (3072, 3072)]) == 1
+    for i, (x, y) in enumerate(pairs):
+        ref = ct.align(p, x, y, *(None if w is None else w[i] for w in warm))
+        for f in _JIT_FIELDS:
+            assert torch.equal(getattr(res, f)[i], getattr(ref, f)), (i, f)
