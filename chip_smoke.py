@@ -96,14 +96,24 @@ and prints no result line):
    8b. `run_odometry_batched(batch=9)` over the render on
    the fused backend (cvo and acvo, 3072, tiled) and on the kernel
    backend (cvo and acvo: one `color_gram` launch a batch, three for
-   acvo, the lanes through the compiled loop, the trajectory the cold
-   sequential run's, pose for pose), each against
-   `run_odometry_frames(warm_start=False)` in the same run, and
-   `run_multiseq` over the render written as a TUM folder and a 2-frame
-   prefix of it (ragged lanes), each lane against its solo run; 8c.
-   `color_gram` with a lane axis at 8b's batch (9 x 3072) and at 8's
+   acvo, the batch as one compiled loop with one `fused_moments` launch
+   a batch iteration and, for acvo, one `fused_wsq` launch a lane an
+   iteration, the trajectory the cold sequential run's, pose for pose),
+   each against `run_odometry_frames(warm_start=False)` in the same run,
+   and `run_multiseq` over the render written as a TUM folder and a
+   2-frame prefix of it (ragged lanes), each lane against its solo run;
+   8c. `color_gram` with a lane axis at 8b's batch (9 x 3072) and at 8's
    (63 x 384): one launch against its plain version and every lane the
    bits of the one-pair launch, timed beside the B one-pair launches;
+   8d. `fused_moments` with a lane axis at the same two batches (8's
+   lanes in MATLAB's linear mode) and in the fast form at 8b's: one
+   launch against its plain version lane by lane, every lane the bits of
+   the one-pair launch, a frozen lane not swept, timed beside the B
+   one-pair launches; 8e. `align_batched` on the kernel backend, one
+   compiled loop a batch, at 8b's batch (cvo, exact and cheb acvo, fast
+   cvo) and at 8's (linear): one `fused_moments` launch a batch
+   iteration, every lane the bits of `align_jit` on its pair, pairs/s
+   against the pairs one by one;
 9. keyframe SLAM over a 40-frame path along the optical axis and back
    (`synth.depth_loop_path`), written as .pcd: `python -m
    cvo_rgbd_torch.cli slam` (MATLAB_PARAMS, kernel backend, its aligns
@@ -166,8 +176,10 @@ the main paths together, its error against the plain version, its
 time, the plain version's time and its bound (the batched rows of
 `align_fused`: a 63-lane launch of exactly 10 iterations, and their
 launches those of phases 8 and 8b; `color_gram_batched`: 8c's 9 x 3072
-batch, its launches those of the kernel backend's batched drivers in 8b
-and 12a; the "<kernel>/fast" rows: phase 3f,
+batch, its launches those of the kernel backend's batched drivers in 8b,
+8e and 12a; `fused_moments_batched`: 8d's 9 x 3072 batch, its launches
+those of the same runs, one a batch iteration, which `fused_moments`'s
+row no longer counts; the "<kernel>/fast" rows: phase 3f,
 each max_abs_err the worst of every case it checks, their launches
 those of phase 9's fast runs); the last line is
 {"ok": true, "device": {...}}.
@@ -223,6 +235,10 @@ BATCHED = ("align_fused_tiled_batched", "align_fused_resident_batched")
 # color_gram on a lane axis (align_batched's kernel lanes, one launch a
 # cache a batch): its row's launches are those of phases 8b and 12a
 LANE_GRAM = "color_gram_batched"
+# fused_moments on a lane axis (the kernel backend's batched loop, one
+# launch a batch an iteration): its launches are counted apart from the
+# one-pair launches (`fused_moments.lanes`), those of phases 8b and 12a
+LANE_MOM = "fused_moments_batched"
 # the exp_mode="fast" forms, one row each (color_gram has none)
 FAST = tuple(f"{k}/fast" for k in KERNELS[1:] + FUSED)
 FUSED_ITERS = (1, 3, 10)
@@ -1116,7 +1132,7 @@ def phase_batch(root, grid, label, gt, params=None):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = read_launches()
-    calls, replays = (b - a for a, b in zip(jit0, jit_counts()))
+    calls, replays, _ = (b - a for a, b in zip(jit0, jit_counts()))
     res = np.load(out)["results"]
     pairs = [ln for ln in lines if ln.startswith("pair ")]
     iters = [int(ln.split("iters=")[1].split()[0]) for ln in pairs
@@ -1152,7 +1168,7 @@ def phase_matlab(root, frames):
 
     gt = relative_gt(frames)
     n = len(gt)
-    total = {k: 0 for k in KERNELS + FUSED + (PROBE,)}
+    total = {k: 0 for k in KERNELS + FUSED + (LANE_MOM, PROBE)}
     routes = (
         ("kernel", None),
         ("fused", dataclasses.replace(MATLAB_PARAMS, backend="fused")),
@@ -1219,6 +1235,7 @@ def reset_launches():
 
     for name in KERNELS + ("align_fused",):
         getattr(ops, name).launches = 0
+    ops.fused_moments.lanes.launches = 0
     probes.construct_probe.launches = 0
 
 
@@ -1227,6 +1244,7 @@ def read_launches():
 
     out = {name: getattr(ops, name).launches
            for name in KERNELS + ("align_fused",)}
+    out[LANE_MOM] = ops.fused_moments.lanes.launches
     out["construct_probe"] = probes.construct_probe.launches
     return out
 
@@ -1398,11 +1416,13 @@ def phase_fused_timing(fixed, moving, p, kernel_ms_iter):
 
 
 def jit_counts():
-    """(calls, replays) of `align_jit` so far: its calls, and its graph
-    replays (host launches of the captured align blocks)."""
+    """(calls, replays, warm-up iterations) of `align_jit` so far: its
+    calls, its graph replays (host launches of the captured align
+    blocks), and the iterations its captures ran eagerly first."""
     from cvo_rgbd_torch.core import compiled
 
-    return compiled.align_jit.calls, compiled.align_jit.replays
+    return (compiled.align_jit.calls, compiled.align_jit.replays,
+            compiled.align_jit.warmups)
 
 
 def compiled_for(p, fixed, moving):
@@ -1548,7 +1568,7 @@ def phase_odometry(frames, p, adaptive, num_want=NUM_WANT):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = read_launches()
-    calls, replays = (b - a for a, b in zip(jit0, jit_counts()))
+    calls, replays, _ = (b - a for a, b in zip(jit0, jit_counts()))
     est = parse_trajectory(traj.getvalue().splitlines())
     gt = {float(nm): pose for _, nm, _, _, pose in frames}
     ate = ate_rmse(gt, est)["rmse"]
@@ -1890,6 +1910,7 @@ def phase_batched_odometry(frames, p, adaptive, root=None):
     import numpy as np
     import torch
 
+    from cvo_rgbd_torch.core.registration import CHECK_EVERY
     from cvo_rgbd_torch.evaluation import ate_rmse
     from cvo_rgbd_torch.io.tum import parse_trajectory, read_trajectory
     from cvo_rgbd_torch.multiseq import run_multiseq
@@ -1915,10 +1936,11 @@ def phase_batched_odometry(frames, p, adaptive, root=None):
         est = parse_trajectory(traj.getvalue().splitlines())
         return recs, est, dt, read_launches()
 
-    r0 = jit_counts()[1]
+    _, r0, w0 = jit_counts()
     recs, est, dt, launches = drive(run_odometry_batched_frames,
                                     batch=ODOM_BATCH)
-    replays = jit_counts()[1] - r0
+    _, r1, w1 = jit_counts()
+    replays, warmups = r1 - r0, w1 - w0
     seq_recs, seq_est, seq_dt, _ = drive(run_odometry_frames,
                                          warm_start=False)
     ate, ate_seq = ate_rmse(gt, est)["rmse"], ate_rmse(gt, seq_est)["rmse"]
@@ -1941,12 +1963,27 @@ def phase_batched_odometry(frames, p, adaptive, root=None):
               f"batched odometry {name}: not one launch a batch: {launches}")
     else:
         gap = max(float(np.abs(est[t] - seq_est[t]).max()) for t in seq_est)
-        log(f"batched odometry {name}: {replays} graph replays, color_gram "
-            f"launches {launches['color_gram']} for {batches} batch(es), "
-            f"max |pose - sequential cold| {gap!r}")
+        # one loop a batch: every replayed block is CHECK_EVERY
+        # iterations of the batch (max_iter is far off), and so is the
+        # eager warm-up ahead of the capture; each iteration one
+        # fused_moments launch for all the lanes
+        iters = replays * CHECK_EVERY + warmups
+        per_iter = launches[LANE_MOM] / max(iters, 1)
+        log(f"batched odometry {name}: {replays} graph replays and "
+            f"{warmups} warm-up iterations ({iters} batch iterations; the "
+            f"slowest pair "
+            f"{max(r.iterations for r in recs) + 1}), fused_moments "
+            f"launches a batch iteration {per_iter!r} (one-pair launches "
+            f"{launches['fused_moments']}), fused_wsq launches "
+            f"{launches['fused_wsq']}, color_gram launches "
+            f"{launches['color_gram']} for {batches} batch(es), max |pose - "
+            f"sequential cold| {gap!r}")
         check(launches["color_gram"] == batches * (3 if adaptive else 1)
-              and launches["fused_moments"] > 0 and replays > 0
-              and launches["align_fused"] == 0,
+              and launches[LANE_MOM] == iters and replays > 0
+              and launches["fused_moments"] == 0
+              and launches["align_fused"] == 0
+              and launches["fused_wsq"] == (iters * ODOM_BATCH if adaptive
+                                            else 0),
               f"batched odometry {name}: launched {launches}, {replays} "
               "replays")
         check(set(est) == set(seq_est) and gap == 0.0,
@@ -2056,6 +2093,206 @@ def phase_color_gram_batched(clouds, sets, p):
     return row
 
 
+def phase_moments_batched(clouds, sets, p):
+    """8d. `fused_moments` with a lane axis (row 2b) at 8b's batch (the
+    render's 9 pairs at 3072, the color cache and the tile skip) and at
+    8's (the coarse pcd pairs x LANE_REPEAT, 63 lanes at 384, MATLAB's
+    linear mode: its masked CI and the skip), then 8b's batch in its
+    exp_mode="fast" form.  The inputs are the batched loop's
+    (`route` and `prepare_batch` on the stacks), each lane at its own
+    ell, each moving cloud moved a little as an iteration sees it.  One
+    launch against the plain version lane by lane (Mom within 1e-4 of
+    each column's magnitude, nnz exact; fast: within the near-gate
+    pairs), every lane the bits of the one-pair launch on it, a frozen
+    lane zeros and the others unchanged; the batched launch timed beside
+    the B one-pair launches and the plain version, with the bound of the
+    batch.  Returns the kernel line's row: the 9 x 3072 batch's numbers,
+    the worst error of the precise cases."""
+    import torch
+
+    from cvo_rgbd_torch.batch import pad_clouds
+    from cvo_rgbd_torch.core.cloud import aabb_min_d2, block_bounds
+    from cvo_rgbd_torch.core.cloud import stack_clouds
+    from cvo_rgbd_torch.core.registration import prepare_batch, route
+    from cvo_rgbd_torch.ops import gram, moments
+    from cvo_rgbd_torch.params import MATLAB_PARAMS
+
+    dev = torch.device("cuda")
+    pcd = pad_clouds(sets[BATCH_GRID], dev)
+    cases = [("render", p, clouds[:-1], clouds[1:], 1),
+             (f"pcd grid={BATCH_GRID} linear", MATLAB_PARAMS, pcd[:-1],
+              pcd[1:], LANE_REPEAT),
+             ("render/fast", fast_params(p), clouds[:-1], clouds[1:], 1)]
+    row, err_all = None, 0.0
+    for name, q, xs, ys, repeat in cases:
+        fast = q.exp_mode == "fast"
+        linear = q.color_mode == "linear"
+        q, x, y = route(q, stack_clouds(xs, repeat=repeat),
+                        stack_clouds(ys, repeat=repeat))
+        b, n, m = x.positions.shape[0], x.capacity, y.capacity
+        pre = prepare_batch(q, x, y, [None] * b)
+        c0, x_c, phi = pre.moments
+        y_pos = y.positions + torch.tensor([0.004, -0.002, 0.003],
+                                           device=dev)
+        md = aabb_min_d2(*pre.skip[:2],
+                         *block_bounds(y_pos, y.mask, moments.TILE_J))
+        ell = torch.linspace(q.ell_init, 0.03, b, device=dev)
+        scal = gram.scalars(ell, q)
+        args = (x_c, x.features, x.mask, y_pos - c0[:, None, :],
+                y.features, y.mask, phi, scal, pre.ck[0], md)
+        lanes = [tuple(a[i] for a in args) for i in range(b)]
+
+        def batched(live=None):
+            return moments.fused_moments_cuda(*args, linear, fast, live)
+
+        before = read_launches()
+        mom, nnz = batched()
+        torch.cuda.synchronize()
+        got = {k: v - before[k] for k, v in read_launches().items()}
+        same = err = rel = worst_nnz = 0
+        for i, lane in enumerate(lanes):
+            one, one_nnz = moments.fused_moments_cuda(*lane, linear, fast)
+            same += int(torch.equal(mom[i], one)
+                        and float(nnz[i]) == float(one_nnz))
+            ref, ref_nnz = moments.fused_moments_plain(*lane, linear, fast)
+            scale = ref.abs().amax(dim=0).clamp_min(1e-30)
+            rel = max(rel, ((mom[i] - ref).abs() / scale).max().item())
+            err = max(err, (mom[i] - ref).abs().max().item())
+            gate = (moments.near_gate_pairs(*lane[:6], lane[7], lane[8],
+                                            linear) if fast else 0)
+            worst_nnz = max(worst_nnz, abs(float(nnz[i]) - float(ref_nnz))
+                            - gate)
+        live = torch.ones(b, dtype=torch.bool, device=dev)
+        live[1] = False
+        part, part_nnz = batched(live)
+        torch.cuda.synchronize()
+        frozen = (not part[1].any().item() and float(part_nnz[1]) == 0.0
+                  and torch.equal(part[0], mom[0])
+                  and torch.equal(part_nnz[2:], nnz[2:]))
+        ms = time_ms(batched)
+        # B host launches outlast SPIN_CYCLES at 63 lanes
+        singles_ms = time_ms(
+            lambda: [moments.fused_moments_cuda(*a, linear, fast)
+                     for a in lanes], spin=ALIGN_SPIN_CYCLES)
+        plain_ms = time_ms(lambda: moments.fused_moments_plain_batched(
+            *args, linear, fast))
+        keep = md <= scal[:, gram.S_D2_THRES, None, None] + \
+            moments.SKIP_MARGIN
+        pairs = int(keep.sum().item()) * moments.TILE_I * moments.TILE_J
+        nbytes = (b * (n * (3 + moments.NUM_MONO) + m * 3
+                       + m * moments.NUM_MONO + 8 + 1) + md.numel()) * 4
+        nbytes += pairs * 4
+        b_ms, b_by = bound(nbytes, pairs * pair_ops(False, fast)
+                           + float(nnz.sum().item()) * OPS_GATED)
+        log(f"8d fused_moments {name}: {b} lanes x {n} x {m}, launches "
+            f"{got}, Mom err/max|col|={rel:.3e} (tolerance 1e-4), "
+            f"max_abs_err={err:.3e}, nnz beyond the tolerance {worst_nnz} "
+            f"({'near-gate pairs' if fast else 'exact'}), lanes the one-pair "
+            f"launch's bits {same}/{b}, a frozen lane zeros and the others "
+            f"unchanged {frozen}; {ms:.4f} ms batched, {singles_ms:.4f} ms "
+            f"as {b} one-pair launches, plain {plain_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}); tiles kept "
+            f"{keep.float().mean().item():.3f}, nnz {nnz.tolist()}")
+        check(got[LANE_MOM] == 1 and got["fused_moments"] == 0,
+              f"8d fused_moments {name}: launches {got}")
+        check(rel <= 1e-4 and worst_nnz <= 0 and bool((nnz > 0).all()),
+              f"8d fused_moments {name} disagrees with its plain version: "
+              f"{rel}, nnz {worst_nnz}")
+        check(same == b, f"8d fused_moments {name}: {b - same} lanes are "
+              "not the one-pair launch's bits")
+        check(frozen, f"8d fused_moments {name}: a frozen lane was swept "
+              "or moved the others")
+        if not fast:
+            err_all = max(err_all, err)
+        if row is None:
+            row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    row["max_abs_err"] = err_all
+    return row
+
+
+def phase_batched_loop(clouds, clouds_a, sets, p, pa):
+    """8e. `align_batched` on the kernel backend as one compiled loop, at
+    8b's batch (the render's 9 pairs at 3072: cvo, exact acvo and cheb
+    acvo on the acvo clouds, and cvo in exp_mode="fast") and at 8's (the
+    coarse pcd pairs x LANE_REPEAT, 63 lanes at 384, MATLAB_PARAMS on
+    the kernel backend: linear color).  Each batch twice (the first call
+    captures), with the launch counts read around the second: one
+    `fused_moments` launch a batch iteration (every replay a block of
+    CHECK_EVERY iterations), no one-pair launch, for exact acvo one
+    `fused_wsq` launch a lane an iteration (cheb: one a lane for its
+    tables); every lane the bits of
+    `align_jit` on its pair (the pcd pairs each once, their repeats
+    held against it); host ms a batch iteration and pairs/s against the
+    pairs one by one through `align_jit` (graphs built).  Returns the
+    launches of the batched runs."""
+    import torch
+
+    from cvo_rgbd_torch import align_jit
+    from cvo_rgbd_torch.batch import pad_clouds
+    from cvo_rgbd_torch.core.cloud import stack_clouds
+    from cvo_rgbd_torch.core.registration import CHECK_EVERY
+    from cvo_rgbd_torch.params import MATLAB_PARAMS
+    from cvo_rgbd_torch.parallel import align_batched
+
+    dev = torch.device("cuda")
+    pcd = pad_clouds(sets[BATCH_GRID], dev)
+    cases = [("cvo", p, clouds, 1), ("acvo exact", pa, clouds_a, 1),
+             ("acvo cheb", dataclasses.replace(pa, self_mode="cheb"),
+              clouds_a, 1),
+             ("cvo fast", fast_params(p), clouds, 1),
+             (f"linear pcd grid={BATCH_GRID}", MATLAB_PARAMS, pcd,
+              LANE_REPEAT)]
+
+    def run(fn):
+        torch.cuda.synchronize()
+        reset_launches()
+        r0 = jit_counts()[1]
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (out, time.perf_counter() - t0, jit_counts()[1] - r0,
+                read_launches())
+
+    total = {}
+    for name, q, cl, repeat in cases:
+        xb = stack_clouds(cl[:-1], repeat=repeat)
+        yb = stack_clouds(cl[1:], repeat=repeat)
+        b, pairs = xb.positions.shape[0], len(cl) - 1
+        _, dt_1, _, _ = run(lambda: align_batched(q, xb, yb))
+        res, dt, reps, got = run(lambda: align_batched(q, xb, yb))
+        refs, _, _, _ = run(lambda: [align_jit(q, cl[i], cl[i + 1])
+                                     for i in range(pairs)])
+        _, dt_seq, _, _ = run(lambda: [align_jit(q, cl[i], cl[i + 1])
+                                       for i in range(pairs)])
+        same = sum(all(torch.equal(getattr(res, f)[i],
+                                   getattr(refs[i % pairs], f))
+                       for f in res._fields) for i in range(b))
+        iters = reps * CHECK_EVERY
+        slowest = int(res.iterations.max()) + 1
+        # exact acvo: both self-sweeps a lane an iteration; cheb: each
+        # lane's tables, one launch, built with `prepare`
+        wsq = {"exact": iters * b, "cheb": b}.get(
+            getattr(q, "self_mode", None), 0)
+        log(f"8e batched loop {name}: {b} lanes x {xb.capacity}, "
+            f"{reps} replays ({iters} batch iterations, the slowest lane "
+            f"{slowest}), launches {got}, fused_moments launches a batch "
+            f"iteration {got[LANE_MOM] / max(iters, 1)!r}; lanes the bits "
+            f"of align_jit {same}/{b}; {dt * 1e3 / iters:.3f} host ms a "
+            f"batch iteration, {b / dt:.3f} pairs/s batched (first call "
+            f"with capture {dt_1:.3f} s) against {pairs / dt_seq:.3f} "
+            f"pairs/s one by one through align_jit ({dt_seq:.3f} s for "
+            f"{pairs} pairs)")
+        check(got[LANE_MOM] == iters and got["fused_moments"] == 0
+              and got["fused_wsq"] == wsq,
+              f"8e batched loop {name}: launches {got} for {reps} replays")
+        check(same == b, f"8e batched loop {name}: {b - same} lanes are not "
+              "the bits of align_jit")
+        check(bool(res.converged.all()), f"8e batched loop {name}: a lane "
+              "did not converge")
+        _added(total, got)
+    return total
+
+
 def fast_params(p):
     return dataclasses.replace(p, exp_mode="fast")
 
@@ -2147,8 +2384,8 @@ def phase_slam(scene, root):
     gt = {float(nm): pose for _, nm, _, _, pose in frames}
     log(f"slam: rendered and wrote {len(frames)} frames in "
         f"{time.perf_counter() - t0:.2f} s")
-    precise = {k: 0 for k in KERNELS + FUSED}
-    fast = {k: 0 for k in KERNELS + FUSED}
+    precise = {k: 0 for k in KERNELS + FUSED + (LANE_MOM,)}
+    fast = {k: 0 for k in KERNELS + FUSED + (LANE_MOM,)}
 
     # the user's path: cli slam, MATLAB_PARAMS on the kernel backend
     out = os.path.join(root, "slam_poses_qt.txt")
@@ -2162,7 +2399,7 @@ def phase_slam(scene, root):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     got = fused_by_mode(read_launches(), "resident")
-    calls, replays = (b - a for a, b in zip(jit0, jit_counts()))
+    calls, replays, _ = (b - a for a, b in zip(jit0, jit_counts()))
     head = buf.getvalue().splitlines()[0]
     n_frames, n_kf, n_loops = (int(head.split()[k]) for k in (0, 2, 4))
     cli_poses = read_trajectory(out)
@@ -2347,7 +2584,7 @@ def phase_cli_run(root, frames, odometry, p, paf, loader_fps):
     from cvo_rgbd_torch.io.tum import read_trajectory
     from cvo_rgbd_torch.utils.timing import device_events
 
-    launches = {k: 0 for k in KERNELS + FUSED}
+    launches = {k: 0 for k in KERNELS + FUSED + (LANE_MOM,)}
     gt = {float(nm): pose for _, nm, _, _, pose in frames}
 
     def drive(args):
@@ -2433,7 +2670,7 @@ def phase_trace(cases):
     from cvo_rgbd_torch import align
     from cvo_rgbd_torch.core.trace import align_trace
 
-    launches = {k: 0 for k in KERNELS + FUSED}
+    launches = {k: 0 for k in KERNELS + FUSED + (LANE_MOM,)}
     for p, x, y in cases:
         adaptive = hasattr(p, "self_mode")
         name = "acvo" if adaptive else "cvo"
@@ -3326,7 +3563,8 @@ def phase_failure_paths(root):
     check(len(t_deg) == DEG_MAX_FRAMES and len(t_clean) == 8
           and all(np.isfinite(v).all() for t in (t_deg, t_clean)
                   for v in t.values()), "12a multiseq trajectories")
-    check(got["fused_moments"] > 0, f"12a multiseq launched {got}")
+    check(got[LANE_MOM] > 0 and got["fused_moments"] == 0,
+          f"12a multiseq launched {got}")
     got[LANE_GRAM] = got.pop("color_gram")
     _added(launches, got)
 
@@ -3656,7 +3894,8 @@ def main():
     ], [(c0, c1), (c1, c2), (c2, c3)], p)
     mark("4d (align_jit)")
 
-    launches = {k: 0 for k in KERNELS + FUSED + BATCHED + (LANE_GRAM, PROBE)}
+    launches = {k: 0 for k in KERNELS + FUSED + BATCHED
+                + (LANE_GRAM, LANE_MOM, PROBE)}
     runs = [(p, False, NUM_WANT), (pa, True, NUM_WANT)]
     runs += [(q, adaptive, nw) for nw in (NUM_WANT, RESIDENT_NUM_WANT)
              for q, adaptive in ((pf, False), (paf, True))]
@@ -3701,15 +3940,24 @@ def main():
         got = phase_batched_odometry(frames, q, adaptive, root)
         launches["align_fused_tiled_batched"] += got.pop("align_fused")
         launches[LANE_GRAM] += got.pop("color_gram")
-        for k in KERNELS[1:]:
+        for k in KERNELS[1:] + (LANE_MOM,):
             launches[k] += got[k]
     tmp8.cleanup()
     mark("8b (batched odometry)")
     # 8c. color_gram's lane axis at 8b's batch (9 render pairs at 3072)
     # and at 8's (63 pcd lanes at the coarse grid)
-    kernels[LANE_GRAM] = phase_color_gram_batched(
-        [fe(f[2], f[3]) for f in frames], sets, p)
+    render = [fe(f[2], f[3]) for f in frames]
+    kernels[LANE_GRAM] = phase_color_gram_batched(render, sets, p)
     mark("8c (color_gram lanes)")
+    # 8d. fused_moments's lane axis at the same two batches
+    kernels[LANE_MOM] = phase_moments_batched(render, sets, p)
+    mark("8d (fused_moments lanes)")
+    # 8e. the batched loop on every form it runs, lanes against align_jit
+    got = phase_batched_loop(render, [fe_a(f[2], f[3]) for f in frames],
+                             sets, p, pa)
+    launches[LANE_GRAM] += got.pop("color_gram")
+    _added(launches, got)
+    mark("8e (the batched loop)")
 
     # 9. keyframe SLAM: cli slam, then the fast kernels' main path
     tmp9 = tempfile.TemporaryDirectory()
@@ -3804,10 +4052,12 @@ def main():
             "cvo_rgbd_tpu/ops/pallas_align.py:1379"),
         LANE_GRAM: ("cvo_rgbd_torch/csrc/color_gram.cu",
                     "cvo_rgbd_tpu/ops/pallas_gram.py:401"),
+        LANE_MOM: ("cvo_rgbd_torch/csrc/fused_moments.cu",
+                   "cvo_rgbd_tpu/ops/pallas_moments.py:199"),
         PROBE: ("cvo_rgbd_torch/csrc/construct_probe.cu",
                 "scripts/tpu_construct_probe.py:24"),
     }
-    names = KERNELS + FUSED + BATCHED + (LANE_GRAM, PROBE) + FAST
+    names = KERNELS + FUSED + BATCHED + (LANE_GRAM, LANE_MOM, PROBE) + FAST
     missing = [k for k in names if not launches[k]]
     check(not missing, f"kernels never launched on a main path: {missing}")
     rows = []

@@ -17,10 +17,18 @@ it: the routing, the feature padding, the kd-sorts and `prepare`
 Chebyshev tables, whose span depends on a host ell0).  Each call copies
 the pair, its `prepare` output and the warm state into the compiled
 object's static tensors; the graphs read only those.
-`parallel.align_batched` on the kernel and dense backends routes and
-prepares a batch of pairs at once (`prepare_batch`: one `color_gram`
-launch a cache for all the lanes) and runs each lane here
-(`run_compiled`), every lane of one key through one compiled align.
+
+`parallel.align_batched` routes and prepares a batch of pairs at once
+(`prepare_batch`: one `color_gram` launch a cache for all the lanes).
+On the kernel backend's moment step the whole batch is one compiled
+loop here, the clouds, `pre` and the state on a leading lane axis
+(`registration.make_batched_step`): one `fused_moments` launch an
+iteration for the batch, the graphs captured once per (params, lanes,
+capacities, device, layout), a replay read for `converged.all()`, so
+the batch runs until its slowest lane converges and a converged lane
+stays frozen.  The direct step and the dense backend run each lane
+through its one-pair compiled align, every lane of one key through one
+compiled align.
 
 The result is `align`'s bits: the graphs hold the same launches in the
 same order, and the kernels take no float atomics.  On the CPU
@@ -35,6 +43,8 @@ tickets (`ops.gram.stream_tickets`) exist, zeroed, outside the graph's
 memory pool.  The wrappers' launch counters count at capture, not at
 replay: each graph records its counts, adds them on every replay, and
 `align_jit.replays` counts the replays (on the CPU, the blocks run).
+The warm-up block's launches are counted as they run, and
+`align_jit.warmups` counts its iterations.
 """
 
 from __future__ import annotations
@@ -50,6 +60,7 @@ from cvo_rgbd_torch.core.registration import (
     check_supported,
     init_state,
     make_align_step,
+    make_batched_step,
     prepare,
     route,
 )
@@ -58,12 +69,12 @@ from cvo_rgbd_torch.ops.align_fused import align_fused
 from cvo_rgbd_torch.ops.gram import stream_tickets
 from cvo_rgbd_torch.ops.wsq import MAX_SWEEPS
 
-# the wrappers whose launches a graph holds
-COUNTED = (ops.color_gram, ops.fused_moments, ops.fused_wsq, ops.fused_flow,
-           ops.fused_step_coeffs)
+# the wrappers (and kernel forms) whose launches a graph holds
+COUNTED = (ops.color_gram, ops.fused_moments, ops.fused_moments.lanes,
+           ops.fused_wsq, ops.fused_flow, ops.fused_step_coeffs)
 
 # the compiled aligns, one per (params, fixed capacity, moving capacity,
-# device, layout), kept for the life of the process as JAX keeps its
+# device, layout, lanes), kept for the life of the process as JAX keeps its
 # compiled aligns; `align_jit.cache_clear()` drops them
 CACHE: dict = {}
 
@@ -106,9 +117,10 @@ def _copy_in(dst, src):
 
 
 class CompiledAlign:
-    """The align loop of one cache key (params, capacities, device,
-    layout) on static tensors; built from the first call's inputs, after
-    `route` and `prepare`.  `captures` records, per graph length, the
+    """The align loop of one cache key (params, lanes, capacities,
+    device, layout) on static tensors; built from the first call's
+    inputs, after `route` and `prepare` (one pair), or `prepare_batch`
+    for B pairs on a lane axis (the batched loop, `make_batched_step`).  `captures` records, per graph length, the
     capture's seconds and the growth of the card's allocated and
     reserved bytes across it (the graph's pool: the blocks its launches
     write, which stay reserved for its replays)."""
@@ -117,7 +129,8 @@ class CompiledAlign:
         self.p = p
         self.fixed, self.moving = _static(fixed), _static(moving)
         self.pre, self.state = _static(pre), _static(state)
-        self.body = make_align_step(p)
+        lanes = state.converged.dim() == 1
+        self.body = make_batched_step(p) if lanes else make_align_step(p)
         self.device = state.R.device
         self.graphs = {}     # length -> (CUDAGraph, [(wrapper, launches)])
         self.captures = {}   # length -> capture seconds and bytes
@@ -144,6 +157,7 @@ class CompiledAlign:
         self.stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(self.stream):
             self.block(n)
+        align_jit.warmups += n
         torch.cuda.current_stream(dev).wait_stream(self.stream)
         before = [w.launches for w in COUNTED]
         # what torch.cuda.graph frees on entry, freed first, so that the
@@ -193,7 +207,7 @@ class CompiledAlign:
         full, tail = divmod(self.p.max_iter, CHECK_EVERY)
         for _ in range(full):
             self.run(CHECK_EVERY)
-            if bool(self.state.converged.item()):
+            if bool(self.state.converged.all().item()):
                 break
         else:
             if tail:
@@ -209,13 +223,17 @@ class CompiledAlign:
 def run_compiled(p, fixed, moving, pre, state) -> AlignResult:
     """The compiled loop of this key on a pair as `align` runs it:
     clouds already routed, `pre` their `prepare` output, `state` from
-    `init_state`.  The compiled align is built on the key's first call.
-    Lanes of a batch (`parallel.align_batched`) come here one by one: a
-    lane view of a contiguous stack has the strides of a fresh tensor of
-    its shape, and another layout keys its own compiled align."""
+    `init_state`; or on B pairs at once, the clouds stacked on a lane
+    axis, `pre` from `prepare_batch` and `state` from `init_state(...,
+    lanes=B)` (the kernel backend's moment step).  The compiled align is
+    built on the key's first call.  The lanes of the direct step and the
+    dense backend come here one by one: a lane view of a contiguous
+    stack has the strides of a fresh tensor of its shape, and another
+    layout keys its own compiled align."""
     dev = fixed.positions.device
     key = (p, fixed.capacity, moving.capacity, dev,
-           _strides((fixed, moving, state)))
+           _strides((fixed, moving, state)),
+           tuple(fixed.positions.shape[:-2]))
     compiled = CACHE.get(key)
     if compiled is None:
         compiled = CACHE[key] = CompiledAlign(p, fixed, moving, pre, state)
@@ -243,4 +261,5 @@ def align_jit(p, fixed, moving, R0=None, T0=None, ell0=None,
 
 align_jit.calls = 0
 align_jit.replays = 0
+align_jit.warmups = 0
 align_jit.cache_clear = CACHE.clear

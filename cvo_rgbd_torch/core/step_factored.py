@@ -44,12 +44,12 @@ class Poly:
 
     @staticmethod
     def affine(a, b):
-        """a + b . x with a [M], b [M,3]."""
+        """a + b . x with a [..., M], b [..., M, 3]."""
         return Poly({
             (0, 0, 0): a,
-            (1, 0, 0): b[:, 0],
-            (0, 1, 0): b[:, 1],
-            (0, 0, 1): b[:, 2],
+            (1, 0, 0): b[..., 0],
+            (0, 1, 0): b[..., 1],
+            (0, 0, 1): b[..., 2],
         })
 
     def __add__(self, other):
@@ -87,23 +87,28 @@ def monomial_features(x: torch.Tensor) -> torch.Tensor:
     )
 
 
-def affine_forms(y_field, y_pair, omega, v, ell):
+def affine_forms(y_field, y_pair, omega, v, ell, mm=torch.matmul):
     """Per-j affine coefficients (a [M], b [M,3]) of the four line-search
     integrand factors beta/gamma/delta/epsilon (cvo.cpp:262-271), as
     functions of the fixed point x:  factor_ij = a_j + b_j . x_i.
 
     `y_field`: the moving points the derivative fields xi^k z are built
     from (cvo.cpp:226-238); `y_pair`: the same points shifted by the
-    center the x monomials use."""
+    center the x monomials use.  A leading lane axis passes through
+    (omega, v [B,3], ell [B]), with `mm` the batched loop's matmul."""
     w_hat = skew(omega)
-    w2 = w_hat @ w_hat
-    w3 = w2 @ w_hat
-    w4 = w3 @ w_hat
+    w2 = mm(w_hat, w_hat)
+    w3 = mm(w2, w_hat)
+    w4 = mm(w3, w_hat)
 
-    xiz = torch.linalg.cross(omega.expand_as(y_field), y_field, dim=-1) + v
-    xi2z = y_field @ w2.T + (w_hat @ v[..., None])[..., 0]
-    xi3z = y_field @ w3.T + (w2 @ v[..., None])[..., 0]
-    xi4z = y_field @ w4.T + (w3 @ v[..., None])[..., 0]
+    xiz = torch.linalg.cross(omega[..., None, :].expand_as(y_field),
+                             y_field, dim=-1) + v[..., None, :]
+    xi2z = (mm(y_field, w2.transpose(-1, -2))
+            + mm(w_hat, v[..., None])[..., None, :, 0])
+    xi3z = (mm(y_field, w3.transpose(-1, -2))
+            + mm(w2, v[..., None])[..., None, :, 0])
+    xi4z = (mm(y_field, w4.transpose(-1, -2))
+            + mm(w3, v[..., None])[..., None, :, 0])
 
     normxiz2 = torch.sum(xiz * xiz, dim=-1)
     xzx2 = -torch.sum(xiz * xi2z, dim=-1)
@@ -112,22 +117,27 @@ def affine_forms(y_field, y_pair, omega, v, ell):
     )
 
     tc = 1.0 / (2.0 * ell * ell)
+    tc3 = tc
+    if isinstance(tc, torch.Tensor) and tc.dim():
+        # one ell a lane
+        tc = tc[..., None]
+        tc3 = tc[..., None]
     b_a = 2.0 * tc * torch.sum(xiz * y_pair, -1)
-    b_b = -2.0 * tc * xiz
+    b_b = -2.0 * tc3 * xiz
     g_a = -tc * normxiz2 + 2.0 * tc * torch.sum(xi2z * y_pair, -1)
-    g_b = -2.0 * tc * xi2z
+    g_b = -2.0 * tc3 * xi2z
     d_a = 2.0 * tc * xzx2 + 2.0 * tc * torch.sum(xi3z * y_pair, -1)
-    d_b = -2.0 * tc * xi3z
+    d_b = -2.0 * tc3 * xi3z
     e_a = -tc * eps_const + 2.0 * tc * torch.sum(xi4z * y_pair, -1)
-    e_b = -2.0 * tc * xi4z
+    e_b = -2.0 * tc3 * xi4z
     return (b_a, b_b), (g_a, g_b), (d_a, d_b), (e_a, e_b)
 
 
-def line_search_polys(y_field, y_pair, omega, v, ell):
+def line_search_polys(y_field, y_pair, omega, v, ell, mm=torch.matmul):
     """The four line-search polynomials P_B..P_E (cvo.cpp:249-289) as
     `Poly` objects over the centered fixed-point coordinate."""
     (b_a, b_b), (g_a, g_b), (d_a, d_b), (e_a, e_b) = affine_forms(
-        y_field, y_pair, omega, v, ell
+        y_field, y_pair, omega, v, ell, mm
     )
     beta = Poly.affine(b_a, b_b)
     gamma = Poly.affine(g_a, g_b)

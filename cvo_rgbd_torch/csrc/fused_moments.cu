@@ -1,7 +1,9 @@
-// fused_moments: one sweep of the gated Gram per align iteration.
+// fused_moments: one sweep of the gated Gram per align iteration, for
+// one pair or for the B pairs of a batch in one launch.
 //
 // Replaces the JAX package's ops/pallas_moments.py:fused_moments
-// (_moments_body, A tile from pallas_gram.py:_pair_tile):
+// (_moments_body, A tile from pallas_gram.py:_pair_tile), and its vmap
+// over the lanes of parallel/sharded.py:align_batched:
 //   Mom[j, k] = sum_i A_ij * Phi[i, k]   (35 monomials of x_i - c0)
 //   nnz       = #{(i, j) : A_ij > 0}
 // with A_ij gated on d2 < d2_thres, a > sp_thres and the masks (se color
@@ -29,6 +31,12 @@
 //     rule picks them: a skipped tile's partial is zero and unwritten)
 //     and the int counts.  No float atomics: the sums, and through the
 //     gates the iteration counts, are the same from run to run.
+// The lane (pair) is grid z of both kernels, as in color_gram.cu: each
+// lane reads its own slices of the inputs and writes its own scratch
+// slices, so a lane's Mom and nnz are the bits of the one-pair launch on
+// it.  A lane whose `live` flag is 0 (a converged lane of the batched
+// loop, frozen whatever it gets) sweeps nothing: its tile blocks return
+// at entry and its reduce blocks write zeros.
 #include <cuda_runtime.h>
 
 #include "moment_tile.cuh"
@@ -97,14 +105,30 @@ moments_tile_kernel(const float* __restrict__ xp,
                     const float* __restrict__ ck,
                     const float* __restrict__ md,
                     const float* __restrict__ scal,
+                    const unsigned char* __restrict__ live,
                     float* __restrict__ part, int* __restrict__ cnt_part,
                     int n, int m) {
   extern __shared__ __align__(16) unsigned char smem[];
   Smem<USE_CK>& S = *reinterpret_cast<Smem<USE_CK>*>(smem);
 
+  // this block's lane: a frozen lane sweeps nothing
+  const size_t lane = blockIdx.z;
+  if (live != nullptr && !live[lane]) return;
   const int jb = blockIdx.x, ib = blockIdx.y;
-  const int nbj = m / TJ;
+  const int nbi = n / TI, nbj = m / TJ;
   const int tid = threadIdx.x;
+  xp += lane * n * 3;
+  xf += lane * n * cvo::NFEAT;
+  xm += lane * n;
+  yp += lane * m * 3;
+  yf += lane * m * cvo::NFEAT;
+  ym += lane * m;
+  phi += lane * n * NMOM;
+  if (ck != nullptr) ck += lane * n * m;
+  if (md != nullptr) md += lane * nbi * nbj;
+  scal += lane * cvo::N_SCAL;
+  part += lane * nbi * NMOM * m;
+  cnt_part += lane * nbi * nbj;
   int* count = cnt_part + ib * nbj + jb;
   // block-uniform: every thread takes the same branch
   if (!kept_tile(md, scal, ib, nbj, jb)) {
@@ -153,21 +177,38 @@ moments_tile_kernel(const float* __restrict__ xp,
   }
 }
 
-// Block (jb, g): one thread per j of j-block jb sums KPB moment columns
-// from g * KPB over the kept tiles in i-tile order; block (0, 0) also
-// sums every item's count.
+// Block (jb, g, lane): one thread per j of j-block jb sums KPB moment
+// columns from g * KPB over the kept tiles in i-tile order; block
+// (0, 0, lane) also sums every item's count.  A frozen lane's blocks
+// write zeros.
 __global__ void __launch_bounds__(cvo::mt::NT)
 moments_reduce_kernel(const float* __restrict__ part,
                       const int* __restrict__ cnt_part,
                       const float* __restrict__ md,
                       const float* __restrict__ scal,
+                      const unsigned char* __restrict__ live,
                       float* __restrict__ mom, float* __restrict__ nnz, int m,
                       int nbi) {
   __shared__ cvo::mt::ColumnScratch cs;
   __shared__ long long s_tot[cvo::mt::NW];
+  const size_t lane = blockIdx.z;
   const int nbj = m / TJ, jb = blockIdx.x;
   const int j = jb * TJ + threadIdx.x;
   const int k0 = blockIdx.y * KPB;
+  mom += lane * m * NMOM;
+  nnz += lane;
+  // block-uniform: every thread takes the same branch
+  if (live != nullptr && !live[lane]) {
+#pragma unroll
+    for (int k = 0; k < KPB; ++k)
+      if (k0 + k < NMOM) mom[static_cast<size_t>(j) * NMOM + k0 + k] = 0.0f;
+    if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) nnz[0] = 0.0f;
+    return;
+  }
+  part += lane * nbi * NMOM * m;
+  cnt_part += lane * nbi * nbj;
+  if (md != nullptr) md += lane * nbi * nbj;
+  scal += lane * cvo::N_SCAL;
   float sum[KPB];
 #pragma unroll
   for (int k = 0; k < KPB; ++k) sum[k] = 0.0f;
@@ -197,7 +238,8 @@ cudaError_t launch_tiles(dim3 grid, cudaStream_t stream, const float* xp,
                          const float* xf, const float* xm, const float* yp,
                          const float* yf, const float* ym, const float* phi,
                          const float* ck, const float* md, const float* scal,
-                         float* part, int* cnt_part, int n, int m) {
+                         const unsigned char* live, float* part,
+                         int* cnt_part, int n, int m) {
   const auto fn = moments_tile_kernel<USE_CK, LINEAR, FAST>;
   const int bytes = sizeof(Smem<USE_CK>);
   // above 48 KB only after opting in
@@ -205,7 +247,8 @@ cudaError_t launch_tiles(dim3 grid, cudaStream_t stream, const float* xp,
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   fn<<<grid, cvo::mt::NT, bytes, stream>>>(xp, xf, xm, yp, yf, ym, phi, ck,
-                                           md, scal, part, cnt_part, n, m);
+                                           md, scal, live, part, cnt_part, n,
+                                           m);
   return cudaGetLastError();
 }
 
@@ -222,25 +265,31 @@ TileLaunch tile_launchers(int linear, bool use_ck) {
 
 }  // namespace
 
-// part: [n / 64, 35, m] f32 scratch, one slot per kept tile; cnt_part:
-// [n / 64, m / 128] i32 scratch; mom: [m, 35] f32; nnz: [1] f32.  ck or
-// md may be null; linear mode needs ck (the masked ci).  fast takes the
-// hardware exp (params.exp_mode="fast").
+// For b lanes (b = 1: one pair), each input with a leading lane axis of
+// b, contiguous: xp [b, n, 3], xf [b, n, 5], xm [b, n], yp/yf/ym the
+// same at m, phi [b, n, 35], ck [b, n, m], md [b, n / 64, m / 128],
+// scal [b, 8]; live [b] bytes (0: a frozen lane) or null (every lane
+// live).  part: [b, n / 64, 35, m] f32 scratch, one slot per kept tile;
+// cnt_part: [b, n / 64, m / 128] i32 scratch; mom: [b, m, 35] f32;
+// nnz: [b] f32.  ck or md may be null; linear mode needs ck (the masked
+// ci).  fast takes the hardware exp (params.exp_mode="fast").  b is grid
+// z: at most 65535 lanes.
 extern "C" int fused_moments_launch(
     const float* xp, const float* xf, const float* xm, const float* yp,
     const float* yf, const float* ym, const float* phi, const float* ck,
-    const float* md, const float* scal, float* part, int* cnt_part,
-    float* mom, float* nnz, int n, int m, int linear, int fast,
-    cudaStream_t stream) {
-  const dim3 grid(m / TJ, n / TI);
+    const float* md, const float* scal, const unsigned char* live,
+    float* part, int* cnt_part, float* mom, float* nnz, int n, int m,
+    int linear, int fast, int b, cudaStream_t stream) {
+  if (b < 1 || b > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(m / TJ, n / TI, b);
   if (linear && ck == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const TileLaunch fn = fast ? tile_launchers<true>(linear, ck != nullptr)
                             : tile_launchers<false>(linear, ck != nullptr);
   const cudaError_t err = fn(grid, stream, xp, xf, xm, yp, yf, ym, phi, ck,
-                             md, scal, part, cnt_part, n, m);
+                             md, scal, live, part, cnt_part, n, m);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 rgrid(m / TJ, (NMOM + KPB - 1) / KPB);
+  const dim3 rgrid(m / TJ, (NMOM + KPB - 1) / KPB, b);
   moments_reduce_kernel<<<rgrid, cvo::mt::NT, 0, stream>>>(
-      part, cnt_part, md, scal, mom, nnz, m, n / TI);
+      part, cnt_part, md, scal, live, mom, nnz, m, n / TI);
   return static_cast<int>(cudaGetLastError());
 }

@@ -43,7 +43,7 @@ _I = ctypes.c_int
 SIGNATURES = {
     "color_gram": ("color_gram_launch", [_P] * 6 + [_I] * 3 + [_P]),
     "fused_moments": (
-        "fused_moments_launch", [_P] * 14 + [_I] * 4 + [_P]
+        "fused_moments_launch", [_P] * 15 + [_I] * 5 + [_P]
     ),
     "fused_wsq": ("fused_wsq_launch", [_P, _I] + [_P] * 3 + [_I] * 3 + [_P]),
     "align_fused_tiled": (

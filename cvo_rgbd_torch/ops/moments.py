@@ -16,6 +16,12 @@ it runs `fused_moments_plain`, the same function in plain torch.
 The AABB tile skip is exact: a skipped tile holds only zeros.  Its bound
 matrix must be built at the kernel's own tile sizes, TILE_I rows of the
 fixed cloud by TILE_J rows of the moving one (`core/cloud.block_bounds`).
+
+Clouds on a leading lane axis ([B, N, *] and [B, M, *], one ell a lane)
+give the B pairs' Mom [B, M, 35] and nnz [B] in one launch, as JAX's
+vmap gives the Pallas kernel a lane axis in its grid (the batched loop
+of `parallel.align_batched`); each lane is the bits of the one-pair call
+on it, and a lane that `live` marks False is not swept (zeros).
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from cvo_rgbd_torch.core.numerics import gram_exp
 from cvo_rgbd_torch.core.step_factored import NUM_MONO
 from cvo_rgbd_torch.ops import _build
 from cvo_rgbd_torch.ops.gram import (
+    MAX_LANES,
     S_D2_C_THRES,
     S_D2_THRES,
     S_INV_2L2,
@@ -141,73 +148,150 @@ def sweep_scratch(n: int, m: int) -> dict:
     return {"part": (nbi, NUM_MONO, m), "count": (nbi, m // TILE_J)}
 
 
-def fused_moments(xp, xf, xm, yp, yf, ym, phi, ell, ck=None, min_d2=None,
-                  *, p):
-    """Returns (Mom [M, 35] f32, nnz 0-dim f32).
+def fused_moments_plain_batched(xp, xf, xm, yp, yf, ym, phi, scal, ck=None,
+                                min_d2=None, linear=False, fast=False,
+                                live=None):
+    """The plain version on a lane axis: `fused_moments_plain` lane by
+    lane with the lane's scalar row, zeros for a lane that `live` marks
+    False (the kernel sweeps no frozen lane)."""
+    moms, nnzs = [], []
+    for b in range(xp.shape[0]):
+        if live is not None and not bool(live[b]):
+            moms.append(xp.new_zeros((yp.shape[-2], NUM_MONO)))
+            nnzs.append(xp.new_zeros(()))
+            continue
+        mom, nnz = fused_moments_plain(
+            xp[b], xf[b], xm[b], yp[b], yf[b], ym[b], phi[b], scal[b],
+            None if ck is None else ck[b],
+            None if min_d2 is None else min_d2[b], linear, fast)
+        moms.append(mom)
+        nnzs.append(nnz)
+    return torch.stack(moms), torch.stack(nnzs)
 
-    `xp`/`yp` are the CENTERED positions (x - c0, y - c0); `phi` is
-    core.step_factored.monomial_features(x - c0) [N, 35]; `ell` a 0-dim
-    f32 tensor; `ck` the color_gram cache or None (recompute), in linear
-    color mode the masked ci (required); `min_d2` [N/TILE_I, M/TILE_J]
-    tile bounds or None (no skip)."""
-    linear = linear_mode("fused_moments", p, ck)
-    check_cloud("fused_moments", xp, xf, xm)
-    check_cloud("fused_moments", yp, yf, ym)
-    n, m = xp.shape[0], yp.shape[0]
+
+def _check_shapes(xp, yp, phi, ell, ck, min_d2, live):
+    """Raise unless the inputs are one pair's or B lanes' (a leading
+    lane axis on every tensor, ell and live [B])."""
+    lead = xp.shape[:-2]
+    if yp.shape[:-2] != lead:
+        raise ValueError(f"fused_moments: lanes {tuple(lead)} and "
+                         f"{tuple(yp.shape[:-2])} differ")
+    n, m = xp.shape[-2], yp.shape[-2]
     if n % TILE_I or m % TILE_J:
         raise ValueError(
             f"fused_moments: capacities must be multiples of {TILE_I} and "
             f"{TILE_J}, got {n} and {m}"
         )
-    if phi.shape != (n, NUM_MONO):
-        raise ValueError(f"fused_moments: phi must be [{n}, {NUM_MONO}]")
-    if ck is not None and ck.shape != (n, m):
-        raise ValueError(f"fused_moments: ck must be [{n}, {m}]")
-    if min_d2 is not None and min_d2.shape != (n // TILE_I, m // TILE_J):
+    if phi.shape != (*lead, n, NUM_MONO):
+        raise ValueError(f"fused_moments: phi must be [{n}, {NUM_MONO}]"
+                         f"{' a lane' if lead else ''}")
+    if ck is not None and ck.shape != (*lead, n, m):
+        raise ValueError(f"fused_moments: ck must be [{n}, {m}]"
+                         f"{' a lane' if lead else ''}")
+    if min_d2 is not None and min_d2.shape != (
+            *lead, n // TILE_I, m // TILE_J):
         raise ValueError(
             f"fused_moments: min_d2 must be [{n // TILE_I}, {m // TILE_J}]"
+            f"{' a lane' if lead else ''}"
         )
+    if tuple(ell.shape) != tuple(lead):
+        raise ValueError(f"fused_moments: ell must be one a lane, "
+                         f"{tuple(lead)}, got {tuple(ell.shape)}")
+    if live is not None and (not lead or live.shape != lead
+                             or live.dtype != torch.bool):
+        raise ValueError("fused_moments: live must be a bool flag a lane")
+    if len(lead) > 1 or (lead and lead[0] > MAX_LANES):
+        raise ValueError(f"fused_moments: one lane axis of at most "
+                         f"{MAX_LANES} lanes, got {tuple(lead)}")
+
+
+def fused_moments(xp, xf, xm, yp, yf, ym, phi, ell, ck=None, min_d2=None,
+                  *, p, live=None):
+    """Returns (Mom [M, 35] f32, nnz 0-dim f32), or on a lane axis
+    (Mom [B, M, 35], nnz [B]).
+
+    `xp`/`yp` are the CENTERED positions (x - c0, y - c0); `phi` is
+    core.step_factored.monomial_features(x - c0) [N, 35]; `ell` a 0-dim
+    f32 tensor; `ck` the color_gram cache or None (recompute), in linear
+    color mode the masked ci (required); `min_d2` [N/TILE_I, M/TILE_J]
+    tile bounds or None (no skip).  With a leading lane axis B on every
+    cloud tensor, `phi`, `ck` and `min_d2`, `ell` is [B] and `live` an
+    optional [B] bool: a False lane is not swept and gets zeros."""
+    linear = linear_mode("fused_moments", p, ck)
+    check_cloud("fused_moments", xp, xf, xm, lanes=True)
+    check_cloud("fused_moments", yp, yf, ym, lanes=True)
+    _check_shapes(xp, yp, phi, ell, ck, min_d2, live)
     dev = xp.device
     scal = scalars(ell, p)
     if dev.type == "cpu":
+        if xp.dim() == 3:
+            return fused_moments_plain_batched(
+                xp, xf, xm, yp, yf, ym, phi, scal, ck, min_d2, linear,
+                fast_exp(p), live)
         return fused_moments_plain(xp, xf, xm, yp, yf, ym, phi, scal, ck,
                                    min_d2, linear, fast_exp(p))
     if dev.type != "cuda":
         raise ValueError(f"fused_moments: unsupported device {dev}")
     return fused_moments_cuda(xp, xf, xm, yp, yf, ym, phi, scal, ck, min_d2,
-                              linear, fast_exp(p))
+                              linear, fast_exp(p), live)
 
 
 def fused_moments_cuda(xp, xf, xm, yp, yf, ym, phi, scal, ck=None,
-                       min_d2=None, linear=False, fast=False):
+                       min_d2=None, linear=False, fast=False, live=None):
     """Launch csrc/fused_moments.cu on CUDA tensors (shapes checked by
-    `fused_moments`); counts one launch in `fused_moments.launches`."""
+    `fused_moments`): one launch for one pair (scal [8]), counted in
+    `fused_moments.launches`, or for the B lanes of [B, ...] inputs
+    (scal [B, 8], `live` [B] bool or None), counted in
+    `fused_moments.lanes.launches`."""
     dev = xp.device
     opt = tuple(t for t in (ck, min_d2) if t is not None)
     check_inputs("fused_moments", (xp, xf, xm, yp, yf, ym, phi, scal) + opt,
                  dev)
-    # the kernel copies phi rows and ck tiles in 16-byte pieces
+    # the kernel copies phi rows and ck tiles in 16-byte pieces (a lane's
+    # slices start 16-byte aligned: N is a multiple of TILE_I)
     if phi.data_ptr() % 16 or (ck is not None and ck.data_ptr() % 16):
         raise ValueError("fused_moments: phi and ck must be 16-byte aligned")
-    n, m = xp.shape[0], yp.shape[0]
+    lead = xp.shape[:-2]
+    b = lead[0] if lead else 1
+    if scal.shape != (*lead, 8):
+        raise ValueError(f"fused_moments: scal must be [{b}, 8] for {b} "
+                         "lanes" if lead else "fused_moments: scal must be [8]")
+    if live is not None and (live.device != dev or live.dtype != torch.bool
+                             or live.shape != (b,)
+                             or not live.is_contiguous()):
+        raise ValueError(f"fused_moments: live must be a contiguous [{b}] "
+                         f"bool tensor on {dev}")
+    n, m = xp.shape[-2], yp.shape[-2]
     shapes = sweep_scratch(n, m)
-    part = torch.empty(shapes["part"], dtype=torch.float32, device=dev)
-    cnt_part = torch.empty(shapes["count"], dtype=torch.int32, device=dev)
-    mom = torch.empty((m, NUM_MONO), dtype=torch.float32, device=dev)
-    nnz = torch.empty((1,), dtype=torch.float32, device=dev)
+    part = torch.empty((*lead, *shapes["part"]), dtype=torch.float32,
+                       device=dev)
+    cnt_part = torch.empty((*lead, *shapes["count"]), dtype=torch.int32,
+                           device=dev)
+    mom = torch.empty((*lead, m, NUM_MONO), dtype=torch.float32, device=dev)
+    nnz = torch.empty((b,), dtype=torch.float32, device=dev)
     launch = _build.entry("fused_moments")
     err = launch(
         xp.data_ptr(), xf.data_ptr(), xm.data_ptr(),
         yp.data_ptr(), yf.data_ptr(), ym.data_ptr(), phi.data_ptr(),
         None if ck is None else ck.data_ptr(),
         None if min_d2 is None else min_d2.data_ptr(),
-        scal.data_ptr(), part.data_ptr(), cnt_part.data_ptr(),
-        mom.data_ptr(), nnz.data_ptr(), n, m, int(linear), int(fast),
+        scal.data_ptr(), None if live is None else live.data_ptr(),
+        part.data_ptr(), cnt_part.data_ptr(),
+        mom.data_ptr(), nnz.data_ptr(), n, m, int(linear), int(fast), b,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check("fused_moments", err)
-    fused_moments.launches += 1
-    return mom, nnz[0]
+    (fused_moments.lanes if lead else fused_moments).launches += 1
+    return mom, (nnz if lead else nnz[0])
+
+
+class LaunchCount:
+    """The launch count of one form of a kernel, beside its wrapper's."""
+
+    def __init__(self):
+        self.launches = 0
 
 
 fused_moments.launches = 0
+# the launches on a lane axis (one a batch), apart from the one-pair ones
+fused_moments.lanes = LaunchCount()

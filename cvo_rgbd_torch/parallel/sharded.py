@@ -58,9 +58,11 @@ from cvo_rgbd_torch.core.moments import flow_from_moments, step_from_moments
 from cvo_rgbd_torch.core.registration import (
     CHECK_EVERY,
     AlignResult,
+    batched_loop,
     check_supported,
     init_state,
     integrate,
+    lane_pre,
     prepare_batch,
     route,
 )
@@ -612,11 +614,15 @@ def align_batched(p, fixed_batch: PointCloud, moving_batch: PointCloud,
       padding, and on "kernel" the kd-sort, lane by lane in one call),
       the kernel backend's color caches are built for all the lanes in
       one `color_gram` launch a cache (`prepare_batch`; three for exact
-      and cheb acvo), and the lanes run one after another through the
-      compiled align loop (`core/compiled.run_compiled`, one compiled
-      align for every lane of a key, graph replays on the card).  Each
-      lane's result is the bits of `align` on its pair; the kernels of
-      the loop launch once a lane an iteration.
+      and cheb acvo).  The kernel backend's moment step then runs the
+      batch as ONE compiled loop (`core/compiled.run_compiled` on the
+      stacked state, `registration.make_batched_step`): one
+      `fused_moments` launch an iteration sweeps every lane that has not
+      converged, until the slowest lane converges.  The direct step and
+      the dense backend run the lanes one after another through the
+      compiled align loop, every lane of a key through one compiled
+      align.  Either way each lane's result is the bits of `align` on
+      its pair.
 
     With a `mesh`, the lanes shard over its `dp_axis` (B must divide by
     its size): each dp rank registers its B/dp lanes as above, on its
@@ -647,11 +653,17 @@ def align_batched(p, fixed_batch: PointCloud, moving_batch: PointCloud,
     p, fixed, moving = route(p, fixed_batch.to(dev), moving_batch.to(dev))
     if p.backend == "fused":
         return align_fused_batched(p, fixed, moving, *warm)
-    R0, T0, ell0 = ([None if w is None else w[i] for i in
-                     range(fixed.positions.shape[0])] for w in warm)
+    B = fixed.positions.shape[0]
+    pre = prepare_batch(p, fixed, moving,
+                        [None if ell0 is None else ell0[i] for i in range(B)])
+    if batched_loop(p):
+        return run_compiled(p, fixed, moving, pre,
+                            init_state(p, dev, R0, T0, ell0, lanes=B))
+    R0, T0, ell0 = ([None if w is None else w[i] for i in range(B)]
+                    for w in warm)
     lanes = [
-        run_compiled(p, fixed.lane(i), moving.lane(i), pre,
+        run_compiled(p, fixed.lane(i), moving.lane(i), lane_pre(pre, i),
                      init_state(p, dev, R0[i], T0[i], ell0[i]))
-        for i, pre in enumerate(prepare_batch(p, fixed, moving, ell0))
+        for i in range(B)
     ]
     return AlignResult(*(torch.stack(field) for field in zip(*lanes)))

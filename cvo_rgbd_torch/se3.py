@@ -5,7 +5,9 @@ function works on a leading batch shape and takes the small-angle
 branches with `torch.where`, as the JAX package does, so no value
 leaves the device.  The 3x3 products run as fp32 matmuls; the align
 entry points pin full fp32 (`device.pin_fp32`), since TF32 roughness in
-the R @ dR chain stalls the loop above the C++ stops.
+the R @ dR chain stalls the loop above the C++ stops.  The functions of
+the align loop take its matmul as `mm`: the batched loop passes
+`core.lanes.lane_matmul`, which multiplies lane by lane.
 
 One reference quirk is kept on purpose: `exp_sek3(v, dt)` with
 theta < TOLERANCE uses Jl = I, not dt*I (LieGroup.cpp:168-170).
@@ -80,11 +82,11 @@ def left_jacobian_so3(w: torch.Tensor) -> torch.Tensor:
     return _eye(w, A.shape) + _col(a) * A + _col(b) * A2
 
 
-def left_jacobian_inv_so3(w: torch.Tensor) -> torch.Tensor:
+def left_jacobian_inv_so3(w: torch.Tensor, mm=torch.matmul) -> torch.Tensor:
     """Inverse SO(3) left Jacobian (LieGroup.cpp:61-69)."""
     th_s, th2, small = _safe_theta(w)
     A = skew(w)
-    A2 = A @ A
+    A2 = mm(A, A)
     # 1/t^2 - (1+cos t)/(2 t sin t); Taylor -> 1/12 + t^2/720
     c = 1.0 / (th_s * th_s) - (1.0 + torch.cos(th_s)) / (
         2.0 * th_s * torch.sin(th_s)
@@ -132,13 +134,14 @@ def log_se3(X: torch.Tensor) -> torch.Tensor:
     return torch.cat([w, u], dim=-1)
 
 
-def se3_inv(R: torch.Tensor, t: torch.Tensor):
+def se3_inv(R: torch.Tensor, t: torch.Tensor, mm=torch.matmul):
     """[R', -R't] — the reference's `update_tf` (cvo.cpp:83-87)."""
     Rt = R.transpose(-1, -2)
-    return Rt, -(Rt @ t[..., None])[..., 0]
+    return Rt, -mm(Rt, t[..., None])[..., 0]
 
 
-def exp_sek3(omega: torch.Tensor, v: torch.Tensor, dt: torch.Tensor):
+def exp_sek3(omega: torch.Tensor, v: torch.Tensor, dt: torch.Tensor,
+             mm=torch.matmul):
     """Scaled SE(3) exponential — the flow integrator (LieGroup.cpp:159-186).
 
     Returns (dR, dT) with dR = exp(dt * skew(omega)) and
@@ -146,7 +149,7 @@ def exp_sek3(omega: torch.Tensor, v: torch.Tensor, dt: torch.Tensor):
     dt = torch.as_tensor(dt, dtype=omega.dtype, device=omega.device)
     th_s, _, small = _safe_theta(omega)
     A = skew(omega)
-    A2 = A @ A
+    A2 = mm(A, A)
     eye = _eye(omega, A.shape)
     th2 = th_s * th_s
     st = torch.sin(dt * th_s)
@@ -160,14 +163,14 @@ def exp_sek3(omega: torch.Tensor, v: torch.Tensor, dt: torch.Tensor):
     )
     R = torch.where(_col(small), eye, R)
     Jl = torch.where(_col(small), eye, Jl)
-    return R, (Jl @ v[..., None])[..., 0]
+    return R, mm(Jl, v[..., None])[..., 0]
 
 
-def dist_se3(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+def dist_se3(R: torch.Tensor, t: torch.Tensor, mm=torch.matmul) -> torch.Tensor:
     """Frobenius norm of the SE(3) matrix log (cvo.cpp:71-81):
     sqrt(2 |w|^2 + |u|^2), w = log_so3(R), u = Jl^{-1}(w) t."""
     w = log_so3(R)
-    u = (left_jacobian_inv_so3(w) @ t[..., None])[..., 0]
+    u = mm(left_jacobian_inv_so3(w, mm), t[..., None])[..., 0]
     return torch.sqrt(2.0 * torch.sum(w * w, dim=-1) + torch.sum(u * u, dim=-1))
 
 

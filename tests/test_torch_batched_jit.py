@@ -150,9 +150,11 @@ CASES = {
 def test_compiled_lanes_are_the_bits_of_align(case, monkeypatch):
     """(c) Lanes of different pairs (one retired): every lane `align`'s
     bits on its pair; all lanes through one compiled align, one block a
-    CHECK_EVERY iterations started; on the kernel backend one
-    `color_gram` call a batch for cvo, three for acvo, each on the lane
-    axis, and none on the dense one."""
+    CHECK_EVERY iterations started (on the kernel backend one loop for
+    the batch, its blocks those of the slowest lane; on the dense one
+    the lanes' blocks in turn); on the kernel backend one `color_gram`
+    call a batch for cvo, three for acvo, each on the lane axis, and
+    none on the dense one."""
     p = CASES[case]
     xs, ys = _lanes([(200, 256), (256, 256), (150, 256)], empty_lane=True)
     compiled.align_jit.cache_clear()
@@ -166,8 +168,9 @@ def test_compiled_lanes_are_the_bits_of_align(case, monkeypatch):
     acvo = isinstance(p, ct.AcvoParams)
     assert spy.lanes == ([3] * (3 if acvo else 1) if kernel else [])
     assert len(compiled.CACHE) == 1
-    assert blocks == sum(math.ceil((int(k) + 1) / treg.CHECK_EVERY)
-                         for k in res.iterations)
+    lane_blocks = [math.ceil((int(k) + 1) / treg.CHECK_EVERY)
+                   for k in res.iterations]
+    assert blocks == (max(lane_blocks) if kernel else sum(lane_blocks))
     for i in range(3):
         _assert_same(_lane(res, i), ct.align(p, xs[i], ys[i], device="cpu"))
     assert int(res.iterations[0]) > 0 and int(res.iterations[2]) == 0
@@ -212,11 +215,11 @@ def test_warm_start_lanes_with_a_transposed_r0(backend):
 
 
 def test_odometry_batched_runs_through_the_compiled_loop(tmp_path):
-    """(e) run_odometry_batched on the kernel backend: every lane, the
-    repeat-padded one of the last chunk included, one block a
-    CHECK_EVERY iterations started, and the trajectory the cold
-    sequential driver's (its pairs through `align_jit`, the bits of
-    `align`), line for line."""
+    """(e) run_odometry_batched on the kernel backend: every chunk, the
+    repeat-padded last one included, one batched loop, one block a
+    CHECK_EVERY iterations of its slowest lane started, and the
+    trajectory the cold sequential driver's (its pairs through
+    `align_jit`, the bits of `align`), line for line."""
     (tmp_path / "tum").mkdir()
     folder = make_parallax_folder(tmp_path / "tum")
     p = ct.CvoParams(**FAST)
@@ -229,8 +232,8 @@ def test_odometry_batched_runs_through_the_compiled_loop(tmp_path):
     iters = [r.iterations for r in recs]
     assert len(recs) == 5 and not any(r.failed for r in recs)
     # chunks (0, 1), (2, 3), (4, 4): the last pair runs twice
-    assert blocks == sum(math.ceil((k + 1) / treg.CHECK_EVERY)
-                         for k in iters + iters[-1:])
+    assert blocks == sum(math.ceil((max(iters[c:c + 2]) + 1)
+                                   / treg.CHECK_EVERY) for c in (0, 2, 4))
     todometry.run_odometry(str(folder), 1, output=str(tmp_path / "seq.txt"),
                            warm_start=False, **kw)
     seq = read_trajectory(tmp_path / "seq.txt")

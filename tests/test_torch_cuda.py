@@ -1901,8 +1901,11 @@ def test_batched_color_gram_refuses_too_many_lanes(dev):
 def test_align_batched_compiled_lanes_on_the_card(dev, algo):
     """align_batched on the kernel (and dense) backend: each lane the
     bits of `align` on its pair on the card (warm-started from a
-    transposed view of R0 in the last case), one compiled align for the
-    lanes, graph replays, and one color_gram launch a cache a batch."""
+    transposed view of R0 in the last case), one compiled loop for the
+    batch on the kernel backend (the slowest lane's graph replays, one
+    `fused_moments` launch a batch an iteration) and one compiled align
+    for the dense lanes (their replays in turn), and one color_gram
+    launch a cache a batch."""
     import math
 
     import cvo_rgbd_torch as ct
@@ -1928,18 +1931,101 @@ def test_align_batched_compiled_lanes_on_the_card(dev, algo):
                 torch.full((3, 3), 0.002, device=dev),
                 torch.full((3,), 0.1, device=dev)]
         assert warm[0][0].stride() == (1, 3)
+    from cvo_rgbd_torch.ops import moments
+
     launches = gram.color_gram.launches
+    lane_launches = moments.fused_moments.lanes.launches
+    one_pair = moments.fused_moments.launches
     replays = compiled.align_jit.replays
+    warmups = compiled.align_jit.warmups
     R0, T0, ell0 = warm
     res = align_batched(p, xs, ys, R0=R0, T0=T0, ell0=ell0)
     torch.cuda.synchronize()
     want = 0 if p.backend == "dense" else (3 if "acvo" in algo else 1)
     assert gram.color_gram.launches - launches == want
-    assert compiled.align_jit.replays - replays == sum(
-        math.ceil((int(k) + 1) / 8) for k in res.iterations)
-    assert len([k for k in compiled.CACHE
-                if k[0] == p and k[1:3] == (3072, 3072)]) == 1
+    blocks = [math.ceil((int(k) + 1) / 8) for k in res.iterations]
+    replayed = compiled.align_jit.replays - replays
+    if p.backend == "dense":
+        assert replayed == sum(blocks)
+    else:
+        assert replayed == max(blocks)
+        # the captures' eager warm-up blocks launch too
+        assert moments.fused_moments.lanes.launches - lane_launches \
+            == 8 * replayed + compiled.align_jit.warmups - warmups
+        assert moments.fused_moments.launches == one_pair
+    # one compiled loop for the batch (kernel) or for its lanes (dense)
+    lanes = () if p.backend == "dense" else (3,)
+    assert len([k for k in compiled.CACHE if k[0] == p and k[1:3] == (
+        3072, 3072) and k[-1] == lanes]) == 1
     for i, (x, y) in enumerate(pairs):
         ref = ct.align(p, x, y, *(None if w is None else w[i] for w in warm))
         for f in _JIT_FIELDS:
             assert torch.equal(getattr(res, f)[i], getattr(ref, f)), (i, f)
+
+
+@pytest.mark.parametrize("mode", ["ck", "no ck", "linear", "fast"])
+def test_batched_fused_moments_lanes_are_one_pair_launches(dev, mode):
+    """fused_moments on a lane axis (one launch, counted apart from the
+    one-pair launches): every lane the bits of the one-pair launch on it
+    and within 1e-4 of its plain version (nnz exact; fast: within the
+    near-gate pairs), a frozen lane zeros and the others unchanged."""
+    from cvo_rgbd_torch.core.cloud import (
+        aabb_min_d2,
+        block_bounds,
+        stack_clouds,
+    )
+    from cvo_rgbd_torch.core.registration import build_moments_pre
+    from cvo_rgbd_torch.ops import gram, moments
+    from cvo_rgbd_torch.params import MATLAB_PARAMS, CvoParams
+
+    linear = mode == "linear"
+    p = MATLAB_PARAMS if linear else CvoParams(
+        exp_mode="fast" if mode == "fast" else "precise")
+    xs, ys, cks = [], [], []
+    for s in range(3):
+        if linear:
+            x, y, ci = _linear_clouds(dev, seed=40 + s)
+            x, y = _padded(x), _padded(y)
+        else:
+            x, y = _clouds(dev, seed=40 + s)
+            ci = gram.color_gram(*x, *y, p=p)
+        xs.append(x)
+        ys.append(y)
+        cks.append(ci)
+    x, y = stack_clouds(xs), stack_clouds(ys)
+    ck = torch.stack(cks) if mode != "no ck" else None
+    c0 = torch.stack([build_moments_pre(c)[0] for c in xs])
+    phi = torch.stack([build_moments_pre(c)[2] for c in xs])
+    xc = x.positions - c0[:, None, :]
+    yc = y.positions - c0[:, None, :]
+    md = aabb_min_d2(*block_bounds(x.positions, x.mask, moments.TILE_I),
+                     *block_bounds(y.positions, y.mask, moments.TILE_J))
+    scal = gram.scalars(torch.tensor([0.1, 0.06, 0.03], device=dev), p)
+    args = (xc, x.features, x.mask, yc, y.features, y.mask, phi, scal)
+    kw = dict(linear=linear, fast=mode == "fast")
+    lanes0 = moments.fused_moments.lanes.launches
+    one0 = moments.fused_moments.launches
+    mom, nnz = moments.fused_moments_cuda(*args, ck, md, **kw)
+    torch.cuda.synchronize()
+    assert moments.fused_moments.lanes.launches == lanes0 + 1
+    assert moments.fused_moments.launches == one0
+    for i in range(3):
+        lane = tuple(a[i] for a in args)
+        ck_i = None if ck is None else ck[i]
+        one, one_nnz = moments.fused_moments_cuda(*lane, ck_i, md[i], **kw)
+        assert torch.equal(mom[i], one) and float(nnz[i]) == float(one_nnz)
+        ref, ref_nnz = moments.fused_moments_plain(*lane, ck_i, md[i], **kw)
+        scale = ref.abs().amax(dim=0).clamp_min(1e-30)
+        assert ((mom[i] - ref).abs() / scale).max().item() <= 1e-4
+        if mode == "fast":
+            near = moments.near_gate_pairs(*lane[:6], lane[7], ck_i)
+            assert abs(float(nnz[i]) - float(ref_nnz)) <= near
+        else:
+            assert float(nnz[i]) == float(ref_nnz) > 0
+    live = torch.tensor([True, False, True], device=dev)
+    part, part_nnz = moments.fused_moments_cuda(*args, ck, md, live=live,
+                                                **kw)
+    assert not part[1].any() and float(part_nnz[1]) == 0.0
+    for i in (0, 2):
+        assert torch.equal(part[i], mom[i])
+        assert float(part_nnz[i]) == float(nnz[i])
