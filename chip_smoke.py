@@ -97,7 +97,7 @@ and prints no result line):
    the fused backend (cvo and acvo, 3072, tiled) and on the kernel
    backend (cvo and acvo: one `color_gram` launch a batch, three for
    acvo, the batch as one compiled loop with one `fused_moments` launch
-   a batch iteration and, for acvo, one `fused_wsq` launch a lane an
+   a batch iteration and, for acvo, one `fused_wsq` launch a batch
    iteration, the trajectory the cold sequential run's, pose for pose),
    each against `run_odometry_frames(warm_start=False)` in the same run,
    and `run_multiseq` over the render written as a TUM folder and a
@@ -109,11 +109,20 @@ and prints no result line):
    lanes in MATLAB's linear mode) and in the fast form at 8b's: one
    launch against its plain version lane by lane, every lane the bits of
    the one-pair launch, a frozen lane not swept, timed beside the B
-   one-pair launches; 8e. `align_batched` on the kernel backend, one
-   compiled loop a batch, at 8b's batch (cvo, exact and cheb acvo, fast
-   cvo) and at 8's (linear): one `fused_moments` launch a batch
-   iteration, every lane the bits of `align_jit` on its pair, pairs/s
-   against the pairs one by one;
+   one-pair launches; 8f. `fused_wsq` with a lane axis (row 3b): exact
+   acvo's two self-sweeps of every lane at 8b's batch (precise and fast)
+   and at 8's (63 x 384), and 8b's Chebyshev tables (9 lanes x 24
+   sweeps): one launch against its plain version, every lane the bits
+   of its one-pair launch, a frozen lane not swept, timed beside the B
+   one-pair launches, with the 63-lane launch's fixed cost (no lane
+   live, one lane live); 8e. `align_batched` as one compiled loop a
+   batch, at 8b's batch (kernel cvo, exact and cheb acvo, fast cvo;
+   dense cvo and exact acvo at the MATLAB stops) and at 8's (linear on
+   the kernel and the dense backend): one `fused_moments` launch a batch
+   iteration, exact acvo one `fused_wsq` launch a batch iteration (cheb
+   one a batch), the dense runs none, every lane the bits of
+   `align_jit` on its pair, pairs/s against the pairs one by one, the
+   dense batches' peak device memory;
 9. keyframe SLAM over a 40-frame path along the optical axis and back
    (`synth.depth_loop_path`), written as .pcd: `python -m
    cvo_rgbd_torch.cli slam` (MATLAB_PARAMS, kernel backend, its aligns
@@ -179,7 +188,9 @@ launches those of phases 8 and 8b; `color_gram_batched`: 8c's 9 x 3072
 batch, its launches those of the kernel backend's batched drivers in 8b,
 8e and 12a; `fused_moments_batched`: 8d's 9 x 3072 batch, its launches
 those of the same runs, one a batch iteration, which `fused_moments`'s
-row no longer counts; the "<kernel>/fast" rows: phase 3f,
+row no longer counts; `fused_wsq_batched`: 8f's 9 x 3072 batch, its
+launches those of the kernel backend's acvo batches in 8b and 8e, which
+`fused_wsq`'s row no longer counts; the "<kernel>/fast" rows: phase 3f,
 each max_abs_err the worst of every case it checks, their launches
 those of phase 9's fast runs); the last line is
 {"ok": true, "device": {...}}.
@@ -239,6 +250,13 @@ LANE_GRAM = "color_gram_batched"
 # launch a batch an iteration): its launches are counted apart from the
 # one-pair launches (`fused_moments.lanes`), those of phases 8b and 12a
 LANE_MOM = "fused_moments_batched"
+# fused_wsq on a lane axis (exact acvo's self-sweeps of a batch an
+# iteration, a batch's Chebyshev tables): its launches are those of the
+# kernel backend's acvo batches, which count in `fused_wsq.launches`
+LANE_WSQ = "fused_wsq_batched"
+# 8e's dense batches run at the MATLAB stops: at the C++ stops exact
+# acvo's three [9, 3072, 3072] Grams an iteration take the script's time
+DENSE_STOPS = dict(eps=5e-4, eps_2=1e-4)
 # the exp_mode="fast" forms, one row each (color_gram has none)
 FAST = tuple(f"{k}/fast" for k in KERNELS[1:] + FUSED)
 FUSED_ITERS = (1, 3, 10)
@@ -1982,8 +2000,7 @@ def phase_batched_odometry(frames, p, adaptive, root=None):
               and launches[LANE_MOM] == iters and replays > 0
               and launches["fused_moments"] == 0
               and launches["align_fused"] == 0
-              and launches["fused_wsq"] == (iters * ODOM_BATCH if adaptive
-                                            else 0),
+              and launches["fused_wsq"] == (iters if adaptive else 0),
               f"batched odometry {name}: launched {launches}, {replays} "
               "replays")
         check(set(est) == set(seq_est) and gap == 0.0,
@@ -2210,21 +2227,204 @@ def phase_moments_batched(clouds, sets, p):
     return row
 
 
+def phase_wsq_batched(clouds_a, sets, pa):
+    """8f. `fused_wsq` with a lane axis (row 3b) on the batched loop's
+    inputs (`route` and `prepare_batch` on the stacks): exact acvo's two
+    self-sweeps of every lane at 8b's batch (the acvo render's 9 pairs at
+    3072, each lane at its own ell from ell_init to ell_min, the moving
+    clouds moved a little), in the precise and the fast form, and at 8's
+    (the coarse pcd pairs x LANE_REPEAT, 63 lanes at 384, features
+    padded); then 8b's Chebyshev tables (9 lanes x 2K sweeps, each lane
+    at its own nodes), as `prepare_batch` builds them.  One launch
+    against the plain version (wsq within 1e-4 relative, nnz exact;
+    fast: within the near-gate pairs), every lane the bits of its
+    one-pair launch (the tables: of `prepare` on the lane), a frozen lane
+    zeros and the others unchanged; the launch timed beside the B
+    one-pair launches and the plain version, with the bound; at 63 lanes
+    the fixed cost of the units' bookkeeping, the launch with no lane and
+    with one lane live.  Returns the kernel line's row: the 9 x 3072
+    precise batch's numbers, the worst error of the precise cases."""
+    import torch
+
+    from cvo_rgbd_torch.batch import pad_clouds
+    from cvo_rgbd_torch.core.cloud import stack_clouds
+    from cvo_rgbd_torch.core.registration import (
+        _self_sweeps,
+        lane_pre,
+        prepare,
+        prepare_batch,
+        route,
+    )
+    from cvo_rgbd_torch.ops import gram, moments, wsq
+
+    dev = torch.device("cuda")
+    tw = wsq.TILE_W
+    pcd = pad_clouds(sets[BATCH_GRID], dev)
+    cases = [("render", pa, clouds_a[:-1], clouds_a[1:], 1),
+             ("render/fast", fast_params(pa), clouds_a[:-1], clouds_a[1:], 1),
+             (f"pcd grid={BATCH_GRID}", pa, pcd[:-1], pcd[1:], LANE_REPEAT)]
+    row, err_all = None, 0.0
+    for name, q, xs, ys, repeat in cases:
+        fast = q.exp_mode == "fast"
+        q, x, y = route(q, stack_clouds(xs, repeat=repeat),
+                        stack_clouds(ys, repeat=repeat))
+        b, n = x.positions.shape[0], x.capacity
+        pre = prepare_batch(q, x, y, [None] * b)
+        y_pos = y.positions + torch.tensor([0.004, -0.002, 0.003],
+                                           device=dev)
+        sweeps = _self_sweeps(x, (y_pos, y.features, y.mask), pre.ck,
+                              pre.skip)
+        ell = torch.linspace(q.ell_init, q.ell_min, b, device=dev)
+        scal = gram.scalars(ell, q)
+        lanes = [[wsq.lane_sweep(sw, i) for sw in sweeps] for i in range(b)]
+
+        def batched(live=None):
+            return wsq.fused_wsq_sweeps_cuda(sweeps, scal, fast, live)
+
+        before = read_launches()
+        w, nz = batched()
+        torch.cuda.synchronize()
+        got = {k: v - before[k] for k, v in read_launches().items()}
+        ref_w, ref_n = wsq.fused_wsq_sweeps_plain(sweeps, scal, fast)
+        same = 0
+        for i, lane in enumerate(lanes):
+            w1, n1 = wsq.fused_wsq_sweeps_cuda(lane, scal[i], fast)
+            same += int(torch.equal(w[i], w1) and torch.equal(nz[i], n1))
+        err = (w - ref_w).abs().max().item()
+        rel = ((w - ref_w).abs() / ref_w.abs().clamp_min(1e-30)).max().item()
+        upper = torch.triu(torch.ones(n // tw, n // tw, dtype=torch.bool,
+                                      device=dev))
+        kept = gated = nbytes = worst_nnz = 0
+        for i, lane in enumerate(lanes):
+            thr = scal[i, gram.S_D2_THRES] + moments.SKIP_MARGIN
+            for k, sw in enumerate(lane):
+                kt = wsq.kept_prefix(sw.tiles.sorted, thr)
+                A = moments.pair_weights(*sw.x, *sw.y, scal[i], sw.ck,
+                                         fast=fast)
+                per_tile = (A > 0).reshape(n // tw, tw, n // tw, tw).sum(
+                    dim=(1, 3))
+                gated += int(per_tile[upper].sum().item())
+                kept += kt
+                nbytes += (n * 3 + kt * tw * tw + int(upper.sum().item())
+                           + 8 + 2) * 4
+                near = (moments.near_gate_pairs(*sw.x, *sw.y, scal[i],
+                                                sw.ck) if fast else 0)
+                worst_nnz = max(worst_nnz, abs(float(nz[i, k])
+                                               - float(ref_n[i, k])) - near)
+        live = torch.ones(b, dtype=torch.bool, device=dev)
+        live[1] = False
+        wl, nl = batched(live)
+        torch.cuda.synchronize()
+        frozen = (not wl[1].any().item() and not nl[1].any().item()
+                  and torch.equal(wl[0], w[0]) and torch.equal(nl[2:], nz[2:]))
+        ms = time_ms(batched)
+        # B host launches outlast SPIN_CYCLES at 63 lanes
+        singles_ms = time_ms(
+            lambda: [wsq.fused_wsq_sweeps_cuda(lane, scal[i], fast)
+                     for i, lane in enumerate(lanes)], spin=ALIGN_SPIN_CYCLES)
+        plain_ms = time_ms(
+            lambda: wsq.fused_wsq_sweeps_plain(sweeps, scal, fast),
+            runs=PLAIN_ALIGN_RUNS, warmup=PLAIN_ALIGN_WARMUP)
+        pairs = kept * tw * tw
+        b_ms, b_by = bound(nbytes, pairs * pair_ops(False, fast)
+                           + gated * OPS_WSQ_GATED)
+        fixed_note = ""
+        if b > ODOM_BATCH:
+            # the units' bookkeeping: no lane live (no loads, no tile);
+            # every lane live under scalar rows whose gate keeps no tile
+            # (each unit's kept-prefix search takes its first round of
+            # loads and stops); one lane live, against that lane's
+            # one-pair launch
+            none = torch.zeros(b, dtype=torch.bool, device=dev)
+            one = none.clone()
+            one[0] = True
+            shut = scal.clone()
+            shut[:, gram.S_D2_THRES] = -1.0
+            none_ms = time_ms(lambda: batched(none))
+            search_ms = time_ms(
+                lambda: wsq.fused_wsq_sweeps_cuda(sweeps, shut, fast))
+            one_ms = time_ms(lambda: batched(one))
+            pair_ms = time_ms(lambda: wsq.fused_wsq_sweeps_cuda(
+                lanes[0], scal[0], fast))
+            fixed_note = (f"; no lane live {none_ms:.4f} ms, every lane's "
+                          f"search alone (one round of loads, no tile) "
+                          f"{search_ms:.4f} ms, lane 0 alone live "
+                          f"{one_ms:.4f} ms, its one-pair launch "
+                          f"{pair_ms:.4f} ms")
+        log(f"8f fused_wsq {name}: {b} lanes x 2 sweeps x {n}, launches "
+            f"{got}, wsq err/|wsq| {rel:.3e} (tolerance 1e-4), max_abs_err="
+            f"{err:.3e}, nnz beyond the tolerance {worst_nnz} "
+            f"({'near-gate pairs' if fast else 'exact'}), lanes the one-pair "
+            f"launch's bits {same}/{b}, a frozen lane zeros and the others "
+            f"unchanged {frozen}; {ms:.4f} ms batched, {singles_ms:.4f} ms "
+            f"as {b} one-pair launches, plain {plain_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}); tiles kept {kept} of "
+            f"{2 * b * int(upper.sum().item())}, gated pairs {gated}"
+            + fixed_note)
+        check(got["fused_wsq"] == 1, f"8f fused_wsq {name}: launches {got}")
+        check(rel <= 1e-4 and worst_nnz <= 0 and bool((nz > 0).all()),
+              f"8f fused_wsq {name} disagrees with its plain version: "
+              f"{rel}, nnz {worst_nnz}")
+        check(same == b, f"8f fused_wsq {name}: {b - same} lanes are not "
+              "the one-pair launch's bits")
+        check(frozen, f"8f fused_wsq {name}: a frozen lane was swept or "
+              "moved the others")
+        if not fast:
+            err_all = max(err_all, err)
+        if row is None:
+            row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+    # the Chebyshev tables of 8b's batch: one launch for every lane's 2K
+    # sweeps, each lane's the bits of `prepare`'s on its pair
+    qc = dataclasses.replace(pa, self_mode="cheb")
+    qc, x, y = route(qc, stack_clouds(clouds_a[:-1]),
+                     stack_clouds(clouds_a[1:]))
+    b = x.positions.shape[0]
+    before = read_launches()
+    pre = prepare_batch(qc, x, y, [None] * b)
+    torch.cuda.synchronize()
+    got = {k: v - before[k] for k, v in read_launches().items()}
+    same = 0
+    for i in range(b):
+        one = prepare(qc, x.lane(i), y.lane(i)).cheb
+        lane = lane_pre(pre, i).cheb
+        same += int(torch.equal(lane[0], one[0]) and all(
+            torch.equal(u, v) for u, v in zip(lane[1], one[1])))
+    ms = time_ms(lambda: prepare_batch(qc, x, y, [None] * b),
+                 PLAIN_ALIGN_RUNS, PLAIN_ALIGN_WARMUP, ALIGN_SPIN_CYCLES)
+    singles_ms = time_ms(lambda: [prepare(qc, x.lane(i), y.lane(i))
+                                  for i in range(b)],
+                         PLAIN_ALIGN_RUNS, PLAIN_ALIGN_WARMUP,
+                         ALIGN_SPIN_CYCLES)
+    log(f"8f cheb tables: {b} lanes x {2 * qc.self_cheb_k} sweeps x "
+        f"{x.capacity}, launches {got}, lanes the bits of `prepare` "
+        f"{same}/{b}; prepare_batch {ms:.4f} ms, {b} prepare calls "
+        f"{singles_ms:.4f} ms")
+    check(got["fused_wsq"] == 1 and got["color_gram"] == 3,
+          f"8f cheb tables: launches {got}")
+    check(same == b, f"8f cheb tables: {b - same} lanes are not the bits "
+          "of `prepare`")
+    row["max_abs_err"] = err_all
+    return row
+
+
 def phase_batched_loop(clouds, clouds_a, sets, p, pa):
-    """8e. `align_batched` on the kernel backend as one compiled loop, at
-    8b's batch (the render's 9 pairs at 3072: cvo, exact acvo and cheb
-    acvo on the acvo clouds, and cvo in exp_mode="fast") and at 8's (the
-    coarse pcd pairs x LANE_REPEAT, 63 lanes at 384, MATLAB_PARAMS on
-    the kernel backend: linear color).  Each batch twice (the first call
-    captures), with the launch counts read around the second: one
-    `fused_moments` launch a batch iteration (every replay a block of
-    CHECK_EVERY iterations), no one-pair launch, for exact acvo one
-    `fused_wsq` launch a lane an iteration (cheb: one a lane for its
-    tables); every lane the bits of
-    `align_jit` on its pair (the pcd pairs each once, their repeats
-    held against it); host ms a batch iteration and pairs/s against the
-    pairs one by one through `align_jit` (graphs built).  Returns the
-    launches of the batched runs."""
+    """8e. `align_batched` as one compiled loop, at 8b's batch (the
+    render's 9 pairs at 3072: on the kernel backend cvo, exact acvo and
+    cheb acvo on the acvo clouds, and cvo in exp_mode="fast"; on the
+    dense backend cvo and exact acvo at DENSE_STOPS) and at 8's (the
+    coarse pcd pairs x LANE_REPEAT, 63 lanes at 384, MATLAB_PARAMS on the
+    kernel and the dense backend: linear color).  Each batch twice (the
+    first call captures), with the launch counts read around the second:
+    on the kernel backend one `fused_moments` launch a batch iteration
+    (every replay a block of CHECK_EVERY iterations), no one-pair launch,
+    for exact acvo one `fused_wsq` launch a batch iteration (cheb: one a
+    batch for its tables); the dense backend no kernel; every lane the
+    bits of `align_jit` on its pair (the pcd pairs each once, their
+    repeats held against it); host ms a batch iteration and pairs/s
+    against the pairs one by one through `align_jit` (graphs built); the
+    dense batches' peak device memory over the first call (the capture)
+    and the second.  Returns the launches of the batched runs."""
     import torch
 
     from cvo_rgbd_torch import align_jit
@@ -2241,7 +2441,13 @@ def phase_batched_loop(clouds, clouds_a, sets, p, pa):
               clouds_a, 1),
              ("cvo fast", fast_params(p), clouds, 1),
              (f"linear pcd grid={BATCH_GRID}", MATLAB_PARAMS, pcd,
-              LANE_REPEAT)]
+              LANE_REPEAT),
+             ("dense cvo", dataclasses.replace(p, backend="dense",
+                                               **DENSE_STOPS), clouds, 1),
+             ("dense acvo exact", dataclasses.replace(
+                 pa, backend="dense", **DENSE_STOPS), clouds_a, 1),
+             (f"dense linear pcd grid={BATCH_GRID}", dataclasses.replace(
+                 MATLAB_PARAMS, backend="dense"), pcd, LANE_REPEAT)]
 
     def run(fn):
         torch.cuda.synchronize()
@@ -2258,8 +2464,15 @@ def phase_batched_loop(clouds, clouds_a, sets, p, pa):
         xb = stack_clouds(cl[:-1], repeat=repeat)
         yb = stack_clouds(cl[1:], repeat=repeat)
         b, pairs = xb.positions.shape[0], len(cl) - 1
+        dense = q.backend == "dense"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
         _, dt_1, _, _ = run(lambda: align_batched(q, xb, yb))
+        peak_1 = torch.cuda.max_memory_allocated() - base
+        torch.cuda.reset_peak_memory_stats()
         res, dt, reps, got = run(lambda: align_batched(q, xb, yb))
+        peak = torch.cuda.max_memory_allocated() - base
         refs, _, _, _ = run(lambda: [align_jit(q, cl[i], cl[i + 1])
                                      for i in range(pairs)])
         _, dt_seq, _, _ = run(lambda: [align_jit(q, cl[i], cl[i + 1])
@@ -2269,9 +2482,9 @@ def phase_batched_loop(clouds, clouds_a, sets, p, pa):
                        for f in res._fields) for i in range(b))
         iters = reps * CHECK_EVERY
         slowest = int(res.iterations.max()) + 1
-        # exact acvo: both self-sweeps a lane an iteration; cheb: each
-        # lane's tables, one launch, built with `prepare`
-        wsq = {"exact": iters * b, "cheb": b}.get(
+        # exact acvo: both self-sweeps of every lane one launch an
+        # iteration; cheb: every lane's tables one launch
+        wsq = 0 if dense else {"exact": iters, "cheb": 1}.get(
             getattr(q, "self_mode", None), 0)
         log(f"8e batched loop {name}: {b} lanes x {xb.capacity}, "
             f"{reps} replays ({iters} batch iterations, the slowest lane "
@@ -2281,9 +2494,13 @@ def phase_batched_loop(clouds, clouds_a, sets, p, pa):
             f"batch iteration, {b / dt:.3f} pairs/s batched (first call "
             f"with capture {dt_1:.3f} s) against {pairs / dt_seq:.3f} "
             f"pairs/s one by one through align_jit ({dt_seq:.3f} s for "
-            f"{pairs} pairs)")
-        check(got[LANE_MOM] == iters and got["fused_moments"] == 0
-              and got["fused_wsq"] == wsq,
+            f"{pairs} pairs)"
+            + (f"; peak device memory above the inputs {peak_1} bytes over "
+               f"the first call (the capture), {peak} over the second"
+               if dense else ""))
+        check(got[LANE_MOM] == (0 if dense else iters)
+              and got["fused_moments"] == 0 and got["fused_wsq"] == wsq
+              and not (dense and any(got.values())),
               f"8e batched loop {name}: launches {got} for {reps} replays")
         check(same == b, f"8e batched loop {name}: {b - same} lanes are not "
               "the bits of align_jit")
@@ -3895,7 +4112,7 @@ def main():
     mark("4d (align_jit)")
 
     launches = {k: 0 for k in KERNELS + FUSED + BATCHED
-                + (LANE_GRAM, LANE_MOM, PROBE)}
+                + (LANE_GRAM, LANE_MOM, LANE_WSQ, PROBE)}
     runs = [(p, False, NUM_WANT), (pa, True, NUM_WANT)]
     runs += [(q, adaptive, nw) for nw in (NUM_WANT, RESIDENT_NUM_WANT)
              for q, adaptive in ((pf, False), (paf, True))]
@@ -3940,7 +4157,9 @@ def main():
         got = phase_batched_odometry(frames, q, adaptive, root)
         launches["align_fused_tiled_batched"] += got.pop("align_fused")
         launches[LANE_GRAM] += got.pop("color_gram")
-        for k in KERNELS[1:] + (LANE_MOM,):
+        launches[LANE_WSQ] += got.pop("fused_wsq")
+        for k in ("fused_moments", "fused_flow", "fused_step_coeffs",
+                  LANE_MOM):
             launches[k] += got[k]
     tmp8.cleanup()
     mark("8b (batched odometry)")
@@ -3952,10 +4171,15 @@ def main():
     # 8d. fused_moments's lane axis at the same two batches
     kernels[LANE_MOM] = phase_moments_batched(render, sets, p)
     mark("8d (fused_moments lanes)")
+    # 8f. fused_wsq's lane axis: exact acvo's self-sweeps at the same two
+    # batches, and a batch's Chebyshev tables
+    render_a = [fe_a(f[2], f[3]) for f in frames]
+    kernels[LANE_WSQ] = phase_wsq_batched(render_a, sets, pa)
+    mark("8f (fused_wsq lanes)")
     # 8e. the batched loop on every form it runs, lanes against align_jit
-    got = phase_batched_loop(render, [fe_a(f[2], f[3]) for f in frames],
-                             sets, p, pa)
+    got = phase_batched_loop(render, render_a, sets, p, pa)
     launches[LANE_GRAM] += got.pop("color_gram")
+    launches[LANE_WSQ] += got.pop("fused_wsq")
     _added(launches, got)
     mark("8e (the batched loop)")
 
@@ -4054,10 +4278,13 @@ def main():
                     "cvo_rgbd_tpu/ops/pallas_gram.py:401"),
         LANE_MOM: ("cvo_rgbd_torch/csrc/fused_moments.cu",
                    "cvo_rgbd_tpu/ops/pallas_moments.py:199"),
+        LANE_WSQ: ("cvo_rgbd_torch/csrc/fused_wsq.cu",
+                   "cvo_rgbd_tpu/ops/pallas_moments.py:320"),
         PROBE: ("cvo_rgbd_torch/csrc/construct_probe.cu",
                 "scripts/tpu_construct_probe.py:24"),
     }
-    names = KERNELS + FUSED + BATCHED + (LANE_GRAM, LANE_MOM, PROBE) + FAST
+    names = KERNELS + FUSED + BATCHED + (LANE_GRAM, LANE_MOM, LANE_WSQ,
+                                         PROBE) + FAST
     missing = [k for k in names if not launches[k]]
     check(not missing, f"kernels never launched on a main path: {missing}")
     rows = []

@@ -19,16 +19,18 @@ the pair, its `prepare` output and the warm state into the compiled
 object's static tensors; the graphs read only those.
 
 `parallel.align_batched` routes and prepares a batch of pairs at once
-(`prepare_batch`: one `color_gram` launch a cache for all the lanes).
-On the kernel backend's moment step the whole batch is one compiled
-loop here, the clouds, `pre` and the state on a leading lane axis
-(`registration.make_batched_step`): one `fused_moments` launch an
-iteration for the batch, the graphs captured once per (params, lanes,
+(`prepare_batch`: one `color_gram` launch a cache for all the lanes,
+one `fused_wsq` launch for acvo's Chebyshev tables).  On the dense
+backend and the kernel backend's moment step the whole batch is one
+compiled loop here, the clouds, `pre` and the state on a leading lane
+axis (`registration.make_batched_step`): on the kernel backend one
+`fused_moments` launch an iteration for the batch (and exact acvo's one
+`fused_wsq` launch), the graphs captured once per (params, lanes,
 capacities, device, layout), a replay read for `converged.all()`, so
 the batch runs until its slowest lane converges and a converged lane
-stays frozen.  The direct step and the dense backend run each lane
-through its one-pair compiled align, every lane of one key through one
-compiled align.
+stays frozen.  The kernel backend's direct step runs each lane through
+its one-pair compiled align, every lane of one key through one compiled
+align.
 
 The result is `align`'s bits: the graphs hold the same launches in the
 same order, and the kernels take no float atomics.  On the CPU
@@ -67,7 +69,7 @@ from cvo_rgbd_torch.core.registration import (
 from cvo_rgbd_torch.device import pin_fp32, resolve_device
 from cvo_rgbd_torch.ops.align_fused import align_fused
 from cvo_rgbd_torch.ops.gram import stream_tickets
-from cvo_rgbd_torch.ops.wsq import MAX_SWEEPS
+from cvo_rgbd_torch.ops.wsq import MAX_UNITS
 
 # the wrappers (and kernel forms) whose launches a graph holds
 COUNTED = (ops.color_gram, ops.fused_moments, ops.fused_moments.lanes,
@@ -139,7 +141,7 @@ class CompiledAlign:
             self.pool = torch.cuda.graph_pool_handle()
             # the capture stream's tickets, zero, held for the graphs
             with torch.cuda.stream(self.stream):
-                self.tickets, _ = stream_tickets(self.device, MAX_SWEEPS)
+                self.tickets, _ = stream_tickets(self.device, MAX_UNITS)
 
     def block(self, n):
         """`n` iterations of the body on the static state, in place."""
@@ -225,11 +227,11 @@ def run_compiled(p, fixed, moving, pre, state) -> AlignResult:
     clouds already routed, `pre` their `prepare` output, `state` from
     `init_state`; or on B pairs at once, the clouds stacked on a lane
     axis, `pre` from `prepare_batch` and `state` from `init_state(...,
-    lanes=B)` (the kernel backend's moment step).  The compiled align is
-    built on the key's first call.  The lanes of the direct step and the
-    dense backend come here one by one: a lane view of a contiguous
-    stack has the strides of a fresh tensor of its shape, and another
-    layout keys its own compiled align."""
+    lanes=B)` (the dense backend and the kernel backend's moment step).
+    The compiled align is built on the key's first call.  The lanes of
+    the kernel backend's direct step come here one by one: a lane view
+    of a contiguous stack has the strides of a fresh tensor of its
+    shape, and another layout keys its own compiled align."""
     dev = fixed.positions.device
     key = (p, fixed.capacity, moving.capacity, dev,
            _strides((fixed, moving, state)),

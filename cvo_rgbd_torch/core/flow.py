@@ -11,11 +11,19 @@ and for adaptive CVO (adaptive_cvo.cpp:154-272):
 
     sum_ij A_ij |x_i - y_j|^2
         = (A@1).|X|^2 + (1^T A).|Y|^2 - 2 sum_i x_i.(A @ Y)_i
+
+Each function also takes B pairs on a leading lane axis (A [B, N, M],
+the clouds [B, *, 3], ell [B]: the dense backend's batched loop): the
+elementwise ops run on the stack, the sums over a lane's points or
+pairs, the products and the dots lane by lane (`core/lanes.py`), so a
+lane is the bits of the one-pair call.
 """
 
 from __future__ import annotations
 
 import torch
+
+from cvo_rgbd_torch.core.lanes import by_lane, lane_matmul
 
 
 def flow(A, x_pos, y_pos, *, c, d):
@@ -25,17 +33,23 @@ def flow(A, x_pos, y_pos, *, c, d):
     of the flow below the C++ stop eps=5e-5.  A y is taken as row
     reductions, as in the JAX package, and the cross term is centered
     on the x mean (exact for any center)."""
-    row = torch.sum(A, dim=-1)
-    Ay = torch.stack(
-        [torch.sum(A * y_pos[..., None, :, k], dim=-1) for k in range(3)],
-        dim=-1,
-    )
+    lane = by_lane(A.dim() == 3)
+
+    def rows(t):
+        return lane(lambda a: torch.sum(a, dim=-1), t)
+
+    def points(t):
+        return lane(lambda a: torch.sum(a, dim=-2), t)
+
+    row = rows(A)
+    Ay = torch.stack([rows(A * y_pos[..., None, :, k]) for k in range(3)],
+                     dim=-1)
     r = Ay - row[..., None] * x_pos
-    r_sum = torch.sum(r, dim=-2)
+    r_sum = points(r)
     v = r_sum / d
-    c0 = torch.mean(x_pos, dim=-2, keepdim=True)
+    c0 = lane(lambda x: torch.mean(x, dim=-2, keepdim=True), x_pos)
     omega = (
-        torch.sum(torch.linalg.cross(x_pos - c0, r, dim=-1), dim=-2)
+        points(torch.linalg.cross(x_pos - c0, r, dim=-1))
         + torch.linalg.cross(c0.squeeze(-2), r_sum, dim=-1)
     ) / c
     return omega, v
@@ -43,18 +57,20 @@ def flow(A, x_pos, y_pos, *, c, d):
 
 def weighted_sqdist_sum(A, x_pos, y_pos):
     """sum_ij A_ij |x_i - y_j|^2, matmul-factored (fp32 pinned)."""
-    Ay = A @ y_pos
-    row = torch.sum(A, dim=-1)
-    col = torch.sum(A, dim=-2)
+    lane = by_lane(A.dim() == 3)
+    Ay = lane_matmul(A, y_pos)
+    row = lane(lambda a: torch.sum(a, dim=-1), A)
+    col = lane(lambda a: torch.sum(a, dim=-2), A)
     x2 = torch.sum(x_pos * x_pos, dim=-1)
     y2 = torch.sum(y_pos * y_pos, dim=-1)
-    return torch.dot(row, x2) + torch.dot(col, y2) - 2.0 * torch.sum(
-        x_pos * Ay)
+    return (lane(torch.dot, row, x2) + lane(torch.dot, col, y2)
+            - 2.0 * lane(torch.sum, x_pos * Ay))
 
 
 def nnz(A):
-    """Count of surviving (gated-in) kernel entries, int64."""
-    return torch.sum(A > 0)
+    """Count of surviving (gated-in) kernel entries, int64; one a lane
+    (an integer sum, exact in any order)."""
+    return torch.sum(A > 0, dim=(-2, -1))
 
 
 def adaptive_dl(A, Axx, Ayy, x_pos, y_pos, ell, *, num_fixed=None,
@@ -67,7 +83,7 @@ def adaptive_dl(A, Axx, Ayy, x_pos, y_pos, ell, *, num_fixed=None,
     `yy_quirk` reproduces the reference bug where Ayy rows i < num_fixed
     read a zero |diff_yy|^2 buffer (adaptive_cvo.cpp:190, 256), so Ayy
     enters the numerator only through rows [num_fixed, M); `num_fixed`
-    is then the valid fixed-point count."""
+    is then the valid fixed-point count (one a lane on a lane axis)."""
     ell3 = ell * ell * ell
     s_xy = weighted_sqdist_sum(A, x_pos, y_pos)
     s_xx = weighted_sqdist_sum(Axx, x_pos, x_pos)
@@ -75,8 +91,10 @@ def adaptive_dl(A, Axx, Ayy, x_pos, y_pos, ell, *, num_fixed=None,
         if num_fixed is None:
             raise ValueError("yy_quirk requires num_fixed")
         rows = torch.arange(y_pos.shape[-2], device=y_pos.device)
+        if torch.is_tensor(num_fixed) and num_fixed.dim():
+            num_fixed = num_fixed[:, None]
         keep = (rows >= num_fixed).to(Ayy.dtype)
-        s_yy = weighted_sqdist_sum(Ayy * keep[:, None], y_pos, y_pos)
+        s_yy = weighted_sqdist_sum(Ayy * keep[..., :, None], y_pos, y_pos)
     else:
         s_yy = weighted_sqdist_sum(Ayy, y_pos, y_pos)
     numer = (s_yy - 2.0 * s_xy + s_xx) / ell3

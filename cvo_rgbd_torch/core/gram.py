@@ -22,6 +22,13 @@ import torch
 from cvo_rgbd_torch.core.numerics import gram_exp
 
 
+def _lane_ell(ell, device):
+    """`ell` (a number, a 0-dim tensor or one a lane, [B]) as an f32
+    tensor on `device` that broadcasts against [B, N, M] Grams."""
+    ell = torch.as_tensor(ell, dtype=torch.float32).to(device)
+    return ell[..., None, None] if ell.dim() else ell
+
+
 def _log32(v, device):
     """log of a host constant, taken in fp32 as jnp.log does.  The
     constant is filled on the device (no host copy, so a CUDA graph can
@@ -45,11 +52,14 @@ def se_gram(x_pos, x_feat, x_mask, y_pos, y_feat, y_mask, ell, *, sigma,
             c_ell, c_sigma, sp_thres, c_sp_thres, fast_exp=False):
     """Masked dense A = (s^2 e^{-d2/2l^2}) * (cs^2 e^{-d2c/2cl^2}) with
     gated-out entries exactly 0 (cvo.cpp:99-161, adaptive_cvo.cpp:92-151).
-    `ell` a number or 0-dim tensor; no host sync."""
+    `ell` a number or 0-dim tensor; no host sync.  Clouds on a leading
+    lane axis give the [B, N, M] Grams of the B pairs, `ell` one a lane
+    ([B]); each lane is the bits of the one-pair call (elementwise ops
+    only)."""
     dev = x_pos.device
     s2 = sigma * sigma
     cs2 = c_sigma * c_sigma
-    ell = torch.as_tensor(ell, dtype=torch.float32).to(dev)
+    ell = _lane_ell(ell, dev)
     d2_thres = -2.0 * ell * ell * _log32(sp_thres / s2, dev)
     d2_c_thres = -2.0 * c_ell * c_ell * _log32(c_sp_thres / cs2, dev)
 
@@ -77,9 +87,9 @@ def linear_color_gram(x_feat, y_feat, color_scale):
 def matlab_gram(x_pos, x_mask, y_pos, y_mask, ci, ell, *, sigma, sp_thres,
                 fast_exp=False):
     """MATLAB-mode A: K = se_kernel; K[K < sp] = 0; A = CI .* K
-    (rkhs_se3_registration.m:125-127)."""
+    (rkhs_se3_registration.m:125-127); on a lane axis as `se_gram`."""
     s2 = sigma * sigma
-    ell = torch.as_tensor(ell, dtype=torch.float32).to(x_pos.device)
+    ell = _lane_ell(ell, x_pos.device)
     d2 = pairwise_sqdist(x_pos, y_pos)
     k = s2 * gram_exp(d2 / (2.0 * ell * ell), fast_exp)
     gate = (

@@ -13,6 +13,23 @@ kinds of op do not:
 (a lane of a contiguous stack has the strides of a fresh tensor of its
 shape) and stack the results, so each lane is the bits of the one-pair
 op; without a lane axis they are the op itself.
+
+The batched loops (the kernel backend's moment step, the dense backend)
+keep on the stack only ops shown to give every lane the one-pair bits,
+on the CPU (tests/test_torch_batched_loop.py, test_torch_batched_dense.py)
+and on the card (chip_smoke.py 8e: every lane `align_jit`'s bits):
+- elementwise ops: the dense Grams `se_gram` and `matlab_gram` on
+  [B, N, M] (`exp_neg`'s polynomial, or torch.exp in fast mode), the
+  products A * y of the dense flow, the direct step's [B, N, M] fields,
+  the line-search polynomials and the moment epilogue's terms on
+  [B, M], `cubic_roots`, the stops and the ell update;
+- sums over a last axis of 3 and `torch.linalg.cross`;
+- the dense count `nnz` over [B, N, M] (an integer sum: exact in any
+  order).
+Lane by lane: the sums over a lane's points or pairs (the Gram's row
+and column sums, the flow's residual sums, B..E, the centroids), the
+products with A (A @ y, A @ C), `torch.dot` and the 3x3 and
+vector-matrix products.
 """
 
 from __future__ import annotations

@@ -30,7 +30,8 @@ acvo's dl needs sum A|x-y|^2 and nnz of the cross Gram (from the moment
 sweep) and of the self-Grams Axx, Ayy: on the kernel backend both
 self-sweeps in one `fused_wsq_sweeps` launch per iteration
 (`self_mode="exact"`), or per-align Chebyshev tables in ell
-(`self_mode="cheb"`), all 2K sweeps of the tables in one launch.
+(`self_mode="cheb"`), all 2K sweeps of the tables in one launch (of
+every lane's tables, for a batch).
 
 MATLAB's linear color mode (`color_mode="linear"`, MATLAB_PARAMS) weighs
 each pair by CI = color_scale * Cx Cz^T, computed once per align
@@ -47,14 +48,17 @@ stopping at the first converged iteration, because `k` freezes too.
 `core/compiled.align_jit` runs the same body as CUDA graphs of
 CHECK_EVERY iterations, for `align`'s bits.
 
-The kernel backend's moment step also runs on B pairs at once, the state
-and the clouds on a leading lane axis (`make_batched_step`, the loop of
-`parallel.align_batched`, JAX's vmap(align)): one `fused_moments` launch
-an iteration sweeps every lane that has not converged, the O(M)
-epilogue runs on [B, ...] tensors, and a converged lane freezes.  The
-few ops whose batched call rounds otherwise than the one-pair call (the
-sums over a lane's points, the small matmuls) run lane by lane
-(`core.lanes`), so a lane is the bits of `align` on its pair.
+The kernel backend's moment step and the dense backend also run on B
+pairs at once, the state and the clouds on a leading lane axis
+(`make_batched_step`, the loop of `parallel.align_batched`, JAX's
+vmap(align)): on the kernel backend one `fused_moments` launch an
+iteration sweeps every lane that has not converged (and exact acvo's
+self-sweeps of every live lane one `fused_wsq` launch), the O(M)
+epilogue runs on [B, ...] tensors; on the dense backend the Grams are
+[B, N, M]; a converged lane freezes.  The ops whose batched call rounds
+otherwise than the one-pair call (the sums over a lane's points or
+pairs, the small matmuls) run lane by lane (`core.lanes`), so a lane is
+the bits of `align` on its pair.
 """
 
 from __future__ import annotations
@@ -235,21 +239,10 @@ def build_skip_pre(p, adaptive, fixed: PointCloud, moving: PointCloud):
     return lo_x, hi_x, tiles_xx, tiles_yy
 
 
-def build_selfsweep_cheb(p, adaptive, fixed: PointCloud, moving: PointCloud,
-                         ck_caches, skip_pre, ell0=None):
-    """Per-align Chebyshev tables of the four self-sweep reductions
-    (`self_mode="cheb"`): wsq_xx, nnz_xx, wsq_yy, nnz_yy are functions
-    of ell alone (self distances are rigid-invariant), so K sweep pairs
-    at log-space Chebyshev nodes, all 2K in one launch, replace a pair
-    every iteration.
-    Returns (log values [4, K], (lo, hi, nodes, weights)) or None.
-
-    The span is [ell_min, max(ell_max_init, ell0)]: ell never exceeds
-    its ceiling within an align.  An `ell0` that is a number or a CPU
-    tensor widens it; a CUDA tensor keeps the default span, so building
-    the tables adds no host sync (as a traced ell0 in the JAX package)."""
-    if not adaptive or p.backend != "kernel" or p.self_mode != "cheb":
-        return None
+def _cheb_span(p, ell0):
+    """(lo, hi, nodes, weights, ell at each node) of one align's tables:
+    the span in t = log(1/2ell^2) from `ell0` (see build_selfsweep_cheb),
+    in float64."""
     K = int(p.self_cheb_k)
     ell_hi = p.ell_max_init
     if ell0 is not None and not (
@@ -263,26 +256,56 @@ def build_selfsweep_cheb(p, adaptive, fixed: PointCloud, moving: PointCloud,
     t_nodes = 0.5 * (lo + hi) + 0.5 * (hi - lo) * xch
     ell_nodes = 1.0 / torch.sqrt(2.0 * torch.exp(t_nodes))
     wts = (-1.0) ** kk * torch.sin(math.pi * (kk + 0.5) / K)
+    return lo, hi, xch, wts, ell_nodes.tolist()
 
+
+def build_selfsweep_cheb(p, adaptive, fixed: PointCloud, moving: PointCloud,
+                         ck_caches, skip_pre, ell0=None):
+    """Per-align Chebyshev tables of the four self-sweep reductions
+    (`self_mode="cheb"`): wsq_xx, nnz_xx, wsq_yy, nnz_yy are functions
+    of ell alone (self distances are rigid-invariant), so K sweep pairs
+    at log-space Chebyshev nodes, all 2K in one launch, replace a pair
+    every iteration.
+    Returns (log values [4, K], (lo, hi, nodes, weights)) or None.
+
+    The span is [ell_min, max(ell_max_init, ell0)]: ell never exceeds
+    its ceiling within an align.  An `ell0` that is a number or a CPU
+    tensor widens it; a CUDA tensor keeps the default span, so building
+    the tables adds no host sync (as a traced ell0 in the JAX package).
+
+    For clouds, caches and tile orders stacked on a lane axis, `ell0` is
+    each lane's (a list) and every lane's 2K sweeps, each lane at its
+    own nodes, run in one launch; the tables come stacked (logv [B, 4,
+    K], lo and hi [B], nodes and weights [B, K]), each lane the bits of
+    the one-pair call on it."""
+    if not adaptive or p.backend != "kernel" or p.self_mode != "cheb":
+        return None
+    lanes = fixed.positions.dim() == 3
+    spans = [_cheb_span(p, e) for e in (ell0 if lanes else [ell0])]
     dev = fixed.positions.device
-    ells = torch.tensor(ell_nodes.tolist(), dtype=torch.float32, device=dev)
+    ells = torch.tensor([s[4] for s in spans], dtype=torch.float32,
+                        device=dev).repeat_interleave(2, dim=-1)
     # sweeps xx, yy at node 0, then at node 1, ...
     w, nz = fused_wsq_sweeps(
-        _self_sweeps(fixed, moving, ck_caches, skip_pre) * K,
-        ells.repeat_interleave(2), p=p)
-    cols = torch.stack([w[0::2], nz[0::2], w[1::2], nz[1::2]])
-    logv = torch.log(torch.clamp_min(cols, 1e-30))
+        _self_sweeps(fixed, moving, ck_caches, skip_pre) * int(p.self_cheb_k),
+        ells if lanes else ells[0], p=p)
+    cols = torch.stack([w[..., 0::2], nz[..., 0::2], w[..., 1::2],
+                        nz[..., 1::2]], dim=-2)
+    logv = by_lane(lanes)(lambda c: torch.log(torch.clamp_min(c, 1e-30)),
+                          cols)
 
-    def f32(v):
-        return torch.as_tensor(v, dtype=torch.float32).to(dev)
+    def f32(*v):
+        out = [torch.as_tensor(x, dtype=torch.float32).to(dev) for x in v]
+        return torch.stack(out) if lanes else out[0]
 
-    return logv, (f32(lo), f32(hi), f32(xch), f32(wts))
+    return logv, tuple(f32(*(s[k] for s in spans)) for k in range(4))
 
 
 def _self_sweeps(x_cloud, y_cloud, ck_caches, skip_pre):
     """[Sweep xx, Sweep yy]: the symmetric self-sweeps of two clouds (the
     fixed one, and the moving one where it lies), each with its color
-    cache and its tile order (None where the option is off)."""
+    cache and its tile order (None where the option is off); of every
+    lane where they are stacked on a lane axis."""
     _, ck_xx, ck_yy = ck_caches if ck_caches else (None,) * 3
     tiles_xx = tiles_yy = None
     if skip_pre is not None:
@@ -312,11 +335,13 @@ def _cheb_self(cheb_pre, ell):
 
 
 def prepare(p, fixed: PointCloud, moving: PointCloud, ell0=None,
-            ck=None):
+            ck=None, cheb=True):
     """The AlignPre of (already kd-sorted) clouds.  The dense backend
     keeps only linear mode's CI, in the `ck` slot (None in se mode).
     `ck`: the pair's color caches where they are built already (a lane
-    of `prepare_batch`'s), else built here."""
+    of `prepare_batch`'s), else built here; `cheb=False` leaves acvo's
+    Chebyshev tables to the caller (`prepare_batch` builds every lane's
+    in one launch)."""
     ci = prepare_ci(p, fixed, moving)
     ci_pre = None if ci is None else (ci, None, None)
     if p.backend != "kernel":
@@ -324,8 +349,9 @@ def prepare(p, fixed: PointCloud, moving: PointCloud, ell0=None,
     adaptive = isinstance(p, AcvoParams)
     ck = ci_pre or ck or build_ck_caches(p, adaptive, fixed, moving)
     skip = build_skip_pre(p, adaptive, fixed, moving)
-    cheb = build_selfsweep_cheb(p, adaptive, fixed, moving, ck, skip, ell0)
-    return AlignPre(ck, build_moments_pre(fixed), skip, cheb)
+    tables = (build_selfsweep_cheb(p, adaptive, fixed, moving, ck, skip, ell0)
+              if cheb else None)
+    return AlignPre(ck, build_moments_pre(fixed), skip, tables)
 
 
 def _map_tensors(fn, *trees):
@@ -352,41 +378,35 @@ def prepare_batch(p, fixed: PointCloud, moving: PointCloud, ell0s):
     None): the kernel backend's color caches of all the lanes from one
     `color_gram` launch a cache, kept as the [B, N, M] tensors it
     returns, as JAX's vmap(align) runs the kernel once for the batch (its
-    scalars come from `p.ell_init`, not from a lane's state); the rest
-    built lane by lane as `prepare` builds it and stacked (the moment
-    precompute c0 [B, 3], x - c0 [B, N, 3] and Phi [B, N, 35], the tile
-    bounds and orders, linear mode's CI, and acvo's Chebyshev tables,
-    whose span depends on the lane's ell0).  `lane_pre(pre, i)` is the
-    bits of `prepare` on pair i.  None where `prepare` gives None (the
-    dense backend in se mode)."""
+    scalars come from `p.ell_init`, not from a lane's state), and acvo's
+    Chebyshev tables of all the lanes from one `fused_wsq` launch, each
+    lane's span from its own ell0; the rest built lane by lane as
+    `prepare` builds it and stacked (the moment precompute c0 [B, 3],
+    x - c0 [B, N, 3] and Phi [B, N, 35], the tile bounds and orders,
+    linear mode's CI).  `lane_pre(pre, i)` is the bits of `prepare` on
+    pair i.  None where `prepare` gives None (the dense backend in se
+    mode)."""
     cks = None
+    adaptive = isinstance(p, AcvoParams)
     if p.backend == "kernel" and p.color_mode != "linear":
-        cks = build_ck_caches(p, isinstance(p, AcvoParams), fixed, moving)
+        cks = build_ck_caches(p, adaptive, fixed, moving)
     lanes = [
         prepare(p, fixed.lane(i), moving.lane(i), ell0,
                 None if cks is None
-                else tuple(None if c is None else c[i] for c in cks))
+                else tuple(None if c is None else c[i] for c in cks),
+                cheb=False)
         for i, ell0 in enumerate(ell0s)
     ]
     if cks is not None:
         # the caches stay the launch's own tensors: no copy of B N M floats
         lanes = [pre._replace(ck=None) for pre in lanes]
     pre = _map_tensors(lambda *ts: torch.stack(ts), *lanes)
-    return pre if cks is None else pre._replace(ck=cks)
-
-
-def _exact_self(p, fixed, y_cloud, pre, ell):
-    """(wsq [2], nnz [2]) of the self-pairs xx, yy: both sweeps in one
-    `fused_wsq_sweeps` launch; on a lane axis one launch a lane
-    ([B, 2] each), each lane's sweeps the bits of its one-pair call."""
-    if ell.dim() == 0:
-        return fused_wsq_sweeps(
-            _self_sweeps(fixed, y_cloud, pre.ck, pre.skip), ell, p=p)
-    out = [_exact_self(p, fixed.lane(i), tuple(t[i] for t in y_cloud),
-                       lane_pre(pre, i), ell[i])
-           for i in range(ell.shape[0])]
-    return (torch.stack([w for w, _ in out]),
-            torch.stack([nz for _, nz in out]))
+    if pre is None:
+        return None
+    if cks is not None:
+        pre = pre._replace(ck=cks)
+    return pre._replace(cheb=build_selfsweep_cheb(
+        p, adaptive, fixed, moving, pre.ck, pre.skip, list(ell0s)))
 
 
 def _kernel_terms(p, adaptive, state, fixed, moving, y_pos, pre):
@@ -395,10 +415,12 @@ def _kernel_terms(p, adaptive, state, fixed, moving, y_pos, pre):
     and then the line-search sweep (the two passes of cvo.cpp:164-308).
     The moment step also runs on B lanes (a leading lane axis on the
     state, the clouds and `pre`): one `fused_moments` launch for the
-    batch, the lanes that have converged not swept."""
+    batch, and exact acvo's one `fused_wsq` launch, the lanes that have
+    converged not swept."""
     ck_xy = pre.ck[0] if pre.ck else None
     direct = p.step_mode == "direct"
     y_cloud = (y_pos, moving.features, moving.mask)
+    live = ~state.converged if y_pos.dim() == 3 else None
     if direct:
         omega, v, wsq_xy, nnz_xy, _ = fused_flow(*fixed, *y_cloud, state.ell,
                                                  ck_xy, p=p)
@@ -414,20 +436,22 @@ def _kernel_terms(p, adaptive, state, fixed, moving, y_pos, pre):
         Mom, nnz_xy = fused_moments(
             x_c, fixed.features, fixed.mask,
             y_pos - c0[..., None, :], moving.features, moving.mask,
-            phi, state.ell, ck_xy, md_xy, p=p,
-            live=~state.converged if y_pos.dim() == 3 else None,
+            phi, state.ell, ck_xy, md_xy, p=p, live=live,
         )
         omega, v, wsq_xy, _ = flow_from_moments(Mom, y_pos, c0, c=p.c,
                                                 d=p.d)
     dl = None
     if adaptive:
         # the self-Grams feed only dl (adaptive_cvo.cpp:156-160,
-        # 222-271): both lean sweeps in one launch, or the per-align tables
+        # 222-271): both lean sweeps (of every live lane) in one launch,
+        # or the per-align tables
         if pre.cheb is not None:
             wsq_xx, nnz_xx, wsq_yy, nnz_yy = _cheb_self(
                 pre.cheb, state.ell).unbind(-1)
         else:
-            w, nz = _exact_self(p, fixed, y_cloud, pre, state.ell)
+            w, nz = fused_wsq_sweeps(
+                _self_sweeps(fixed, y_cloud, pre.ck, pre.skip), state.ell,
+                p=p, live=live)
             wsq_xx, wsq_yy = w.unbind(-1)
             nnz_xx, nnz_yy = nz.unbind(-1)
         ell3 = state.ell * (state.ell * state.ell)
@@ -464,7 +488,10 @@ def _gram(p, x_pos, x: PointCloud, y_pos, y: PointCloud, ell, ci):
 
 
 def _dense_terms(p, adaptive, state, fixed, moving, y_pos, pre):
-    """(omega, v, step, dl) of one dense-backend iteration."""
+    """(omega, v, step, dl) of one dense-backend iteration; on B lanes
+    (a leading lane axis on the state, the clouds and `pre`) the Grams
+    are [B, N, M] and the reductions run lane by lane (`core/flow.py`,
+    `core/step*.py`), as JAX's vmap(align) runs the "xla" body."""
     x_pos = fixed.positions
     ci = pre.ck[0] if pre is not None else None
     A = _gram(p, x_pos, fixed, y_pos, moving, state.ell, ci)
@@ -580,9 +607,11 @@ def make_align_step(p):
 
 def batched_loop(p) -> bool:
     """Whether `p` runs B pairs in one loop (`make_batched_step`): the
-    kernel backend's moment step.  The direct step and the dense backend
-    run their lanes one by one."""
-    return p.backend == "kernel" and p.step_mode != "direct"
+    dense backend (both step modes, JAX's vmap(align) on "xla") and the
+    kernel backend's moment step (JAX's on "pallas").  The kernel
+    backend's direct step, the port's own, runs its lanes one by one."""
+    return p.backend == "dense" or (p.backend == "kernel"
+                                    and p.step_mode != "direct")
 
 
 def make_batched_step(p):
@@ -590,12 +619,14 @@ def make_batched_step(p):
     -> state with a leading lane axis on the state (`init_state(...,
     lanes=B)`), the clouds and `pre` (`prepare_batch`): `make_align_step`'s
     body, whose moment step sweeps every live lane in one `fused_moments`
-    launch and runs the epilogue on the [B, ...] tensors.  A lane is the
-    bits of the one-pair body on it."""
+    launch (and exact acvo's self-sweeps in one `fused_wsq` launch), or
+    on the dense backend forms the [B, N, M] Grams, and runs the
+    epilogue on the [B, ...] tensors.  A lane is the bits of the
+    one-pair body on it."""
     if not batched_loop(p):
-        raise ValueError("the batched loop runs the kernel backend's moment "
-                         f"step only, not backend={p.backend!r} "
-                         f"step_mode={p.step_mode!r}")
+        raise ValueError("the batched loop runs the dense backend and the "
+                         "kernel backend's moment step, not "
+                         f"backend={p.backend!r} step_mode={p.step_mode!r}")
     return make_align_step(p)
 
 

@@ -8,6 +8,10 @@ x_i - y_j, so over the dense Gram the [N,M] fields factor as
     w_j . (x_i - y_j)  =  (X @ W^T)_ij - (w_j . y_j)_j
 
 one [N,3]x[3,M] product per derivative order plus per-column terms.
+
+Both functions also take B pairs on a leading lane axis (A [B, N, M],
+omega, v [B, 3], ell [B]): the fields are formed on the stack, the
+products and the sums over a lane's pairs lane by lane (`core/lanes.py`).
 """
 
 from __future__ import annotations
@@ -15,21 +19,30 @@ from __future__ import annotations
 import torch
 
 from cvo_rgbd_torch.core.cubic import cubic_roots, min_positive_root
+from cvo_rgbd_torch.core.lanes import by_lane, lane_matmul
 from cvo_rgbd_torch.se3 import skew
 
 
 def step_coefficients(A, x_pos, y_pos, omega, v, ell):
     """B, C, D, E of the quartic objective (cvo.cpp:213-289)."""
+    lane = by_lane(A.dim() == 3)
+    mm = lane_matmul
     w_hat = skew(omega)
-    w2 = w_hat @ w_hat
-    w3 = w2 @ w_hat
-    w4 = w3 @ w_hat
+    w2 = mm(w_hat, w_hat)
+    w3 = mm(w2, w_hat)
+    w4 = mm(w3, w_hat)
+
+    def field(wk, wv):
+        """y w_k^T + w_(k-1) v, [M, 3]."""
+        return (mm(y_pos, wk.transpose(-1, -2))
+                + mm(wv, v[..., None])[..., None, :, 0])
 
     # per-j derivative fields [M,3] (cvo.cpp:226-238)
-    xiz = torch.linalg.cross(omega.expand_as(y_pos), y_pos, dim=-1) + v
-    xi2z = y_pos @ w2.T + (w_hat @ v[..., None])[..., 0]
-    xi3z = y_pos @ w3.T + (w2 @ v[..., None])[..., 0]
-    xi4z = y_pos @ w4.T + (w3 @ v[..., None])[..., 0]
+    xiz = torch.linalg.cross(omega[..., None, :].expand_as(y_pos), y_pos,
+                             dim=-1) + v[..., None, :]
+    xi2z = field(w2, w_hat)
+    xi3z = field(w3, w2)
+    xi4z = field(w4, w3)
 
     normxiz2 = torch.sum(xiz * xiz, dim=-1)
     xiz_dot_xi2z = -torch.sum(xiz * xi2z, dim=-1)
@@ -40,9 +53,11 @@ def step_coefficients(A, x_pos, y_pos, omega, v, ell):
     def dotfield(w_field):
         """[N,M] matrix of w_j . (x_i - y_j)."""
         wy = torch.sum(w_field * y_pos, dim=-1)
-        return x_pos @ w_field.T - wy[..., None, :]
+        return mm(x_pos, w_field.transpose(-1, -2)) - wy[..., None, :]
 
     tc = 1.0 / (2.0 * ell * ell)
+    if isinstance(tc, torch.Tensor) and tc.dim():
+        tc = tc[..., None, None]
     beta = -2.0 * tc * dotfield(xiz)
     gamma = -tc * (normxiz2[..., None, :] + 2.0 * dotfield(xi2z))
     delta = 2.0 * tc * (xiz_dot_xi2z[..., None, :] - dotfield(xi3z))
@@ -50,13 +65,12 @@ def step_coefficients(A, x_pos, y_pos, omega, v, ell):
 
     beta2 = beta * beta
     bg = beta * gamma
-    B = torch.sum(A * beta)
-    C = torch.sum(A * (gamma + 0.5 * beta2))
-    D = torch.sum(A * (delta + bg + beta2 * beta / 6.0))
-    E = torch.sum(
-        A * (epsil + beta * delta + 0.5 * beta2 * gamma + 0.5 * gamma * gamma
-             + beta2 * beta2 / 24.0)
-    )
+    B = lane(torch.sum, A * beta)
+    C = lane(torch.sum, A * (gamma + 0.5 * beta2))
+    D = lane(torch.sum, A * (delta + bg + beta2 * beta / 6.0))
+    E = lane(torch.sum,
+             A * (epsil + beta * delta + 0.5 * beta2 * gamma
+                  + 0.5 * gamma * gamma + beta2 * beta2 / 24.0))
     return B, C, D, E
 
 

@@ -16,6 +16,7 @@ import itertools
 
 import torch
 
+from cvo_rgbd_torch.core.lanes import by_lane, lane_matmul
 from cvo_rgbd_torch.se3 import skew
 
 # monomial basis: exponent triples (e0, e1, e2) with sum <= 4
@@ -163,18 +164,24 @@ def step_coefficients_factored(A, x_pos, y_pos, omega, v, ell):
     coefficients stacked to [M, 140], then one [N,M]x[M,140] product
     contracted with Phi(x).  Both clouds are first centered on the
     A-weighted centroid of x (exact: only x - y enters), which keeps |x|
-    at cloud-extent scale and bounds the degree-4 monomial cancellation."""
-    row = torch.sum(A, dim=1)
-    tot = torch.clamp_min(torch.sum(row), 1e-30)
-    centroid = (row @ x_pos) / tot
-    x_c = x_pos - centroid
-    polys = line_search_polys(y_pos, y_pos - centroid, omega, v, ell)
-    zero = torch.zeros_like(y_pos[:, 0])
+    at cloud-extent scale and bounds the degree-4 monomial cancellation.
+    On a lane axis (A [B, N, M], omega, v [B, 3], ell [B]) the
+    polynomials are formed on the stack, the sums over a lane's points
+    and the products lane by lane (`core/lanes.py`)."""
+    lane = by_lane(A.dim() == 3)
+    row = lane(lambda a: torch.sum(a, dim=1), A)
+    tot = torch.clamp_min(lane(torch.sum, row), 1e-30)
+    centroid = lane(lambda r, x: r @ x, row, x_pos) / tot[..., None]
+    x_c = x_pos - centroid[..., None, :]
+    polys = line_search_polys(y_pos, y_pos - centroid[..., None, :], omega,
+                              v, ell, mm=lane_matmul)
+    zero = torch.zeros_like(y_pos[..., 0])
     C_all = torch.stack(
-        [P.terms.get(e, zero) for P in polys for e in MONOMIALS], dim=1
+        [P.terms.get(e, zero) for P in polys for e in MONOMIALS], dim=-1
     )
-    AC = A @ C_all                       # [N, 140], the only big product
+    AC = lane_matmul(A, C_all)           # [N, 140], the only big product
     phi = monomial_features(x_c)
-    out = torch.sum(AC.reshape(AC.shape[0], 4, NUM_MONO) * phi[:, None, :],
-                    dim=(0, 2))
-    return out[0], out[1], out[2], out[3]
+    out = lane(lambda ac, ph: torch.sum(
+        ac.reshape(ac.shape[0], 4, NUM_MONO) * ph[:, None, :], dim=(0, 2)),
+        AC, phi)
+    return out.unbind(-1)

@@ -20,16 +20,28 @@
 //     order, scalar row, partials, ticket and output pair (acvo's exact
 //     iteration: Axx and Ayy, S = 2; the Chebyshev tables: both clouds
 //     at each of K nodes, S = 2K);
+//   - lanes: the S sweeps of B pairs (the batched align loop, JAX's
+//     vmap of the Pallas kernel over align_batched's lanes) in the same
+//     launch.  A sweep describes its B lanes as stacked tensors, a lane
+//     of each at the lane stride its shape gives (clouds [B, n, *], ck
+//     [B, n, m], the tile order [B, tiles]), its scalar row at the
+//     launch's scalar lane stride; a (lane, sweep) unit has its own
+//     partials, ticket and output pair, so each unit is the bits of the
+//     one-pair launch of that sweep.  A lane whose `live` byte is 0 (a
+//     converged lane of the batched loop, frozen whatever it gets) keeps
+//     no tile and takes no ticket: its outputs are zero;
 //   - a kept prefix: the wrapper sorts a sweep's tile ids by their
 //     bound once per align (stably, ties by id), and the bounds of a
 //     self-pair never change within an align (self distances are
 //     rigid-invariant), so the tiles kept at any ell are a prefix of
-//     that order.  Every block finds each sweep's prefix length with two
-//     rounds of warp loads (kept_prefix), with no host sync;
+//     that order.  Every block finds each unit's prefix length with two
+//     rounds of warp loads (kept_prefix, a warp a unit: B S / 8 rounds a
+//     block), with no host sync, then lays the units end to end by a
+//     block-wide scan;
 //   - a persistent grid of two blocks an SM (ops/wsq.py BLOCKS_PER_SM:
 //     2, 4 and 8 ran within 1 us of each other on the card, 2 the least
 //     on an iteration's two sweeps): block b sweeps the kept tiles b,
-//     b + grid, ... of all sweeps' prefixes laid end to end, so the kept
+//     b + grid, ... of all units' prefixes laid end to end, so the kept
 //     tiles spread over the SMs and no block walks a chain of them while
 //     the others have exited;
 //   - a tile's arithmetic is the parent design's, bit for bit: square TW
@@ -41,8 +53,8 @@
 //     a*d2 in fp32 and counts gates as an int, then warp shuffles and
 //     the warps in order give the tile's partial;
 //   - the reduction folded in: a kept tile writes its partial at its
-//     tile id and takes its sweep's ticket (an acquire-release atomic);
-//     the block that takes the last one sums the sweep's kept partials
+//     tile id and takes its unit's ticket (an acquire-release atomic);
+//     the block that takes the last one sums the unit's kept partials
 //     in the order of the parent's second kernel (thread t over ids t,
 //     t + 256, ..., then a shared-memory tree), and leaves the ticket
 //     zero.  A skipped tile's partial was +0 and every partial is >= +0,
@@ -61,11 +73,18 @@ constexpr int ROWS_PER_PASS = THREADS / TW;  // 4 row groups
 constexpr int ROWS_PER_THREAD = TW / ROWS_PER_PASS;
 constexpr int WARPS = THREADS / 32;
 constexpr int MAX_SWEEPS = 32;       // ops/wsq.py MAX_SWEEPS
+// (lane, sweep) units a launch, ops/wsq.py MAX_UNITS: their kept
+// prefixes live in shared memory (8 KB), and a 63-lane batch of the
+// Chebyshev tables (63 x 24 units) fits
+constexpr int MAX_UNITS = 2048;
 constexpr float SKIP_MARGIN = 1e-5f;  // ops/moments.py SKIP_MARGIN
 
 }  // namespace
 
-// One sweep of a launch; the layout of ops/wsq.py _SweepArgs.
+// One sweep of a launch, lane 0's pointers; the layout of ops/wsq.py
+// _SweepArgs.  Lane b of a tensor lies b times its per-lane size
+// further on (clouds n or m rows, ck n m entries, the tile order
+// n_tiles ids), its scalar row b times the launch's scal_ls floats.
 struct WsqSweep {
   const float *xp, *xf, *xm, *yp, *yf, *ym;
   const float* ck;         // [n, m] color cache, or null (recompute)
@@ -73,23 +92,27 @@ struct WsqSweep {
   const int* order;        // [n_tiles] tile ids, bound ascending; null: no skip
   const float* md_sorted;  // [n_tiles] the bounds in that order
   const float* md_by_id;   // [n_tiles] the bounds in tile-id order
-  float* out;              // [2]: wsq, nnz
-  int n, m, symmetric, n_tiles, part0;  // part0: first slot in the partials
+  int n, m, symmetric, n_tiles, part0;  // part0: first slot in a lane's partials
 };
 
 namespace {
 
-struct WsqSweeps {
+// The launch's description, passed by value.
+struct WsqLaunch {
   WsqSweep s[MAX_SWEEPS];
-  int count;
+  int count;         // sweeps S
+  int lanes;         // B; units B S, lane-major
+  int scal_ls;       // floats from one lane's scalar rows to the next's
+  int part_ls;       // partial slots of a lane (every sweep's tiles)
+  int out_ls;        // floats from one lane's outputs to the next's
 };
-// passed by value: with the other three arguments, within the 4 KB of
-// kernel parameters every CUDA 12 toolkit takes
-static_assert(sizeof(WsqSweeps) + 3 * sizeof(void*) <= 4096,
+// with the other five arguments, within the 4 KB of kernel parameters
+// every CUDA 12 toolkit takes
+static_assert(sizeof(WsqLaunch) + 5 * sizeof(void*) <= 4096,
               "too many sweeps for one launch's parameters");
 
-__device__ __forceinline__ float keep_thres(const WsqSweep& S) {
-  return S.scal[cvo::S_D2_THRES] + SKIP_MARGIN;
+__device__ __forceinline__ float keep_thres(const float* scal) {
+  return scal[cvo::S_D2_THRES] + SKIP_MARGIN;
 }
 
 // Count of md[0..n) <= thr, md ascending, by one warp: the first entry of
@@ -135,24 +158,25 @@ struct Smem {
   float m[TW];
   float wsq[WARPS];
   int cnt[WARPS];
-  int kept[MAX_SWEEPS + 1];  // prefix sums of the sweeps' kept tiles
+  int kept[MAX_UNITS + 1];  // prefix sums of the units' kept tiles
+  int scan[THREADS];
   float red_w[THREADS];
   long long red_c[THREADS];
   int last;
 };
-
 // One tile's weighted partial (valid in thread 0), the parent's
-// wsq_partial_kernel body.
+// wsq_partial_kernel body, on lane b of sweep S (`scal` that lane's row).
 // The column's loads and its ck entries are all issued before the rows
 // are staged, so the tile waits for one round of loads, not one a row.
 template <bool USE_CK, bool FAST>
-__device__ void sweep_tile(const WsqSweep& S, int bi, int bj, Smem& sm,
-                           float* w_out, int* c_out) {
+__device__ void sweep_tile(const WsqSweep& S, size_t b, const float* scal,
+                           int bi, int bj, Smem& sm, float* w_out,
+                           int* c_out) {
   const int i0 = bi * TW;
   const int jj = threadIdx.x % TW;
   const int r0 = threadIdx.x / TW;
   const int j = bj * TW + jj;
-  const float* yp = S.yp;
+  const float* yp = S.yp + b * S.m * 3;
   const float y0 = yp[3 * j], y1 = yp[3 * j + 1], y2 = yp[3 * j + 2];
   float fy[cvo::NFEAT];
   float ymj = 0.0f;
@@ -160,24 +184,27 @@ __device__ void sweep_tile(const WsqSweep& S, int bi, int bj, Smem& sm,
   if constexpr (USE_CK) {
 #pragma unroll
     for (int k = 0; k < ROWS_PER_THREAD; ++k)
-      ckv[k] = __ldg(S.ck +
+      ckv[k] = __ldg(S.ck + b * S.n * S.m +
                      static_cast<size_t>(i0 + r0 + k * ROWS_PER_PASS) * S.m +
                      j);
   } else {
+    const float* yf = S.yf + b * S.m * cvo::NFEAT;
 #pragma unroll
-    for (int c = 0; c < cvo::NFEAT; ++c) fy[c] = S.yf[cvo::NFEAT * j + c];
-    ymj = S.ym[j];
+    for (int c = 0; c < cvo::NFEAT; ++c) fy[c] = yf[cvo::NFEAT * j + c];
+    ymj = S.ym[b * S.m + j];
   }
+  const float* xp = S.xp + b * S.n * 3;
   for (int t = threadIdx.x; t < TW * 3; t += THREADS)
-    sm.x[t % 3][t / 3] = S.xp[3 * i0 + t];
+    sm.x[t % 3][t / 3] = xp[3 * i0 + t];
   if constexpr (!USE_CK) {
+    const float* xf = S.xf + b * S.n * cvo::NFEAT;
+    const float* xm = S.xm + b * S.n;
     for (int t = threadIdx.x; t < TW * cvo::NFEAT; t += THREADS)
-      sm.f[t / cvo::NFEAT][t % cvo::NFEAT] = S.xf[cvo::NFEAT * i0 + t];
-    for (int t = threadIdx.x; t < TW; t += THREADS) sm.m[t] = S.xm[i0 + t];
+      sm.f[t / cvo::NFEAT][t % cvo::NFEAT] = xf[cvo::NFEAT * i0 + t];
+    for (int t = threadIdx.x; t < TW; t += THREADS) sm.m[t] = xm[i0 + t];
   }
   __syncthreads();
 
-  const float* scal = S.scal;
   float acc = 0.0f;
   int cnt = 0;
 #pragma unroll
@@ -222,16 +249,19 @@ __device__ void sweep_tile(const WsqSweep& S, int bi, int bj, Smem& sm,
   }
 }
 
-// The sweep's output from its kept tiles' partials, in the parent's
+// The unit's output from its kept tiles' partials, in the parent's
 // wsq_reduce_kernel order: thread t over ids t, t + THREADS, ..., then
 // the shared-memory tree.  The partials were written by other blocks
 // before their release; this block's acquire made them visible, and
 // __ldcg reads them at L2.  A thread issues the loads of U ids at once
 // (a skipped tile's slot is read and not used).
-__device__ void final_sum(const WsqSweep& S, const float* part,
-                          const int* cnt, Smem& sm) {
+__device__ void final_sum(const WsqSweep& S, size_t b, const float* scal,
+                          const float* part, const int* cnt, float* out,
+                          Smem& sm) {
   constexpr int U = 8;
-  const float thr = keep_thres(S);
+  const float* md_by_id =
+      S.md_by_id == nullptr ? nullptr : S.md_by_id + b * S.n_tiles;
+  const float thr = keep_thres(scal);
   const int last = S.n_tiles - 1;
   float w = 0.0f;
   long long c = 0;
@@ -241,14 +271,14 @@ __device__ void final_sum(const WsqSweep& S, const float* part,
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int t = min(t0 + u * THREADS, last);
-      md[u] = S.md_by_id == nullptr ? 0.0f : S.md_by_id[t];
-      pw[u] = __ldcg(part + S.part0 + t);
-      pc[u] = __ldcg(cnt + S.part0 + t);
+      md[u] = md_by_id == nullptr ? 0.0f : md_by_id[t];
+      pw[u] = __ldcg(part + t);
+      pc[u] = __ldcg(cnt + t);
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       if (t0 + u * THREADS < S.n_tiles &&
-          (S.md_by_id == nullptr || md[u] <= thr)) {
+          (md_by_id == nullptr || md[u] <= thr)) {
         w += pw[u];
         c += pc[u];
       }
@@ -265,87 +295,158 @@ __device__ void final_sum(const WsqSweep& S, const float* part,
     __syncthreads();
   }
   if (threadIdx.x == 0) {
-    S.out[0] = sm.red_w[0];
-    S.out[1] = static_cast<float>(sm.red_c[0]);
+    out[0] = sm.red_w[0];
+    out[1] = static_cast<float>(sm.red_c[0]);
   }
+  __syncthreads();
+}
+
+// sm.kept[1..units] from each unit's count to its inclusive prefix sum,
+// sm.kept[0] = 0.  Up to 32 units (one pair's sweeps, a few lanes'), a
+// shuffle scan by warp 0 behind one barrier; more, thread t sums a run
+// of consecutive units, a Hillis-Steele scan of the runs, then each
+// run's prefix.
+__device__ void scan_kept(Smem& sm, int units) {
+  if (units <= 32) {
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      int v = lane < units ? sm.kept[lane + 1] : 0;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int t = __shfl_up_sync(0xffffffffu, v, off);
+        if (lane >= off) v += t;
+      }
+      if (lane < units) sm.kept[lane + 1] = v;
+      if (lane == 0) sm.kept[0] = 0;
+    }
+    __syncthreads();
+    return;
+  }
+  const int per = (units + THREADS - 1) / THREADS;
+  const int u0 = threadIdx.x * per, u1 = min(u0 + per, units);
+  int run = 0;
+  for (int u = u0; u < u1; ++u) run += sm.kept[u + 1];
+  sm.scan[threadIdx.x] = run;
+  __syncthreads();
+  for (int off = 1; off < THREADS; off <<= 1) {
+    const int v = threadIdx.x >= off ? sm.scan[threadIdx.x - off] : 0;
+    __syncthreads();
+    sm.scan[threadIdx.x] += v;
+    __syncthreads();
+  }
+  int base = threadIdx.x > 0 ? sm.scan[threadIdx.x - 1] : 0;
+  for (int u = u0; u < u1; ++u) {
+    base += sm.kept[u + 1];
+    sm.kept[u + 1] = base;
+  }
+  if (threadIdx.x == 0) sm.kept[0] = 0;
   __syncthreads();
 }
 
 template <bool USE_CK, bool FAST>
 __global__ void __launch_bounds__(THREADS)
-wsq_kernel(const __grid_constant__ WsqSweeps sw, float* __restrict__ part,
-           int* __restrict__ cnt, int* __restrict__ tickets) {
+wsq_kernel(const __grid_constant__ WsqLaunch L,
+           const unsigned char* __restrict__ live, float* __restrict__ part,
+           int* __restrict__ cnt, int* __restrict__ tickets,
+           float* __restrict__ out) {
   __shared__ Smem sm;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int units = L.lanes * L.count;
 
-  // each sweep's kept prefix, a warp a sweep
-  for (int s = warp; s < sw.count; s += WARPS) {
-    const WsqSweep& S = sw.s[s];
-    const int k = S.order == nullptr
-                      ? S.n_tiles
-                      : kept_prefix(S.md_sorted, S.n_tiles, keep_thres(S),
-                                    lane);
-    if (lane == 0) sm.kept[s + 1] = k;
+  // each unit's kept prefix, a warp a unit; a frozen lane keeps none
+  for (int u = warp; u < units; u += WARPS) {
+    const int b = u / L.count;
+    int k = 0;
+    if (live == nullptr || live[b]) {
+      const WsqSweep& W = L.s[u - b * L.count];
+      if (W.order == nullptr) {
+        k = W.n_tiles;
+      } else {
+        const size_t lb = b;
+        k = kept_prefix(W.md_sorted + lb * W.n_tiles, W.n_tiles,
+                        keep_thres(W.scal + lb * L.scal_ls), lane);
+      }
+    }
+    if (lane == 0) sm.kept[u + 1] = k;
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
-    sm.kept[0] = 0;
-    for (int s = 0; s < sw.count; ++s) {
-      // a sweep that keeps no tile takes no ticket: its output is the
-      // parent's sum of +0 partials, written by one block
-      if (sm.kept[s + 1] == 0 && s % gridDim.x == blockIdx.x) {
-        sw.s[s].out[0] = 0.0f;
-        sw.s[s].out[1] = 0.0f;
-      }
-      sm.kept[s + 1] += sm.kept[s];
+  // a unit that keeps no tile takes no ticket: its output is the
+  // parent's sum of +0 partials, written by one block
+  for (int u = threadIdx.x; u < units; u += THREADS) {
+    if (sm.kept[u + 1] == 0 && u % gridDim.x == blockIdx.x) {
+      const int b = u / L.count;
+      float* o = out + static_cast<size_t>(b) * L.out_ls +
+                 2 * (u - b * L.count);
+      o[0] = 0.0f;
+      o[1] = 0.0f;
     }
   }
-  __syncthreads();
+  scan_kept(sm, units);
 
-  const int total = sm.kept[sw.count];
-  int s = 0;
+  const int total = sm.kept[units];
+  int u = 0;
   for (int f = blockIdx.x; f < total; f += gridDim.x) {
-    while (f >= sm.kept[s + 1]) ++s;
-    const WsqSweep& S = sw.s[s];
-    const int k = f - sm.kept[s];
-    const int id = S.order == nullptr ? k : S.order[k];
+    while (f >= sm.kept[u + 1]) ++u;
+    // the unit's lane and sweep, its scalar row and partial slots
+    const int lb = u / L.count;
+    const WsqSweep& S = L.s[u - lb * L.count];
+    const size_t b = lb;
+    const float* scal = S.scal + b * L.scal_ls;
+    float* part_u = part + b * L.part_ls + S.part0;
+    int* cnt_u = cnt + b * L.part_ls + S.part0;
+    const int k = f - sm.kept[u];
+    const int id = S.order == nullptr ? k : S.order[b * S.n_tiles + k];
     int bi, bj;
     tile_of(id, S.m / TW, S.symmetric, &bi, &bj);
     float w;
     int c;
-    sweep_tile<USE_CK, FAST>(S, bi, bj, sm, &w, &c);
+    sweep_tile<USE_CK, FAST>(S, b, scal, bi, bj, sm, &w, &c);
     if (threadIdx.x == 0) {
-      part[S.part0 + id] = w;
-      cnt[S.part0 + id] = c;
+      part_u[id] = w;
+      cnt_u[id] = c;
       int old;
       asm volatile("atom.add.acq_rel.gpu.s32 %0, [%1], 1;\n"
-                   : "=r"(old) : "l"(tickets + s) : "memory");
-      sm.last = old == sm.kept[s + 1] - sm.kept[s] - 1;
-      if (sm.last) atomicExch(tickets + s, 0);
+                   : "=r"(old) : "l"(tickets + u) : "memory");
+      sm.last = old == sm.kept[u + 1] - sm.kept[u] - 1;
+      if (sm.last) atomicExch(tickets + u, 0);
     }
     __syncthreads();
-    if (sm.last) final_sum(S, part, cnt, sm);
+    if (sm.last)
+      final_sum(S, b, scal, part_u, cnt_u,
+                out + b * L.out_ls + 2 * (u - lb * L.count), sm);
   }
 }
 
 }  // namespace
 
 // sweeps: [count] host array, count <= MAX_SWEEPS, every sweep with ck
-// (use_ck) or none; part / cnt: [sum of n_tiles] f32 / i32 scratch;
-// tickets: [count] i32, zero at launch and left zero; blocks: the grid;
-// fast takes the hardware exp (params.exp_mode="fast").
-extern "C" int fused_wsq_launch(const WsqSweep* sweeps, int count,
-                                float* part, int* cnt, int* tickets,
+// (use_ck) or none, lane 0's pointers of `lanes` lanes (lanes * count
+// <= MAX_UNITS); live: [lanes] bytes (0: a frozen lane, not swept) or
+// null; scal_ls: floats between two lanes' scalar rows; part / cnt:
+// [lanes, part_ls] f32 / i32 scratch, a sweep's slots from its part0;
+// tickets: [lanes * count] i32, zero at launch and left zero; out:
+// lane b's sweep s at out[b * out_ls + 2 s], wsq then nnz; blocks: the
+// grid; fast takes the hardware exp (params.exp_mode="fast").
+extern "C" int fused_wsq_launch(const WsqSweep* sweeps, int count, int lanes,
+                                const unsigned char* live, int scal_ls,
+                                float* part, int* cnt, int part_ls,
+                                int* tickets, float* out, int out_ls,
                                 int use_ck, int fast, int blocks,
                                 cudaStream_t stream) {
-  if (count < 1 || count > MAX_SWEEPS) return cudaErrorInvalidValue;
-  WsqSweeps sw;
-  for (int s = 0; s < count; ++s) sw.s[s] = sweeps[s];
-  sw.count = count;
+  if (count < 1 || count > MAX_SWEEPS || lanes < 1 ||
+      lanes * count > MAX_UNITS || blocks < 1)
+    return cudaErrorInvalidValue;
+  WsqLaunch L;
+  for (int s = 0; s < count; ++s) L.s[s] = sweeps[s];
+  L.count = count;
+  L.lanes = lanes;
+  L.scal_ls = scal_ls;
+  L.part_ls = part_ls;
+  L.out_ls = out_ls;
   const auto fn = use_ck ? (fast ? wsq_kernel<true, true>
                                  : wsq_kernel<true, false>)
                          : (fast ? wsq_kernel<false, true>
                                  : wsq_kernel<false, false>);
-  fn<<<blocks, THREADS, 0, stream>>>(sw, part, cnt, tickets);
+  fn<<<blocks, THREADS, 0, stream>>>(L, live, part, cnt, tickets, out);
   return static_cast<int>(cudaGetLastError());
 }

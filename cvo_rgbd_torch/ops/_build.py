@@ -45,7 +45,10 @@ SIGNATURES = {
     "fused_moments": (
         "fused_moments_launch", [_P] * 15 + [_I] * 5 + [_P]
     ),
-    "fused_wsq": ("fused_wsq_launch", [_P, _I] + [_P] * 3 + [_I] * 3 + [_P]),
+    "fused_wsq": (
+        "fused_wsq_launch", [_P, _I, _I, _P, _I, _P, _P, _I, _P, _P]
+        + [_I] * 4 + [_P]
+    ),
     "align_fused_tiled": (
         "align_fused_tiled_launch", [_P] * 27 + [_I] * 6 + [_P]
     ),

@@ -23,7 +23,13 @@ bounds do not move with the transform.
 
 `fused_wsq_sweeps` runs several sweeps in one launch (acvo's exact
 iteration: Axx and Ayy; the Chebyshev tables: both self-pairs at every
-node), each sweep the bits of its own `fused_wsq` call.
+node), each sweep the bits of its own `fused_wsq` call.  Its sweeps may
+carry a leading lane axis, the B pairs of the batched align loop
+(`core/registration.make_batched_step`, JAX's vmap of the Pallas kernel
+over `align_batched`'s lanes): every tensor of a sweep stacked [B, ...]
+and one ell a lane (or a lane and a sweep), the S sweeps of the B lanes
+in one launch, each (lane, sweep) the bits of the one-pair call, and a
+lane that `live` marks False not swept (zeros).
 """
 
 from __future__ import annotations
@@ -47,6 +53,9 @@ from cvo_rgbd_torch.params import fast_exp
 
 TILE_W = 64   # square tile of the self-sweep (csrc/fused_wsq.cu TW)
 MAX_SWEEPS = 32   # sweeps a launch (csrc/fused_wsq.cu MAX_SWEEPS)
+# (lane, sweep) units a launch (csrc/fused_wsq.cu MAX_UNITS), and the
+# int32 tickets a stream keeps for them
+MAX_UNITS = 2048
 # the kernel's persistent grid: blocks an SM (at most one a tile); 2, 4
 # and 8 measured within 1 us of each other (PERF.md §6)
 BLOCKS_PER_SM = 2
@@ -64,7 +73,8 @@ class TileOrder(NamedTuple):
 class Sweep(NamedTuple):
     """One sweep of `fused_wsq_sweeps`: the pair's clouds as (positions,
     features, mask), its color cache or None, its TileOrder or None (no
-    skip), and whether it is a self-pair swept by its upper triangle."""
+    skip), and whether it is a self-pair swept by its upper triangle;
+    on a lane axis every tensor stacked [B, ...]."""
 
     x: tuple
     y: tuple
@@ -142,10 +152,16 @@ def fused_wsq_plain(xp, xf, xm, yp, yf, ym, scal, ck=None, min_d2=None,
     return wsq, (A > 0).sum().to(torch.float32)
 
 
-def _check_sweep(x, y, ck, min_d2, symmetric):
-    check_cloud("fused_wsq", *x)
-    check_cloud("fused_wsq", *y)
-    n, m = x[0].shape[0], y[0].shape[0]
+def _check_sweep(x, y, ck, min_d2, symmetric, lead=()):
+    """Raise unless the sweep is one pair's, or with `lead` = (B,) its B
+    lanes' (that leading axis on every tensor)."""
+    check_cloud("fused_wsq", *x, lanes=bool(lead))
+    check_cloud("fused_wsq", *y, lanes=bool(lead))
+    n, m = x[0].shape[-2], y[0].shape[-2]
+    if x[0].shape[:-2] != lead or y[0].shape[:-2] != lead:
+        raise ValueError(f"fused_wsq: every sweep's clouds take the lanes "
+                         f"{tuple(lead)}, got {tuple(x[0].shape[:-2])} and "
+                         f"{tuple(y[0].shape[:-2])}")
     if n % TILE_W or m % TILE_W:
         raise ValueError(
             f"fused_wsq: capacities must be multiples of {TILE_W}, got {n} "
@@ -154,12 +170,18 @@ def _check_sweep(x, y, ck, min_d2, symmetric):
     if symmetric and n != m:
         raise ValueError("fused_wsq: symmetric sweep requires a self-pair "
                          f"(n == m), got {n} and {m}")
-    if ck is not None and ck.shape != (n, m):
-        raise ValueError(f"fused_wsq: ck must be [{n}, {m}]")
-    md = min_d2.md if isinstance(min_d2, TileOrder) else min_d2
-    if md is not None and md.shape != (n // TILE_W, m // TILE_W):
+    each = " a lane" if lead else ""
+    if ck is not None and ck.shape != (*lead, n, m):
+        raise ValueError(f"fused_wsq: ck must be [{n}, {m}]{each}")
+    if isinstance(min_d2, TileOrder):
+        md = min_d2.md
+        if min_d2.order.shape[:-1] != lead:
+            raise ValueError(f"fused_wsq: the tile order must be one{each}")
+    else:
+        md = min_d2
+    if md is not None and md.shape != (*lead, n // TILE_W, m // TILE_W):
         raise ValueError(
-            f"fused_wsq: min_d2 must be [{n // TILE_W}, {m // TILE_W}]"
+            f"fused_wsq: min_d2 must be [{n // TILE_W}, {m // TILE_W}]{each}"
         )
     dev = x[0].device
     if dev.type not in ("cpu", "cuda"):
@@ -183,20 +205,59 @@ def fused_wsq(xp, xf, xm, yp, yf, ym, ell, ck=None, min_d2=None, *, p,
                           symmetric=symmetric, fast=fast_exp(p))
 
 
-def fused_wsq_sweeps(sweeps, ell, *, p):
-    """(wsq [S], nnz [S]) of S sweeps in one launch on the card, each
-    entry the bits of `fused_wsq` on that sweep alone.  `ell` a 0-dim
-    tensor that every sweep takes, or one ell a sweep ([S])."""
-    for sw in sweeps:
-        _check_sweep(sw.x, sw.y, sw.ck, sw.tiles, sw.symmetric)
-    scal = scalars(ell, p)
-    if sweeps[0].x[0].device.type == "cpu":
-        outs = [fused_wsq_plain(*sw.x, *sw.y, scal if scal.dim() == 1
-                                else scal[k], sw.ck, sw.tiles, fast_exp(p))
-                for k, sw in enumerate(sweeps)]
+def lane_sweep(sw, b):
+    """Lane `b` of a Sweep on a lane axis."""
+    tiles = None if sw.tiles is None else TileOrder(*(t[b] for t in sw.tiles))
+    return Sweep(tuple(t[b] for t in sw.x), tuple(t[b] for t in sw.y),
+                 None if sw.ck is None else sw.ck[b], tiles, sw.symmetric)
+
+
+def fused_wsq_sweeps_plain(sweeps, scal, fast=False, live=None):
+    """The plain version of a launch of S sweeps: (wsq, nnz) [S] or, on a
+    lane axis, [B, S], each (lane, sweep) `fused_wsq_plain` with its
+    scalar row (`scal` [8] or [S, 8], a lane's [B, 8] or [B, S, 8]);
+    zeros for a lane that `live` marks False."""
+    lead = sweeps[0].x[0].shape[:-2]
+    if lead:
+        outs = []
+        for b in range(lead[0]):
+            if live is not None and not bool(live[b]):
+                z = sweeps[0].x[0].new_zeros((len(sweeps),))
+                outs.append((z, z))
+            else:
+                outs.append(fused_wsq_sweeps_plain(
+                    [lane_sweep(sw, b) for sw in sweeps], scal[b], fast))
         return (torch.stack([w for w, _ in outs]),
                 torch.stack([n for _, n in outs]))
-    return fused_wsq_sweeps_cuda(sweeps, scal, fast_exp(p))
+    outs = [fused_wsq_plain(*sw.x, *sw.y, scal if scal.dim() == 1
+                            else scal[k], sw.ck, sw.tiles, fast)
+            for k, sw in enumerate(sweeps)]
+    return (torch.stack([w for w, _ in outs]),
+            torch.stack([n for _, n in outs]))
+
+
+def fused_wsq_sweeps(sweeps, ell, *, p, live=None):
+    """(wsq [S], nnz [S]) of S sweeps in one launch on the card, each
+    entry the bits of `fused_wsq` on that sweep alone.  `ell` a 0-dim
+    tensor that every sweep takes, or one ell a sweep ([S]).
+
+    On a lane axis (every tensor of every sweep stacked [B, ...]) the
+    B lanes' S sweeps in one launch: `ell` one a lane ([B]) or one a
+    lane and a sweep ([B, S]), `live` an optional [B] bool (a False lane
+    is not swept and gets zeros), and (wsq, nnz) [B, S]."""
+    lead = sweeps[0].x[0].shape[:-2]
+    for sw in sweeps:
+        _check_sweep(sw.x, sw.y, sw.ck, sw.tiles, sw.symmetric, lead)
+    if tuple(ell.shape) not in ((*lead,), (*lead, len(sweeps))):
+        raise ValueError(f"fused_wsq: ell must be one a lane, or one a "
+                         f"lane and a sweep, got {tuple(ell.shape)}")
+    if live is not None and (not lead or live.shape != lead
+                             or live.dtype != torch.bool):
+        raise ValueError("fused_wsq: live must be a bool flag a lane")
+    scal = scalars(ell, p)
+    if sweeps[0].x[0].device.type == "cpu":
+        return fused_wsq_sweeps_plain(sweeps, scal, fast_exp(p), live)
+    return fused_wsq_sweeps_cuda(sweeps, scal, fast_exp(p), live)
 
 
 def fused_wsq_cuda(xp, xf, xm, yp, yf, ym, scal, ck=None, min_d2=None, *,
@@ -218,7 +279,7 @@ class _SweepArgs(ctypes.Structure):
 
     _fields_ = ([(k, ctypes.c_void_p) for k in (
         "xp", "xf", "xm", "yp", "yf", "ym", "ck", "scal", "order",
-        "md_sorted", "md_by_id", "out")]
+        "md_sorted", "md_by_id")]
         + [(k, ctypes.c_int) for k in (
             "n", "m", "symmetric", "n_tiles", "part0")])
 
@@ -229,63 +290,95 @@ def _ptr(t):
 
 def _swept_tiles(sw):
     """The tiles a sweep launches: the upper triangle when symmetric."""
-    nb_i, nb_j = sw.x[0].shape[0] // TILE_W, sw.y[0].shape[0] // TILE_W
+    nb_i, nb_j = sw.x[0].shape[-2] // TILE_W, sw.y[0].shape[-2] // TILE_W
     return nb_i * (nb_i + 1) // 2 if sw.symmetric else nb_i * nb_j
 
 
-def fused_wsq_sweeps_cuda(sweeps, scal, fast=False):
+def fused_wsq_sweeps_cuda(sweeps, scal, fast=False, live=None):
     """Launch csrc/fused_wsq.cu on CUDA tensors for S sweeps (shapes
-    checked by `fused_wsq_sweeps`): one launch for every MAX_SWEEPS of
-    them, each counted in `fused_wsq.launches`.  `scal` one [8] row for
-    every sweep or [S, 8].  Every sweep has a color cache, or none
+    checked by `fused_wsq_sweeps`), of one pair or of B lanes: one
+    launch for every MAX_SWEEPS sweeps of at most MAX_UNITS // S lanes,
+    each counted in `fused_wsq.launches`.  `scal` one [8] row for every
+    sweep or [S, 8], on a lane axis [B, 8] or [B, S, 8]; `live` [B] bool
+    or None (every lane swept).  Every sweep has a color cache, or none
     has.  `fast` launches the hardware-exp form (exp_mode="fast")."""
     dev = sweeps[0].x[0].device
+    lead = sweeps[0].x[0].shape[:-2]
+    b = lead[0] if lead else 1
+    s_all = len(sweeps)
     use_ck = sweeps[0].ck is not None
     if any((sw.ck is not None) != use_ck for sw in sweeps):
         raise ValueError("fused_wsq: every sweep of a launch has a color "
                          "cache, or none has")
-    if scal.dim() == 2 and scal.shape[0] != len(sweeps):
-        raise ValueError(f"fused_wsq: scal must be [8] or [{len(sweeps)}, 8]")
+    per_sweep = scal.dim() == len(lead) + 2
+    if scal.shape != (*lead, *((s_all,) if per_sweep else ()), 8):
+        raise ValueError(f"fused_wsq: scal must be [8] or [{s_all}, 8]"
+                         f"{' a lane' if lead else ''}")
+    if live is not None and (live.device != dev or live.dtype != torch.bool
+                             or live.shape != (b,)
+                             or not live.is_contiguous()):
+        raise ValueError(f"fused_wsq: live must be a contiguous [{b}] bool "
+                         f"tensor on {dev}")
+    check_inputs("fused_wsq", (scal,), dev)
     for sw in sweeps:
         t = sw.tiles
         opt = () if t is None else (t.by_id, t.sorted)
         opt += () if sw.ck is None else (sw.ck,)
-        check_inputs("fused_wsq", (*sw.x, *sw.y, scal) + opt, dev)
+        check_inputs("fused_wsq", (*sw.x, *sw.y) + opt, dev)
         if t is not None and (t.order.device != dev
-                              or t.order.dtype != torch.int32):
-            raise ValueError("fused_wsq: the tile order must be int32 on "
-                             f"{dev}")
+                              or t.order.dtype != torch.int32
+                              or not t.order.is_contiguous()):
+            raise ValueError("fused_wsq: the tile order must be contiguous "
+                             f"int32 on {dev}")
     tiles = [_swept_tiles(sw) for sw in sweeps]
-    part = torch.empty((sum(tiles),), dtype=torch.float32, device=dev)
-    cnt = torch.empty((sum(tiles),), dtype=torch.int32, device=dev)
-    out = torch.empty((len(sweeps), 2), dtype=torch.float32, device=dev)
-    tickets, stream = stream_tickets(dev, MAX_SWEEPS)
+    part_ls = sum(tiles)
+    part = torch.empty((b, part_ls), dtype=torch.float32, device=dev)
+    cnt = torch.empty((b, part_ls), dtype=torch.int32, device=dev)
+    out = torch.empty((b, s_all, 2), dtype=torch.float32, device=dev)
+    tickets, stream = stream_tickets(dev, MAX_UNITS)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     launch = _build.entry("fused_wsq")
-    part0 = 0
-    for s0 in range(0, len(sweeps), MAX_SWEEPS):
-        chunk = sweeps[s0:s0 + MAX_SWEEPS]
-        args = (_SweepArgs * len(chunk))()
-        for k, sw in enumerate(chunk):
-            s = s0 + k
-            order = sorted_md = by_id = None
-            if sw.tiles is not None:
-                order, sorted_md = sw.tiles.order, sw.tiles.sorted
-                by_id = sw.tiles.by_id
-            row = scal if scal.dim() == 1 else scal[s]
-            args[k] = _SweepArgs(
-                *(c.data_ptr() for c in (*sw.x, *sw.y)), _ptr(sw.ck),
-                row.data_ptr(), _ptr(order), _ptr(sorted_md), _ptr(by_id),
-                out[s].data_ptr(), sw.x[0].shape[0], sw.y[0].shape[0],
-                int(sw.symmetric), tiles[s], part0)
-            part0 += tiles[s]
-        blocks = min(sum(tiles[s0:s0 + MAX_SWEEPS]), sms * BLOCKS_PER_SM)
-        err = launch(ctypes.addressof(args), len(chunk), part.data_ptr(),
-                     cnt.data_ptr(), tickets.data_ptr(), int(use_ck),
-                     int(fast), blocks, stream)
-        _build.check("fused_wsq", err)
-        fused_wsq.launches += 1
-    return out[:, 0], out[:, 1]
+    # one pair: a lane axis of one
+    scal = scal.reshape(b, -1)
+    scal_ls = scal.shape[1]
+    part0 = [sum(tiles[:s]) for s in range(s_all)]
+    for s0 in range(0, s_all, MAX_SWEEPS):
+        chunk = range(s0, min(s0 + MAX_SWEEPS, s_all))
+        lanes_per = MAX_UNITS // len(chunk)
+        for b0 in range(0, b, lanes_per):
+            nb = min(lanes_per, b - b0)
+
+            def at(t):
+                """lane b0's slice of a sweep tensor (one pair: itself)."""
+                return t[b0] if lead else t
+
+            args = (_SweepArgs * len(chunk))()
+            for k, s in enumerate(chunk):
+                sw = sweeps[s]
+                order = sorted_md = by_id = None
+                if sw.tiles is not None:
+                    order, sorted_md, by_id = (at(sw.tiles.order),
+                                               at(sw.tiles.sorted),
+                                               at(sw.tiles.by_id))
+                row = scal[b0, 8 * s if per_sweep else 0:]
+                args[k] = _SweepArgs(
+                    *(at(c).data_ptr() for c in (*sw.x, *sw.y)),
+                    _ptr(None if sw.ck is None else at(sw.ck)),
+                    row.data_ptr(), _ptr(order), _ptr(sorted_md),
+                    _ptr(by_id), sw.x[0].shape[-2], sw.y[0].shape[-2],
+                    int(sw.symmetric), tiles[s], part0[s])
+            blocks = min(nb * sum(tiles[s] for s in chunk),
+                         sms * BLOCKS_PER_SM)
+            err = launch(ctypes.addressof(args), len(chunk), nb,
+                         _ptr(None if live is None else live[b0]), scal_ls,
+                         part[b0].data_ptr(), cnt[b0].data_ptr(), part_ls,
+                         tickets.data_ptr(), out[b0, s0].data_ptr(),
+                         2 * s_all, int(use_ck), int(fast), blocks, stream)
+            _build.check("fused_wsq", err)
+            fused_wsq.launches += 1
+    if not lead:
+        out = out[0]
+    return out[..., 0], out[..., 1]
 
 
 fused_wsq.launches = 0

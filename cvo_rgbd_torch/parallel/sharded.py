@@ -614,15 +614,18 @@ def align_batched(p, fixed_batch: PointCloud, moving_batch: PointCloud,
       padding, and on "kernel" the kd-sort, lane by lane in one call),
       the kernel backend's color caches are built for all the lanes in
       one `color_gram` launch a cache (`prepare_batch`; three for exact
-      and cheb acvo).  The kernel backend's moment step then runs the
-      batch as ONE compiled loop (`core/compiled.run_compiled` on the
-      stacked state, `registration.make_batched_step`): one
-      `fused_moments` launch an iteration sweeps every lane that has not
-      converged, until the slowest lane converges.  The direct step and
-      the dense backend run the lanes one after another through the
-      compiled align loop, every lane of a key through one compiled
-      align.  Either way each lane's result is the bits of `align` on
-      its pair.
+      and cheb acvo, whose Chebyshev tables of every lane are one
+      `fused_wsq` launch).  The dense backend and the kernel backend's
+      moment step then run the batch as ONE compiled loop
+      (`core/compiled.run_compiled` on the stacked state,
+      `registration.make_batched_step`) until the slowest lane
+      converges: on "kernel" one `fused_moments` launch an iteration
+      sweeps every lane that has not converged (and exact acvo's
+      self-sweeps one `fused_wsq` launch), on "dense" the Grams are
+      [B, N, M].  The kernel backend's direct step runs the lanes one
+      after another through the compiled align loop, every lane of a
+      key through one compiled align.  Either way each lane's result is
+      the bits of `align` on its pair.
 
     With a `mesh`, the lanes shard over its `dp_axis` (B must divide by
     its size): each dp rank registers its B/dp lanes as above, on its

@@ -4,8 +4,9 @@ compiled align loop, and `color_gram` with a lane axis, on the CPU.
 JAX compiles `align_batched` on "pallas" and "xla" as jit(vmap(align)):
 vmap gives the color-cache kernel a lane axis, one launch a batch.  The
 port routes the batch once, builds the color caches of all the lanes in
-one `color_gram` call a cache (three for acvo), and runs each lane
-through `core/compiled.py`'s loop (`run_compiled`).  Each lane must be
+one `color_gram` call a cache (three for acvo), and runs the batch
+through `core/compiled.py`'s loop (`run_compiled`), one loop for the
+batch on both backends.  Each lane must be
 the port's single-pair `align` on its pair, bit for bit; against the
 JAX package the lanes are held as `align` is, op by op (its jitted
 Pallas path kd-sorts with XLA:CPU, which duplicates points: ROADMAP,
@@ -150,11 +151,10 @@ CASES = {
 def test_compiled_lanes_are_the_bits_of_align(case, monkeypatch):
     """(c) Lanes of different pairs (one retired): every lane `align`'s
     bits on its pair; all lanes through one compiled align, one block a
-    CHECK_EVERY iterations started (on the kernel backend one loop for
-    the batch, its blocks those of the slowest lane; on the dense one
-    the lanes' blocks in turn); on the kernel backend one `color_gram`
-    call a batch for cvo, three for acvo, each on the lane axis, and
-    none on the dense one."""
+    CHECK_EVERY iterations started (one loop for the batch on both
+    backends, its blocks those of the slowest lane); on the kernel
+    backend one `color_gram` call a batch for cvo, three for acvo, each
+    on the lane axis, and none on the dense one."""
     p = CASES[case]
     xs, ys = _lanes([(200, 256), (256, 256), (150, 256)], empty_lane=True)
     compiled.align_jit.cache_clear()
@@ -170,7 +170,7 @@ def test_compiled_lanes_are_the_bits_of_align(case, monkeypatch):
     assert len(compiled.CACHE) == 1
     lane_blocks = [math.ceil((int(k) + 1) / treg.CHECK_EVERY)
                    for k in res.iterations]
-    assert blocks == (max(lane_blocks) if kernel else sum(lane_blocks))
+    assert blocks == max(lane_blocks)
     for i in range(3):
         _assert_same(_lane(res, i), ct.align(p, xs[i], ys[i], device="cpu"))
     assert int(res.iterations[0]) > 0 and int(res.iterations[2]) == 0

@@ -427,8 +427,8 @@ def test_a_transposed_warm_start_keys_its_own_batch():
 
 def test_the_direct_step_keeps_its_lanes(monkeypatch):
     """step_mode="direct" runs each lane through its one-pair compiled
-    align (its sweeps have no lane axis yet); make_batched_step refuses
-    it and the dense backend."""
+    align (its sweeps have no lane axis: no JAX align path launches
+    them); make_batched_step refuses it."""
     p = ct.CvoParams(step_mode="direct", **FAST)
     _, xs, ys = _clouds(range(94, 96))
     compiled.align_jit.cache_clear()
@@ -437,6 +437,5 @@ def test_the_direct_step_keeps_its_lanes(monkeypatch):
     assert {k[-1] for k in compiled.CACHE} == {()}
     for i in range(2):
         _assert_same(_lane(res, i), ct.align(p, xs[i], ys[i], device="cpu"))
-    for q in (p, ct.CvoParams(backend="dense")):
-        with pytest.raises(ValueError, match="moment step"):
-            treg.make_batched_step(q)
+    with pytest.raises(ValueError, match="moment step"):
+        treg.make_batched_step(p)

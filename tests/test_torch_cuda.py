@@ -1902,10 +1902,10 @@ def test_align_batched_compiled_lanes_on_the_card(dev, algo):
     """align_batched on the kernel (and dense) backend: each lane the
     bits of `align` on its pair on the card (warm-started from a
     transposed view of R0 in the last case), one compiled loop for the
-    batch on the kernel backend (the slowest lane's graph replays, one
-    `fused_moments` launch a batch an iteration) and one compiled align
-    for the dense lanes (their replays in turn), and one color_gram
-    launch a cache a batch."""
+    batch (the slowest lane's graph replays; on the kernel backend one
+    `fused_moments` launch a batch an iteration, exact acvo's one
+    `fused_wsq` launch a batch an iteration, cheb's one for its tables),
+    and one color_gram launch a cache a batch."""
     import math
 
     import cvo_rgbd_torch as ct
@@ -1931,9 +1931,10 @@ def test_align_batched_compiled_lanes_on_the_card(dev, algo):
                 torch.full((3, 3), 0.002, device=dev),
                 torch.full((3,), 0.1, device=dev)]
         assert warm[0][0].stride() == (1, 3)
-    from cvo_rgbd_torch.ops import moments
+    from cvo_rgbd_torch.ops import moments, wsq
 
     launches = gram.color_gram.launches
+    wsq_launches = wsq.fused_wsq.launches
     lane_launches = moments.fused_moments.lanes.launches
     one_pair = moments.fused_moments.launches
     replays = compiled.align_jit.replays
@@ -1945,22 +1946,72 @@ def test_align_batched_compiled_lanes_on_the_card(dev, algo):
     assert gram.color_gram.launches - launches == want
     blocks = [math.ceil((int(k) + 1) / 8) for k in res.iterations]
     replayed = compiled.align_jit.replays - replays
-    if p.backend == "dense":
-        assert replayed == sum(blocks)
-    else:
-        assert replayed == max(blocks)
-        # the captures' eager warm-up blocks launch too
-        assert moments.fused_moments.lanes.launches - lane_launches \
-            == 8 * replayed + compiled.align_jit.warmups - warmups
+    assert replayed == max(blocks)
+    # the captures' eager warm-up blocks launch too
+    iters = 8 * replayed + compiled.align_jit.warmups - warmups
+    if p.backend != "dense":
+        assert moments.fused_moments.lanes.launches - lane_launches == iters
         assert moments.fused_moments.launches == one_pair
-    # one compiled loop for the batch (kernel) or for its lanes (dense)
-    lanes = () if p.backend == "dense" else (3,)
+    assert wsq.fused_wsq.launches - wsq_launches == {
+        "acvo exact": iters, "acvo cheb": 1}.get(algo, 0)
+    # one compiled loop for the batch
     assert len([k for k in compiled.CACHE if k[0] == p and k[1:3] == (
-        3072, 3072) and k[-1] == lanes]) == 1
+        3072, 3072) and k[-1] == (3,)]) == 1
     for i, (x, y) in enumerate(pairs):
         ref = ct.align(p, x, y, *(None if w is None else w[i] for w in warm))
         for f in _JIT_FIELDS:
             assert torch.equal(getattr(res, f)[i], getattr(ref, f)), (i, f)
+
+
+@pytest.mark.parametrize("mode", ["ck skip", "no ck", "no skip", "fast",
+                                  "cheb"])
+def test_fused_wsq_lanes_are_one_pair_launches(dev, mode):
+    """fused_wsq on a lane axis: one launch for the sweeps of three lanes
+    (an exact acvo batch iteration's two; cheb: a batch's 2K = 24 table
+    sweeps, an ell a lane and a sweep), each (lane, sweep) the bits of
+    the lane's one-pair launch and within 1e-4 of its plain version (nnz
+    exact; fast: within the near-gate pairs), a frozen lane zeros and
+    the others unchanged."""
+    from cvo_rgbd_torch.core import registration as treg
+    from cvo_rgbd_torch.core.cloud import stack_clouds
+    from cvo_rgbd_torch.ops import gram, moments, wsq
+    from cvo_rgbd_torch.params import AcvoParams
+
+    fast = mode == "fast"
+    p = AcvoParams(exp_mode="fast" if fast else "precise",
+                   ck_cache=mode != "no ck", tile_skip=mode != "no skip")
+    pairs = [_clouds(dev, seed=60 + s) for s in range(3)]
+    x = stack_clouds([a for a, _ in pairs])
+    y = stack_clouds([b for _, b in pairs])
+    pre = treg.prepare_batch(p, x, y, [None] * 3)
+    sweeps = treg._self_sweeps(x, tuple(y), pre.ck, pre.skip)
+    ell = torch.tensor([0.1, 0.06, 0.0391], device=dev)
+    if mode == "cheb":
+        sweeps = sweeps * 12
+        ell = ell[:, None] * torch.linspace(0.5, 1.5, 24, device=dev)
+    scal = gram.scalars(ell, p)
+    before = wsq.fused_wsq.launches
+    w, n = wsq.fused_wsq_sweeps_cuda(sweeps, scal, fast)
+    torch.cuda.synchronize()
+    assert wsq.fused_wsq.launches == before + 1
+    assert w.shape == n.shape == (3, len(sweeps))
+    ref_w, ref_n = wsq.fused_wsq_sweeps_plain(sweeps, scal, fast)
+    for b in range(3):
+        lane = [wsq.lane_sweep(sw, b) for sw in sweeps]
+        w1, n1 = wsq.fused_wsq_sweeps_cuda(lane, scal[b], fast)
+        assert torch.equal(_bits(w[b]), _bits(w1))
+        assert torch.equal(_bits(n[b]), _bits(n1))
+        assert ((w[b] - ref_w[b]).abs() <= 1e-4 * ref_w[b].abs()).all()
+        for k, sw in enumerate(lane):
+            row = scal[b] if scal.dim() == 2 else scal[b, k]
+            near = (moments.near_gate_pairs(*sw.x, *sw.y, row, sw.ck)
+                    if fast else 0)
+            assert abs(float(n[b, k]) - float(ref_n[b, k])) <= near
+            assert float(n[b, k]) > 0
+    live = torch.tensor([True, False, True], device=dev)
+    wl, nl = wsq.fused_wsq_sweeps_cuda(sweeps, scal, fast, live)
+    assert not wl[1].any() and not nl[1].any()
+    assert torch.equal(wl[0::2], w[0::2]) and torch.equal(nl[0::2], n[0::2])
 
 
 @pytest.mark.parametrize("mode", ["ck", "no ck", "linear", "fast"])
