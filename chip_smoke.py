@@ -106,12 +106,14 @@ and prints no result line):
    (63 x 384): one launch against its plain version and every lane the
    bits of the one-pair launch, timed beside the B one-pair launches;
    8d. `fused_moments` with a lane axis at the same two batches (8's
-   lanes in MATLAB's linear mode) and in the fast form at 8b's: one
+   lanes in MATLAB's linear mode), in the fast form at 8b's and at 8b's
+   with ell 0.1 on every lane (the most tiles kept): one
    launch against its plain version lane by lane, every lane the bits of
    the one-pair launch, a frozen lane not swept, timed beside the B
    one-pair launches; 8f. `fused_wsq` with a lane axis (row 3b): exact
-   acvo's two self-sweeps of every lane at 8b's batch (precise and fast)
-   and at 8's (63 x 384), and 8b's Chebyshev tables (9 lanes x 24
+   acvo's two self-sweeps of every lane at 8b's batch (precise, fast,
+   and at ell 0.1 on every lane) and at 8's (63 x 384), and 8b's
+   Chebyshev tables (9 lanes x 24
    sweeps): one launch against its plain version, every lane the bits
    of its one-pair launch, a frozen lane not swept, timed beside the B
    one-pair launches, with the 63-lane launch's fixed cost (no lane
@@ -2115,9 +2117,10 @@ def phase_moments_batched(clouds, sets, p):
     render's 9 pairs at 3072, the color cache and the tile skip) and at
     8's (the coarse pcd pairs x LANE_REPEAT, 63 lanes at 384, MATLAB's
     linear mode: its masked CI and the skip), then 8b's batch in its
-    exp_mode="fast" form.  The inputs are the batched loop's
-    (`route` and `prepare_batch` on the stacks), each lane at its own
-    ell, each moving cloud moved a little as an iteration sees it.  One
+    exp_mode="fast" form and at ell 0.1 on every lane (the most tiles
+    kept, the regime of the batch's design).  The inputs are the batched
+    loop's (`route` and `prepare_batch` on the stacks), each lane at its
+    own ell, each moving cloud moved a little as an iteration sees it.  One
     launch against the plain version lane by lane (Mom within 1e-4 of
     each column's magnitude, nnz exact; fast: within the near-gate
     pairs), every lane the bits of the one-pair launch on it, a frozen
@@ -2136,12 +2139,16 @@ def phase_moments_batched(clouds, sets, p):
 
     dev = torch.device("cuda")
     pcd = pad_clouds(sets[BATCH_GRID], dev)
-    cases = [("render", p, clouds[:-1], clouds[1:], 1),
+    # (name, params, fixed, moving, repeat, ell of the first and last
+    # lane); the last case keeps the most tiles: ell 0.1 on every lane
+    cases = [("render", p, clouds[:-1], clouds[1:], 1, (p.ell_init, 0.03)),
              (f"pcd grid={BATCH_GRID} linear", MATLAB_PARAMS, pcd[:-1],
-              pcd[1:], LANE_REPEAT),
-             ("render/fast", fast_params(p), clouds[:-1], clouds[1:], 1)]
+              pcd[1:], LANE_REPEAT, (MATLAB_PARAMS.ell_init, 0.03)),
+             ("render/fast", fast_params(p), clouds[:-1], clouds[1:], 1,
+              (p.ell_init, 0.03)),
+             ("render ell 0.1", p, clouds[:-1], clouds[1:], 1, (0.1, 0.1))]
     row, err_all = None, 0.0
-    for name, q, xs, ys, repeat in cases:
+    for name, q, xs, ys, repeat, ells in cases:
         fast = q.exp_mode == "fast"
         linear = q.color_mode == "linear"
         q, x, y = route(q, stack_clouds(xs, repeat=repeat),
@@ -2153,7 +2160,7 @@ def phase_moments_batched(clouds, sets, p):
                                            device=dev)
         md = aabb_min_d2(*pre.skip[:2],
                          *block_bounds(y_pos, y.mask, moments.TILE_J))
-        ell = torch.linspace(q.ell_init, 0.03, b, device=dev)
+        ell = torch.linspace(*ells, b, device=dev)
         scal = gram.scalars(ell, q)
         args = (x_c, x.features, x.mask, y_pos - c0[:, None, :],
                 y.features, y.mask, phi, scal, pre.ck[0], md)
@@ -2234,7 +2241,8 @@ def phase_wsq_batched(clouds_a, sets, pa):
     3072, each lane at its own ell from ell_init to ell_min, the moving
     clouds moved a little), in the precise and the fast form, and at 8's
     (the coarse pcd pairs x LANE_REPEAT, 63 lanes at 384, features
-    padded); then 8b's Chebyshev tables (9 lanes x 2K sweeps, each lane
+    padded), and 8b's batch at ell 0.1 on every lane (the most tiles
+    kept); then 8b's Chebyshev tables (9 lanes x 2K sweeps, each lane
     at its own nodes), as `prepare_batch` builds them.  One launch
     against the plain version (wsq within 1e-4 relative, nnz exact;
     fast: within the near-gate pairs), every lane the bits of its
@@ -2260,11 +2268,18 @@ def phase_wsq_batched(clouds_a, sets, pa):
     dev = torch.device("cuda")
     tw = wsq.TILE_W
     pcd = pad_clouds(sets[BATCH_GRID], dev)
-    cases = [("render", pa, clouds_a[:-1], clouds_a[1:], 1),
-             ("render/fast", fast_params(pa), clouds_a[:-1], clouds_a[1:], 1),
-             (f"pcd grid={BATCH_GRID}", pa, pcd[:-1], pcd[1:], LANE_REPEAT)]
+    # (name, params, fixed, moving, repeat, ell of the first and last
+    # lane); the last case keeps the most tiles: ell 0.1 on every lane
+    span = (pa.ell_init, pa.ell_min)
+    cases = [("render", pa, clouds_a[:-1], clouds_a[1:], 1, span),
+             ("render/fast", fast_params(pa), clouds_a[:-1], clouds_a[1:], 1,
+              span),
+             (f"pcd grid={BATCH_GRID}", pa, pcd[:-1], pcd[1:], LANE_REPEAT,
+              span),
+             ("render ell 0.1", pa, clouds_a[:-1], clouds_a[1:], 1,
+              (0.1, 0.1))]
     row, err_all = None, 0.0
-    for name, q, xs, ys, repeat in cases:
+    for name, q, xs, ys, repeat, ells in cases:
         fast = q.exp_mode == "fast"
         q, x, y = route(q, stack_clouds(xs, repeat=repeat),
                         stack_clouds(ys, repeat=repeat))
@@ -2274,7 +2289,7 @@ def phase_wsq_batched(clouds_a, sets, pa):
                                            device=dev)
         sweeps = _self_sweeps(x, (y_pos, y.features, y.mask), pre.ck,
                               pre.skip)
-        ell = torch.linspace(q.ell_init, q.ell_min, b, device=dev)
+        ell = torch.linspace(*ells, b, device=dev)
         scal = gram.scalars(ell, q)
         lanes = [[wsq.lane_sweep(sw, i) for sw in sweeps] for i in range(b)]
 

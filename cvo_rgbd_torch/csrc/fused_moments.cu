@@ -17,20 +17,42 @@
 //
 // Bound on the H100: per pair of a kept tile ~35 fp32 operations (d2,
 // exp, gate; 44 more for a recomputed color kernel) and 4 bytes of ck
-// when the color kernel is cached, plus the contraction (see
-// moment_tile.cuh, which holds the sweep and its design):
-//   - one block per item, an (i-tile of 64, j-block of 128) pair, so
-//     the few kept tiles of the kd-sorted clouds run side by side on
-//     their own SMs; a skipped tile costs one bound compare and writes
-//     count 0;
+// when the color kernel is cached, plus the contraction (35 FMAs where
+// the pair passes the gate).  Two regimes: one pair keeps a few dozen
+// tiles, each on its own SM, and waits on a tile's chain of rows; a
+// batch (the lane axis) keeps a thousand or more, five blocks an SM,
+// and is bound by the SM's instruction issue.  The design:
+//   - one block per item, an (i-tile of 64, j-block of 128) pair; a
+//     skipped tile costs one bound compare and writes count 0;
 //   - a thread owns one j, its 35 moments in registers, and walks the
-//     tile's rows in order (moment_tile.cuh); the ck tile is copied with
-//     cp.async beside the i-tile (one wait for the tile's bytes);
-//   - a second small kernel, a block per (j-block, 5 moment columns),
-//     sums a column's kept tile partials in i-tile order (the skip's own
-//     rule picks them: a skipped tile's partial is zero and unwritten)
-//     and the int counts.  No float atomics: the sums, and through the
-//     gates the iteration counts, are the same from run to run.
+//     tile's rows in order, one fused multiply-add a moment where the
+//     weight is not zero: a tile's partial is the bits of the
+//     moment_tile.cuh sweep it replaced (that of align_fused.cu);
+//   - the staged Phi rows are padded to 36 floats, so that a row's 35
+//     coefficients are 9 16-byte shared loads, broadcast to the warp
+//     (the 140-byte rows took 35 4-byte loads: as many shared loads as
+//     FMAs, a third of the row's instructions);
+//   - the weights of RG rows are computed before their FMAs: RG
+//     independent exp chains in flight, where one row's chain left the
+//     one-pair tile waiting ~100 cycles a row; none at all where every
+//     pair of the RG rows and the warp's 32 j lies beyond the gate (the
+//     weights are zero there, as the tile skip has it for whole tiles);
+//     the scalar row is read into registers once (the gate's sp_thres
+//     was a global load inside the row loop);
+//   - the ck tile is copied with cp.async beside the i-tile (one wait
+//     for the tile's bytes);
+//   - a second small kernel, a block per 32 j of a lane (a warp per 7
+//     moments), sums a column's kept tile partials in i-tile order (the
+//     skip's own rule picks them: a skipped tile's partial is zero and
+//     unwritten), the loads of U tiles issued before their adds, and
+//     stores its 32 rows of Mom as one contiguous run (one block's
+//     scattered 20-byte pieces of rows cost a 32-byte sector each);
+//     block 0 sums the int counts, their loads issued first.  No float
+//     atomics: the sums, and through the gates the iteration counts, are
+//     the same from run to run.
+// moment_tile.cuh keeps the align kernel's sweep as it was: its tiles
+// run inside one cooperative launch whose shared memory and registers
+// its other phases size, and its bits are held in turns on their own.
 // The lane (pair) is grid z of both kernels, as in color_gram.cu: each
 // lane reads its own slices of the inputs and writes its own scratch
 // slices, so a lane's Mom and nnz are the bits of the one-pair launch on
@@ -47,32 +69,53 @@ namespace {
 using cvo::mt::NMOM;
 using cvo::mt::TI;
 using cvo::mt::TJ;
+using cvo::mt::NT;
+using cvo::mt::NW;
 constexpr float SKIP_MARGIN = 1e-5f;
-// moment columns a thread of the reduce kernel sums
-constexpr int KPB = 5;
+// a staged Phi row: 35 floats padded to 9 float4
+constexpr int PHI_Q = (NMOM + 3) / 4;
+// rows whose weights are computed before their FMAs
+constexpr int RG = 4;
+// kept tiles whose partials the reduce loads before adding them
+constexpr int U = 4;
 
-// The tile kernel's shared memory: the i-tile and, when the color kernel
-// or linear ci is cached, its [TI, TJ] tile.
+// The tile kernel's shared memory: the i-tile (Phi rows padded, x and
+// the mask, the features) and, when the color kernel or linear ci is
+// cached, its [TI, TJ] tile.
 template <bool USE_CK>
 struct Smem {
-  cvo::mt::Tile T;
-  float ck[USE_CK ? TI : 1][TJ];
-  int cnt[cvo::mt::NW];
+  float4 phi[TI][PHI_Q];
+  float4 x[TI];           // x0, x1, x2, mask
+  alignas(16) float ck[USE_CK ? TI : 1][TJ];
+  float f[USE_CK ? 1 : TI][cvo::NFEAT];
+  int cnt[NW];
 };
 
 // A_ij of the thread's j: se (color kernel cached or recomputed) or
-// linear (ck the masked ci), as pair_tile.cuh computes it.
+// linear (ck the masked ci), as pair_tile.cuh computes it, from the
+// pair's d2; `s` the scalar row in registers.
 template <bool USE_CK, bool LINEAR, bool FAST>
 struct Weight {
   const float (*ck)[TJ];   // the staged ck tile
   float y[3];
   float fy[cvo::NFEAT];
   float ym;
-  const float* s;
+  float s[cvo::N_SCAL];
 
-  __device__ __forceinline__ float operator()(int ii, float4 xi,
-                                              const float* fi) const {
-    const float d2 = cvo::sqdist3(xi.x, xi.y, xi.z, y[0], y[1], y[2]);
+  __device__ __forceinline__ float dist(float4 xi) const {
+    return cvo::sqdist3(xi.x, xi.y, xi.z, y[0], y[1], y[2]);
+  }
+
+  // whether the pair may pass the gate: beyond it A is zero (in linear
+  // mode, where no d2 gate applies, beyond d2_thres + SKIP_MARGIN, where
+  // k is far below sp_thres: the tile skip's own argument)
+  __device__ __forceinline__ bool near(float d2) const {
+    return LINEAR ? d2 <= s[cvo::S_D2_THRES] + SKIP_MARGIN
+                  : d2 < s[cvo::S_D2_THRES];
+  }
+
+  __device__ __forceinline__ float at(int ii, float d2, float4 xi,
+                                      const float* fi) const {
     if constexpr (LINEAR) {
       return cvo::pair_linear<FAST>(d2, ck[ii][threadIdx.x], s);
     } else if constexpr (USE_CK) {
@@ -91,10 +134,55 @@ __device__ __forceinline__ bool kept_tile(const float* md, const float* scal,
          !(md[c * nbj + jb] > scal[cvo::S_D2_THRES] + SKIP_MARGIN);
 }
 
+// The sweep of a staged tile for the thread's j: acc[k] += A_ij Phi[i, k]
+// over the tile's rows in order, one fused multiply-add each, where the
+// weight is not zero; returns the count of A > 0.  The weights of RG
+// rows are computed together, and not at all where every pair of the
+// RG rows and the warp's 32 j lies beyond the gate (all zero).
+template <bool USE_CK, class W>
+__device__ __forceinline__ int sweep(const Smem<USE_CK>& S, const W& weight,
+                                     float (&acc)[NMOM]) {
+  int cnt = 0;
+  for (int i0 = 0; i0 < TI; i0 += RG) {
+    float d2[RG];
+    bool near = false;
+#pragma unroll
+    for (int r = 0; r < RG; ++r) {
+      d2[r] = weight.dist(S.x[i0 + r]);
+      near |= weight.near(d2[r]);
+    }
+    if (!__any_sync(0xffffffffu, near)) continue;
+    float w[RG];
+#pragma unroll
+    for (int r = 0; r < RG; ++r)
+      w[r] = weight.at(i0 + r, d2[r], S.x[i0 + r],
+                       S.f[USE_CK ? 0 : i0 + r]);
+#pragma unroll
+    for (int r = 0; r < RG; ++r) {
+      // a linear weight may be negative: it enters the moments, and
+      // only w > 0 is counted
+      if (w[r] != 0.0f) {
+        cnt += w[r] > 0.0f;
+        const float4* p = S.phi[i0 + r];
+#pragma unroll
+        for (int q = 0; q < PHI_Q; ++q) {
+          const float4 v = p[q];
+          const float c[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (4 * q + e < NMOM)
+              acc[4 * q + e] = fmaf(w[r], c[e], acc[4 * q + e]);
+        }
+      }
+    }
+  }
+  return cnt;
+}
+
 // One block per tile: j-block blockIdx.x, i-tile blockIdx.y.  Writes
 // the tile's partial and count, or count 0 alone when the skip drops it.
 template <bool USE_CK, bool LINEAR, bool FAST>
-__global__ void __launch_bounds__(cvo::mt::NT)
+__global__ void __launch_bounds__(NT)
 moments_tile_kernel(const float* __restrict__ xp,
                     const float* __restrict__ xf,
                     const float* __restrict__ xm,
@@ -110,6 +198,7 @@ moments_tile_kernel(const float* __restrict__ xp,
                     int n, int m) {
   extern __shared__ __align__(16) unsigned char smem[];
   Smem<USE_CK>& S = *reinterpret_cast<Smem<USE_CK>*>(smem);
+  constexpr bool FEAT = !USE_CK && !LINEAR;
 
   // this block's lane: a frozen lane sweeps nothing
   const size_t lane = blockIdx.z;
@@ -136,19 +225,38 @@ moments_tile_kernel(const float* __restrict__ xp,
     return;
   }
   const int i0 = ib * TI, j0 = jb * TJ;
-  cvo::mt::stage_begin(S.T, xp, xf, xm, phi, i0, !USE_CK && !LINEAR);
+  // the tile's Phi rows (4-byte copies into the padded rows), x, the
+  // mask and, recomputing the color kernel, the features
+  {
+    const float* src = phi + static_cast<size_t>(i0) * NMOM;
+    for (int t = tid; t < TI * NMOM; t += NT) {
+      const int r = t / NMOM;
+      cvo::mt::cp_async4(reinterpret_cast<float*>(S.phi[r]) + (t - r * NMOM),
+                         src + t);
+    }
+    for (int t = tid; t < TI * 3; t += NT)
+      cvo::mt::cp_async4(reinterpret_cast<float*>(&S.x[t / 3]) + t % 3,
+                         xp + 3 * i0 + t);
+    for (int t = tid; t < TI; t += NT)
+      cvo::mt::cp_async4(reinterpret_cast<float*>(&S.x[t]) + 3, xm + i0 + t);
+    if constexpr (FEAT)
+      for (int t = tid; t < TI * cvo::NFEAT; t += NT)
+        cvo::mt::cp_async4(&S.f[0][0] + t, xf + cvo::NFEAT * i0 + t);
+  }
   if constexpr (USE_CK) {
     // the [TI, TJ] ck tile in 16-byte pieces (ck is 16-byte aligned: the
     // wrapper checks)
     const float* src = ck + static_cast<size_t>(i0) * m + j0;
-    for (int t = tid; t < TI * TJ / 4; t += cvo::mt::NT) {
+    for (int t = tid; t < TI * TJ / 4; t += NT) {
       const int r = t / (TJ / 4), c = 4 * (t % (TJ / 4));
       cvo::mt::cp_async16(&S.ck[r][c], src + static_cast<size_t>(r) * m + c);
     }
   }
+  asm volatile("cp.async.commit_group;\n" ::);
   Weight<USE_CK, LINEAR, FAST> w;
   w.ck = S.ck;
-  w.s = scal;
+#pragma unroll
+  for (int k = 0; k < cvo::N_SCAL; ++k) w.s[k] = scal[k];
   {
     const int j = j0 + tid;
     for (int r = 0; r < 3; ++r) w.y[r] = yp[3 * j + r];
@@ -161,7 +269,7 @@ moments_tile_kernel(const float* __restrict__ xp,
   float acc[NMOM];
 #pragma unroll
   for (int k = 0; k < NMOM; ++k) acc[k] = 0.0f;
-  int cnt = cvo::mt::sweep(S.T, w, acc);
+  int cnt = sweep(S, w, acc);
   cvo::mt::store(acc, part + static_cast<size_t>(ib) * NMOM * m, m, j0);
 
   // integer block count: exact in any order
@@ -172,16 +280,38 @@ moments_tile_kernel(const float* __restrict__ xp,
   __syncthreads();
   if (tid == 0) {
     int tot = 0;
-    for (int v = 0; v < cvo::mt::NW; ++v) tot += S.cnt[v];
+    for (int v = 0; v < NW; ++v) tot += S.cnt[v];
     *count = tot;
   }
 }
 
-// Block (jb, g, lane): one thread per j of j-block jb sums KPB moment
-// columns from g * KPB over the kept tiles in i-tile order; block
-// (0, 0, lane) also sums every item's count.  A frozen lane's blocks
-// write zeros.
-__global__ void __launch_bounds__(cvo::mt::NT)
+// The reduce kernel: a block per 32 j of a lane, warp g summing the RK
+// moments from RK g of its 32 j, so that the block's output is 32
+// whole rows of Mom, one contiguous run it stores in 16-byte pieces.
+constexpr int RJ = 32;
+constexpr int RK = 7;
+constexpr int RW = NMOM / RK;
+constexpr int RT = RJ * RW;
+static_assert(RW * RK == NMOM, "the reduce warps split the moments");
+// counts a thread of block 0 loads before the column sum
+constexpr int CU = 8;
+
+struct ReduceScratch {
+  int list[RT];   // kept i-tiles of a window of RT, in order
+  int warp[RW];
+  int n;
+  alignas(16) float out[RJ * NMOM];
+  long long tot[RW];
+};
+
+// Block (j0 / RJ, 0, lane): thread (jl, g) sums moments RK g .. RK g +
+// RK - 1 of j = j0 + jl over the kept tiles of j's j-block in i-tile
+// order (the skip's own rule picks them: a skipped tile's partial is
+// zero and unwritten), the loads of U tiles issued before any is added:
+// each sum the bits of the one-block-a-column sum it replaced.  Block
+// (0, 0, lane) also sums every item's count, its loads issued first.  A
+// frozen lane's blocks write zeros.
+__global__ void __launch_bounds__(RT)
 moments_reduce_kernel(const float* __restrict__ part,
                       const int* __restrict__ cnt_part,
                       const float* __restrict__ md,
@@ -189,46 +319,96 @@ moments_reduce_kernel(const float* __restrict__ part,
                       const unsigned char* __restrict__ live,
                       float* __restrict__ mom, float* __restrict__ nnz, int m,
                       int nbi) {
-  __shared__ cvo::mt::ColumnScratch cs;
-  __shared__ long long s_tot[cvo::mt::NW];
+  __shared__ ReduceScratch rs;
   const size_t lane = blockIdx.z;
-  const int nbj = m / TJ, jb = blockIdx.x;
-  const int j = jb * TJ + threadIdx.x;
-  const int k0 = blockIdx.y * KPB;
-  mom += lane * m * NMOM;
+  const int nbj = m / TJ;
+  const int j0 = blockIdx.x * RJ, jb = j0 / TJ;
+  const int jl = threadIdx.x % RJ, g = threadIdx.x / RJ;
+  const int j = j0 + jl, k0 = g * RK;
+  float* out = mom + lane * m * NMOM + static_cast<size_t>(j0) * NMOM;
   nnz += lane;
   // block-uniform: every thread takes the same branch
   if (live != nullptr && !live[lane]) {
-#pragma unroll
-    for (int k = 0; k < KPB; ++k)
-      if (k0 + k < NMOM) mom[static_cast<size_t>(j) * NMOM + k0 + k] = 0.0f;
-    if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) nnz[0] = 0.0f;
+    for (int t = threadIdx.x; t < RJ * NMOM; t += RT) out[t] = 0.0f;
+    if (blockIdx.x == 0 && threadIdx.x == 0) nnz[0] = 0.0f;
     return;
   }
   part += lane * nbi * NMOM * m;
   cnt_part += lane * nbi * nbj;
   if (md != nullptr) md += lane * nbi * nbj;
   scal += lane * cvo::N_SCAL;
-  float sum[KPB];
+  const bool counts = blockIdx.x == 0;
+  const int items = nbi * nbj;
+  int cv[CU];
+  if (counts) {
 #pragma unroll
-  for (int k = 0; k < KPB; ++k) sum[k] = 0.0f;
-  cvo::mt::column_sum(
-      part, nbi, m, j, k0,
-      [=](int c) { return kept_tile(md, scal, c, nbj, jb); }, cs, sum);
+    for (int q = 0; q < CU; ++q) {
+      const int c = threadIdx.x + q * RT;
+      cv[q] = c < items ? __ldcg(cnt_part + c) : 0;
+    }
+  }
+  float sum[RK];
 #pragma unroll
-  for (int k = 0; k < KPB; ++k)
-    if (k0 + k < NMOM) mom[static_cast<size_t>(j) * NMOM + k0 + k] = sum[k];
-  if (blockIdx.x != 0 || blockIdx.y != 0) return;
+  for (int k = 0; k < RK; ++k) sum[k] = 0.0f;
+  const int wl = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int c0 = 0; c0 < nbi; c0 += RT) {
+    // this window's kept tiles, compacted in order
+    const int c = c0 + threadIdx.x;
+    const bool keep = c < nbi && kept_tile(md, scal, c, nbj, jb);
+    const unsigned bits = __ballot_sync(0xffffffffu, keep);
+    __syncthreads();  // the last window's list is consumed
+    if (wl == 0) rs.warp[warp] = __popc(bits);
+    __syncthreads();
+    int at = __popc(bits & ((1u << wl) - 1u));
+    for (int w = 0; w < warp; ++w) at += rs.warp[w];
+    if (keep) rs.list[at] = c;
+    if (threadIdx.x == 0) {
+      int n = 0;
+      for (int w = 0; w < RW; ++w) n += rs.warp[w];
+      rs.n = n;
+    }
+    __syncthreads();
+    const int n = rs.n;
+    for (int q0 = 0; q0 < n; q0 += U) {
+      float v[U][RK];
+#pragma unroll
+      for (int q = 0; q < U; ++q) {
+        // past the list: a kept tile's slot again, loaded and not added
+        const float* p =
+            part + (static_cast<size_t>(rs.list[min(q0 + q, n - 1)]) * NMOM +
+                    k0) * m + j;
+#pragma unroll
+        for (int k = 0; k < RK; ++k) v[q][k] = __ldcg(p + k * m);
+      }
+#pragma unroll
+      for (int q = 0; q < U; ++q)
+        if (q0 + q < n) {
+#pragma unroll
+          for (int k = 0; k < RK; ++k) sum[k] += v[q][k];
+        }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < RK; ++k) rs.out[jl * NMOM + k0 + k] = sum[k];
+  __syncthreads();
+  // the block's 32 rows are one run of 1120 floats (16-byte aligned: m
+  // and j0 are multiples of 32)
+  const float4* src = reinterpret_cast<const float4*>(rs.out);
+  float4* dst = reinterpret_cast<float4*>(out);
+  for (int t = threadIdx.x; t < RJ * NMOM / 4; t += RT) dst[t] = src[t];
+  if (!counts) return;
   long long tot = 0;
-  for (int c = threadIdx.x; c < nbi * nbj; c += cvo::mt::NT)
-    tot += cnt_part[c];
+#pragma unroll
+  for (int q = 0; q < CU; ++q) tot += cv[q];
+  for (int c = threadIdx.x + CU * RT; c < items; c += RT)
+    tot += __ldcg(cnt_part + c);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     tot += __shfl_down_sync(0xffffffffu, tot, off);
-  if ((threadIdx.x & 31) == 0) s_tot[threadIdx.x >> 5] = tot;
+  if (wl == 0) rs.tot[warp] = tot;
   __syncthreads();
   if (threadIdx.x == 0) {
-    for (int v = 1; v < cvo::mt::NW; ++v) tot += s_tot[v];
+    for (int w = 1; w < RW; ++w) tot += rs.tot[w];
     nnz[0] = static_cast<float>(tot);
   }
 }
@@ -246,9 +426,8 @@ cudaError_t launch_tiles(dim3 grid, cudaStream_t stream, const float* xp,
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  fn<<<grid, cvo::mt::NT, bytes, stream>>>(xp, xf, xm, yp, yf, ym, phi, ck,
-                                           md, scal, live, part, cnt_part, n,
-                                           m);
+  fn<<<grid, NT, bytes, stream>>>(xp, xf, xm, yp, yf, ym, phi, ck, md, scal,
+                                  live, part, cnt_part, n, m);
   return cudaGetLastError();
 }
 
@@ -288,8 +467,8 @@ extern "C" int fused_moments_launch(
   const cudaError_t err = fn(grid, stream, xp, xf, xm, yp, yf, ym, phi, ck,
                              md, scal, live, part, cnt_part, n, m);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 rgrid(m / TJ, (NMOM + KPB - 1) / KPB, b);
-  moments_reduce_kernel<<<rgrid, cvo::mt::NT, 0, stream>>>(
+  const dim3 rgrid(m / RJ, 1, b);
+  moments_reduce_kernel<<<rgrid, RT, 0, stream>>>(
       part, cnt_part, md, scal, live, mom, nnz, m, n / TI);
   return static_cast<int>(cudaGetLastError());
 }

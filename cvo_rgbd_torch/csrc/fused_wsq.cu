@@ -37,13 +37,19 @@
 //     that order.  Every block finds each unit's prefix length with two
 //     rounds of warp loads (kept_prefix, a warp a unit: B S / 8 rounds a
 //     block), with no host sync, then lays the units end to end by a
-//     block-wide scan;
-//   - a persistent grid of two blocks an SM (ops/wsq.py BLOCKS_PER_SM:
-//     2, 4 and 8 ran within 1 us of each other on the card, 2 the least
-//     on an iteration's two sweeps): block b sweeps the kept tiles b,
-//     b + grid, ... of all units' prefixes laid end to end, so the kept
-//     tiles spread over the SMs and no block walks a chain of them while
-//     the others have exited;
+//     block-wide scan (a warp taking four units at once, their loads in
+//     flight together, ran a one-pair launch 0.3-0.5 us slower);
+//   - a persistent grid (ops/wsq.py persistent_grid: two blocks an SM,
+//     as many as 128 registers a thread leave room for, at most one a
+//     swept tile) whose blocks split the kept tiles laid
+//     end to end into contiguous runs of ceil(kept / grid) (the device
+//     sizes the work a block takes by the batch's kept tiles, which the
+//     host does not know): one pair's few kept tiles one a block, side
+//     by side on their SMs; a batch's thousands a run of them a block;
+//   - a block's tiles overlap: the next kept tile's ck and y are loaded
+//     into registers and its x rows copied (cp.async) into a second
+//     shared buffer while the block sweeps the current one, so a tile
+//     waits for no load of its own after the first;
 //   - a tile's arithmetic is the parent design's, bit for bit: square TW
 //     x TW tiles, with `symmetric` only the upper triangle (bj >= bi,
 //     ids row by row) and off-diagonal tiles weighted 2
@@ -53,14 +59,16 @@
 //     a*d2 in fp32 and counts gates as an int, then warp shuffles and
 //     the warps in order give the tile's partial;
 //   - the reduction folded in: a kept tile writes its partial at its
-//     tile id and takes its unit's ticket (an acquire-release atomic);
-//     the block that takes the last one sums the unit's kept partials
-//     in the order of the parent's second kernel (thread t over ids t,
-//     t + 256, ..., then a shared-memory tree), and leaves the ticket
-//     zero.  A skipped tile's partial was +0 and every partial is >= +0,
-//     so leaving it out changes no bit.  No float atomics: wsq, and
-//     through dl the ell trajectory and the iteration counts, are the
-//     same from run to run.
+//     tile id; a block takes its unit's ticket (an acquire-release
+//     atomic) once for each run of that unit's tiles it swept, adding
+//     the run's length; the block whose run brings the ticket to the
+//     unit's kept count sums the unit's kept partials in the order of
+//     the parent's second kernel (thread t over ids t, t + 256, ...,
+//     then its tree: the same pairs, the last five steps in warp 0's
+//     shuffles, not behind barriers), and leaves the ticket zero.  A skipped
+//     tile's partial was +0 and every partial is >= +0, so leaving it
+//     out changes no bit.  No float atomics: wsq, and through dl the ell
+//     trajectory and the iteration counts, are the same from run to run.
 #include <cuda_runtime.h>
 
 #include "pair_tile.cuh"
@@ -115,6 +123,12 @@ __device__ __forceinline__ float keep_thres(const float* scal) {
   return scal[cvo::S_D2_THRES] + SKIP_MARGIN;
 }
 
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+
 // Count of md[0..n) <= thr, md ascending, by one warp: the first entry of
 // each of 32 segments, then the one segment where the kept prefix ends.
 __device__ int kept_prefix(const float* md, int n, float thr, int lane) {
@@ -152,71 +166,127 @@ __device__ __forceinline__ void tile_of(int id, int nbj, int symmetric,
   }
 }
 
-struct Smem {
+// One staged tile's x rows (and, recomputing the color kernel, its
+// features and mask).
+struct XTile {
   float x[3][TW];
   float f[TW][cvo::NFEAT];
   float m[TW];
+};
+
+struct Smem {
+  XTile xt[2];              // this tile's rows and the next one's
   float wsq[WARPS];
   int cnt[WARPS];
   int kept[MAX_UNITS + 1];  // prefix sums of the units' kept tiles
   int scan[THREADS];
   float red_w[THREADS];
   long long red_c[THREADS];
-  int last;
+  int last;                 // a unit whose last run this block swept, or -1
 };
-// One tile's weighted partial (valid in thread 0), the parent's
-// wsq_partial_kernel body, on lane b of sweep S (`scal` that lane's row).
-// The column's loads and its ck entries are all issued before the rows
-// are staged, so the tile waits for one round of loads, not one a row.
-template <bool USE_CK, bool FAST>
-__device__ void sweep_tile(const WsqSweep& S, size_t b, const float* scal,
-                           int bi, int bj, Smem& sm, float* w_out,
-                           int* c_out) {
-  const int i0 = bi * TW;
-  const int jj = threadIdx.x % TW;
-  const int r0 = threadIdx.x / TW;
-  const int j = bj * TW + jj;
-  const float* yp = S.yp + b * S.m * 3;
-  const float y0 = yp[3 * j], y1 = yp[3 * j + 1], y2 = yp[3 * j + 2];
-  float fy[cvo::NFEAT];
-  float ymj = 0.0f;
-  float ckv[USE_CK ? ROWS_PER_THREAD : 1];
-  if constexpr (USE_CK) {
-#pragma unroll
-    for (int k = 0; k < ROWS_PER_THREAD; ++k)
-      ckv[k] = __ldg(S.ck + b * S.n * S.m +
-                     static_cast<size_t>(i0 + r0 + k * ROWS_PER_PASS) * S.m +
-                     j);
-  } else {
-    const float* yf = S.yf + b * S.m * cvo::NFEAT;
-#pragma unroll
-    for (int c = 0; c < cvo::NFEAT; ++c) fy[c] = yf[cvo::NFEAT * j + c];
-    ymj = S.ym[b * S.m + j];
-  }
-  const float* xp = S.xp + b * S.n * 3;
-  for (int t = threadIdx.x; t < TW * 3; t += THREADS)
-    sm.x[t % 3][t / 3] = xp[3 * i0 + t];
-  if constexpr (!USE_CK) {
-    const float* xf = S.xf + b * S.n * cvo::NFEAT;
-    const float* xm = S.xm + b * S.n;
-    for (int t = threadIdx.x; t < TW * cvo::NFEAT; t += THREADS)
-      sm.f[t / cvo::NFEAT][t % cvo::NFEAT] = xf[cvo::NFEAT * i0 + t];
-    for (int t = threadIdx.x; t < TW; t += THREADS) sm.m[t] = xm[i0 + t];
-  }
-  __syncthreads();
 
+// One kept tile as a block sweeps it: its unit, lane, sweep and place.
+struct TileRef {
+  const WsqSweep* S;
+  const float* scal;  // the lane's scalar row of the sweep
+  size_t b;           // lane
+  int u, id, bi, bj;
+};
+
+// The id of the k-th kept tile of unit u, read from the unit's order
+// (issued ahead of its use: the loads of the tile wait on it).
+__device__ __forceinline__ int tile_id(const WsqLaunch& L, int u, int k) {
+  const int lb = u / L.count;
+  const WsqSweep& S = L.s[u - lb * L.count];
+  return S.order == nullptr
+             ? k
+             : __ldg(S.order + static_cast<size_t>(lb) * S.n_tiles + k);
+}
+
+// The ref of the kept tile `id` of unit u.
+__device__ __forceinline__ TileRef tile_ref(const WsqLaunch& L, int u,
+                                            int id) {
+  TileRef r;
+  const int lb = u / L.count;
+  r.S = &L.s[u - lb * L.count];
+  r.b = lb;
+  r.u = u;
+  r.id = id;
+  r.scal = r.S->scal + r.b * L.scal_ls;
+  tile_of(id, r.S->m / TW, r.S->symmetric, &r.bi, &r.bj);
+  return r;
+}
+
+// A tile's loads: the thread's y column (and, recomputing, its features
+// and mask) and its ck entries into registers, the tile's x rows into a
+// shared buffer with cp.async (waited for by the caller).
+template <bool USE_CK>
+struct TileLoads {
+  float y[3];
+  float fy[cvo::NFEAT];
+  float ym;
+  float ck[USE_CK ? ROWS_PER_THREAD : 1];
+
+  __device__ __forceinline__ void issue(const TileRef& r, XTile& xt) {
+    const WsqSweep& S = *r.S;
+    const int i0 = r.bi * TW;
+    const int jj = threadIdx.x % TW;
+    const int r0 = threadIdx.x / TW;
+    const int j = r.bj * TW + jj;
+    const float* yp = S.yp + r.b * S.m * 3;
+    y[0] = yp[3 * j];
+    y[1] = yp[3 * j + 1];
+    y[2] = yp[3 * j + 2];
+    if constexpr (USE_CK) {
+#pragma unroll
+      for (int k = 0; k < ROWS_PER_THREAD; ++k)
+        ck[k] = __ldg(S.ck + r.b * S.n * S.m +
+                      static_cast<size_t>(i0 + r0 + k * ROWS_PER_PASS) * S.m +
+                      j);
+    } else {
+      const float* yf = S.yf + r.b * S.m * cvo::NFEAT;
+#pragma unroll
+      for (int c = 0; c < cvo::NFEAT; ++c) fy[c] = yf[cvo::NFEAT * j + c];
+      ym = S.ym[r.b * S.m + j];
+    }
+    const float* xp = S.xp + r.b * S.n * 3;
+    for (int t = threadIdx.x; t < TW * 3; t += THREADS)
+      cp_async4(&xt.x[t % 3][t / 3], xp + 3 * i0 + t);
+    if constexpr (!USE_CK) {
+      const float* xf = S.xf + r.b * S.n * cvo::NFEAT;
+      const float* xm = S.xm + r.b * S.n;
+      for (int t = threadIdx.x; t < TW * cvo::NFEAT; t += THREADS)
+        cp_async4(&xt.f[t / cvo::NFEAT][t % cvo::NFEAT],
+                  xf + cvo::NFEAT * i0 + t);
+      for (int t = threadIdx.x; t < TW; t += THREADS)
+        cp_async4(&xt.m[t], xm + i0 + t);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  }
+};
+
+// One tile's weighted partial (valid in thread 0), the parent's
+// wsq_partial_kernel body, from its loads and staged rows: each thread
+// its rows in order, warp shuffles, then thread 0 sums the warps in
+// order.  Ends behind a barrier that leaves the x buffer free.
+template <bool USE_CK, bool FAST>
+__device__ __forceinline__ void sweep_tile(const TileRef& r,
+                                           const TileLoads<USE_CK>& ld,
+                                           const XTile& xt, Smem& sm,
+                                           float* w_out, int* c_out) {
+  const int r0 = threadIdx.x / TW;
   float acc = 0.0f;
   int cnt = 0;
 #pragma unroll
   for (int k = 0; k < ROWS_PER_THREAD; ++k) {
     const int ii = r0 + k * ROWS_PER_PASS;
-    const float d2 =
-        cvo::sqdist3(sm.x[0][ii], sm.x[1][ii], sm.x[2][ii], y0, y1, y2);
+    const float d2 = cvo::sqdist3(xt.x[0][ii], xt.x[1][ii], xt.x[2][ii],
+                                  ld.y[0], ld.y[1], ld.y[2]);
     float a;
     if constexpr (USE_CK) {
-      a = cvo::pair_cached<FAST>(d2, ckv[k], scal);
+      a = cvo::pair_cached<FAST>(d2, ld.ck[k], r.scal);
     } else {
-      a = cvo::pair_full<FAST>(d2, sm.f[ii], sm.m[ii], fy, ymj, scal);
+      a = cvo::pair_full<FAST>(d2, xt.f[ii], xt.m[ii], ld.fy, ld.ym, r.scal);
     }
     if (a > 0.0f) {
       ++cnt;
@@ -243,7 +313,7 @@ __device__ void sweep_tile(const WsqSweep& S, size_t b, const float* scal,
       c += sm.cnt[k];
     }
     // off-diagonal tiles of a symmetric sweep stand for their transpose
-    const int weight = (S.symmetric && bj != bi) ? 2 : 1;
+    const int weight = (r.S->symmetric && r.bj != r.bi) ? 2 : 1;
     *w_out = static_cast<float>(weight) * w;
     *c_out = weight * c;
   }
@@ -287,18 +357,42 @@ __device__ void final_sum(const WsqSweep& S, size_t b, const float* scal,
   sm.red_w[threadIdx.x] = w;
   sm.red_c[threadIdx.x] = c;
   __syncthreads();
-  for (int s = THREADS / 2; s > 0; s >>= 1) {
+  // the tree: thread t adds t + s for s = 128, 64, 32 in shared memory,
+  // then 16 .. 1 in warp 0's registers (the same pairs, in the same
+  // order)
+  for (int s = THREADS / 2; s >= 32; s >>= 1) {
     if (threadIdx.x < s) {
       sm.red_w[threadIdx.x] += sm.red_w[threadIdx.x + s];
       sm.red_c[threadIdx.x] += sm.red_c[threadIdx.x + s];
     }
     __syncthreads();
   }
-  if (threadIdx.x == 0) {
-    out[0] = sm.red_w[0];
-    out[1] = static_cast<float>(sm.red_c[0]);
+  if (threadIdx.x < 32) {
+    w = sm.red_w[threadIdx.x];
+    c = sm.red_c[threadIdx.x];
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1) {
+      w += __shfl_down_sync(0xffffffffu, w, s);
+      c += __shfl_down_sync(0xffffffffu, c, s);
+    }
+    if (threadIdx.x == 0) {
+      out[0] = w;
+      out[1] = static_cast<float>(c);
+    }
   }
   __syncthreads();
+}
+
+// Unit u's output, by final_sum over its lane's partial slots.
+__device__ __forceinline__ void close_unit(const WsqLaunch& L, int u,
+                                           const float* part, const int* cnt,
+                                           float* out, Smem& sm) {
+  const int lb = u / L.count;
+  const WsqSweep& S = L.s[u - lb * L.count];
+  const size_t b = lb;
+  final_sum(S, b, S.scal + b * L.scal_ls, part + b * L.part_ls + S.part0,
+            cnt + b * L.part_ls + S.part0,
+            out + b * L.out_ls + 2 * (u - lb * L.count), sm);
 }
 
 // sm.kept[1..units] from each unit's count to its inclusive prefix sum,
@@ -350,9 +444,9 @@ wsq_kernel(const __grid_constant__ WsqLaunch L,
            int* __restrict__ cnt, int* __restrict__ tickets,
            float* __restrict__ out) {
   __shared__ Smem sm;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int units = L.lanes * L.count;
 
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   // each unit's kept prefix, a warp a unit; a frozen lane keeps none
   for (int u = warp; u < units; u += WARPS) {
     const int b = u / L.count;
@@ -369,6 +463,7 @@ wsq_kernel(const __grid_constant__ WsqLaunch L,
     }
     if (lane == 0) sm.kept[u + 1] = k;
   }
+  if (threadIdx.x == 0) sm.last = -1;
   __syncthreads();
   // a unit that keeps no tile takes no ticket: its output is the
   // parent's sum of +0 partials, written by one block
@@ -383,38 +478,69 @@ wsq_kernel(const __grid_constant__ WsqLaunch L,
   }
   scan_kept(sm, units);
 
+  // this block's run of the kept tiles laid end to end
   const int total = sm.kept[units];
+  const int per = (total + gridDim.x - 1) / gridDim.x;
+  const int f0 = blockIdx.x * per, f1 = min(f0 + per, total);
+  if (f0 >= f1) return;
   int u = 0;
-  for (int f = blockIdx.x; f < total; f += gridDim.x) {
-    while (f >= sm.kept[u + 1]) ++u;
-    // the unit's lane and sweep, its scalar row and partial slots
-    const int lb = u / L.count;
-    const WsqSweep& S = L.s[u - lb * L.count];
-    const size_t b = lb;
-    const float* scal = S.scal + b * L.scal_ls;
-    float* part_u = part + b * L.part_ls + S.part0;
-    int* cnt_u = cnt + b * L.part_ls + S.part0;
-    const int k = f - sm.kept[u];
-    const int id = S.order == nullptr ? k : S.order[b * S.n_tiles + k];
-    int bi, bj;
-    tile_of(id, S.m / TW, S.symmetric, &bi, &bj);
+  while (f0 >= sm.kept[u + 1]) ++u;
+  TileRef cur = tile_ref(L, u, tile_id(L, u, f0 - sm.kept[u]));
+  TileLoads<USE_CK> ld;
+  ld.issue(cur, sm.xt[0]);
+  // the id of the tile after the next one is read an iteration ahead
+  int nu = u, nid = 0;
+  if (f0 + 1 < f1) {
+    while (f0 + 1 >= sm.kept[nu + 1]) ++nu;
+    nid = tile_id(L, nu, f0 + 1 - sm.kept[nu]);
+  }
+  int run = 0;  // tiles of the current unit swept since its last ticket
+  for (int f = f0; f < f1; ++f) {
+    const int buf = (f - f0) & 1;
+    asm volatile("cp.async.wait_all;\n" ::);
+    __syncthreads();
+    // a unit this block closed on the last tile: its output
+    if (sm.last >= 0) {
+      close_unit(L, sm.last, part, cnt, out, sm);
+      if (threadIdx.x == 0) sm.last = -1;
+    }
+    // the next tile's loads, under this tile's sweep
+    const TileLoads<USE_CK> now = ld;
+    TileRef next = cur;
+    if (f + 1 < f1) {
+      next = tile_ref(L, nu, nid);
+      ld.issue(next, sm.xt[buf ^ 1]);
+      if (f + 2 < f1) {
+        while (f + 2 >= sm.kept[nu + 1]) ++nu;
+        nid = tile_id(L, nu, f + 2 - sm.kept[nu]);
+      }
+    }
     float w;
     int c;
-    sweep_tile<USE_CK, FAST>(S, b, scal, bi, bj, sm, &w, &c);
+    sweep_tile<USE_CK, FAST>(cur, now, sm.xt[buf], sm, &w, &c);
+    ++run;
     if (threadIdx.x == 0) {
-      part_u[id] = w;
-      cnt_u[id] = c;
-      int old;
-      asm volatile("atom.add.acq_rel.gpu.s32 %0, [%1], 1;\n"
-                   : "=r"(old) : "l"(tickets + u) : "memory");
-      sm.last = old == sm.kept[u + 1] - sm.kept[u] - 1;
-      if (sm.last) atomicExch(tickets + u, 0);
+      float* part_u = part + cur.b * L.part_ls + cur.S->part0;
+      int* cnt_u = cnt + cur.b * L.part_ls + cur.S->part0;
+      part_u[cur.id] = w;
+      cnt_u[cur.id] = c;
+      // the run ends here: take the unit's ticket for all its tiles
+      if (f + 1 == f1 || next.u != cur.u) {
+        int old;
+        asm volatile("atom.add.acq_rel.gpu.s32 %0, [%1], %2;\n"
+                     : "=r"(old) : "l"(tickets + cur.u), "r"(run)
+                     : "memory");
+        if (old + run == sm.kept[cur.u + 1] - sm.kept[cur.u]) {
+          atomicExch(tickets + cur.u, 0);
+          sm.last = cur.u;
+        }
+      }
     }
-    __syncthreads();
-    if (sm.last)
-      final_sum(S, b, scal, part_u, cnt_u,
-                out + b * L.out_ls + 2 * (u - lb * L.count), sm);
+    if (f + 1 == f1 || next.u != cur.u) run = 0;
+    cur = next;
   }
+  __syncthreads();
+  if (sm.last >= 0) close_unit(L, sm.last, part, cnt, out, sm);
 }
 
 }  // namespace
@@ -426,7 +552,8 @@ wsq_kernel(const __grid_constant__ WsqLaunch L,
 // [lanes, part_ls] f32 / i32 scratch, a sweep's slots from its part0;
 // tickets: [lanes * count] i32, zero at launch and left zero; out:
 // lane b's sweep s at out[b * out_ls + 2 s], wsq then nnz; blocks: the
-// grid; fast takes the hardware exp (params.exp_mode="fast").
+// grid (ops/wsq.py persistent_grid); fast takes the hardware exp
+// (params.exp_mode="fast").
 extern "C" int fused_wsq_launch(const WsqSweep* sweeps, int count, int lanes,
                                 const unsigned char* live, int scal_ls,
                                 float* part, int* cnt, int part_ls,

@@ -247,7 +247,8 @@ def fused_moments_cuda(xp, xf, xm, yp, yf, ym, phi, scal, ck=None,
     opt = tuple(t for t in (ck, min_d2) if t is not None)
     check_inputs("fused_moments", (xp, xf, xm, yp, yf, ym, phi, scal) + opt,
                  dev)
-    # the kernel copies phi rows and ck tiles in 16-byte pieces (a lane's
+    # the kernel copies ck tiles in 16-byte pieces; phi is held to the
+    # same rule, the contract of every kernel that stages it (a lane's
     # slices start 16-byte aligned: N is a multiple of TILE_I)
     if phi.data_ptr() % 16 or (ck is not None and ck.data_ptr() % 16):
         raise ValueError("fused_moments: phi and ck must be 16-byte aligned")

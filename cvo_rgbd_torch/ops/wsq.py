@@ -56,8 +56,10 @@ MAX_SWEEPS = 32   # sweeps a launch (csrc/fused_wsq.cu MAX_SWEEPS)
 # (lane, sweep) units a launch (csrc/fused_wsq.cu MAX_UNITS), and the
 # int32 tickets a stream keeps for them
 MAX_UNITS = 2048
-# the kernel's persistent grid: blocks an SM (at most one a tile); 2, 4
-# and 8 measured within 1 us of each other (PERF.md §6)
+# the kernel's persistent grid: blocks an SM (at most one a swept tile);
+# two (all that 128 registers a thread leave room for) ran the lane
+# batches faster than three, four or eight, and the one-pair sweeps no
+# slower (PERF.md §6)
 BLOCKS_PER_SM = 2
 
 
@@ -98,6 +100,40 @@ def tile_order(md, symmetric=False) -> TileOrder:
     by_id = by_id.to(torch.float32).contiguous()
     srt, order = torch.sort(by_id, stable=True)
     return TileOrder(md, by_id, order.to(torch.int32), srt.contiguous())
+
+
+def persistent_grid(swept: int, sms: int) -> int:
+    """The grid of a `fused_wsq` launch that sweeps `swept` tiles (the
+    upper triangles of its symmetric sweeps) on a card of `sms` SMs:
+    BLOCKS_PER_SM blocks an SM, at most one a swept tile.  How many
+    tiles each block takes follows on the card from the tiles kept
+    (`block_runs`), which the host does not know."""
+    return max(1, min(swept, sms * BLOCKS_PER_SM))
+
+
+def block_runs(kept, grid):
+    """The kernel's split of a launch's kept tiles over its `grid`
+    blocks, in plain Python: `kept` each (lane, sweep) unit's kept
+    count, lane-major.  The units' kept tiles are laid end to end and
+    block b takes the ceil(total / grid) from b times that; it sweeps
+    them as runs, one a unit, and takes that unit's ticket once a run,
+    adding the run's length.  Returns [[(unit, first, length), ...] a
+    block]: the unit's k-th kept tile is its order's k-th id."""
+    total = sum(kept)
+    per = -(-total // grid) if total else 0
+    starts = [0]
+    for k in kept:
+        starts.append(starts[-1] + k)
+    out = []
+    for b in range(grid):
+        f0, f1 = b * per, min(b * per + per, total)
+        runs = []
+        for u, k in enumerate(kept):
+            lo, hi = max(f0, starts[u]), min(f1, starts[u] + k)
+            if lo < hi:
+                runs.append((u, lo - starts[u], hi - lo))
+        out.append(runs)
+    return out
 
 
 def kept_prefix(srt, thr):
@@ -367,8 +403,8 @@ def fused_wsq_sweeps_cuda(sweeps, scal, fast=False, live=None):
                     row.data_ptr(), _ptr(order), _ptr(sorted_md),
                     _ptr(by_id), sw.x[0].shape[-2], sw.y[0].shape[-2],
                     int(sw.symmetric), tiles[s], part0[s])
-            blocks = min(nb * sum(tiles[s] for s in chunk),
-                         sms * BLOCKS_PER_SM)
+            blocks = persistent_grid(nb * sum(tiles[s] for s in chunk),
+                                     sms)
             err = launch(ctypes.addressof(args), len(chunk), nb,
                          _ptr(None if live is None else live[b0]), scal_ls,
                          part[b0].data_ptr(), cnt[b0].data_ptr(), part_ls,

@@ -164,10 +164,18 @@ def _rank_main(fn, args, rank, world, backend, device, init, out, timeout,
         result = fn(*args)
         dist.barrier()
         dist.destroy_process_group()
-        torch.save({"result": result}, out)
+        _save({"result": result}, out)
     except Exception:
-        torch.save({"error": traceback.format_exc()}, out)
+        _save({"error": traceback.format_exc()}, out)
         os._exit(1)
+
+
+def _save(obj, out):
+    """Write a rank's outcome under its final name only once it is whole:
+    `launch` kills the other ranks when one fails, and must never read a
+    file cut off mid-write."""
+    torch.save(obj, out + ".part")
+    os.replace(out + ".part", out)
 
 
 def launch(fn, world: int, args=(), *, backend: str = "gloo", device=None,

@@ -93,13 +93,36 @@ first cvo pair (3072 x 3072), an acvo self-pair and a ragged (1000,
 The PYTHONPATH form runs it against an earlier checkout's package, so
 that the two print their bits and times in one call.
 
-    python -m cvo_rgbd_torch.time_fused --sass [LIBRARY]
+    python -m cvo_rgbd_torch.time_fused --lanes
+
+times instead the two sweeps on a lane axis at the shapes of
+chip_smoke's phases 8d and 8f, and their one-pair launches.  Rows 2b
+and 2/2f (`fused_moments_cuda`): the render's 9 pairs at 3072 with the
+color cache and the tile skip, each lane at its own ell from ell_init
+(0.15) to 0.03, precise and fast; the same at ell 0.1 and at 0.3 on
+every lane (more tiles kept); the coarse pcd pairs x7 (63 lanes at 384)
+in linear mode; the first render pair alone at ell 0.03, precise and
+fast.  Rows 3b and 3/3f (`fused_wsq_sweeps_cuda`): exact acvo's two
+self-sweeps of the acvo render's 9 pairs at 3072, each lane at its own
+ell from ell_init to ell_min, precise and fast; the same at ell 0.1 and
+0.3 on every lane; the 63 pcd lanes at 384; the Chebyshev tables of the
+9 lanes (24 sweeps a lane); then the first pair's sweeps alone (each
+with and without the color cache, and both in one launch), precise and
+fast.  One JSON line a case: the share of tiles kept, the median of 30
+CUDA-event runs, the launches a call, the device ms by kernel, the
+SHA-1 of each lane's outputs and, for the wsq batches, the launch with
+no lane live (its fixed cost).  The PYTHONPATH form runs it against an
+earlier checkout's package.
+
+    python -m cvo_rgbd_torch.time_fused --sass [LIBRARY [KERNEL]]
 
 prints instead, for the resident cvo kernel of a built library (by
-default this package's `_build/libalign_fused.so`), each innermost loop
-of its machine code (`cuobjdump -sass`) with its instruction count, its
-shared-memory loads and its FRND and MUFU.EX2 instructions (the
-exponentials of a pair weight): the Gram sweeps' cost a pair.
+default this package's `_build/libalign_fused.so`), or the one kernel
+whose mangled name holds KERNEL, each innermost loop of its machine code
+(`cuobjdump -sass`) with its instruction count, its shared-memory loads
+and its FRND and MUFU.EX2 instructions (the exponentials of a pair
+weight), and its mix: shared loads by width (32, 64, 128 bits), FFMA,
+global loads and the rest: the Gram sweeps' cost a pair.
 
     python -m cvo_rgbd_torch.time_fused --resources [NAME ...]
 
@@ -227,9 +250,31 @@ def innermost_loops(ins):
 
 def sass_loops(lib, kernel="align_kernelILb1ELb0ELb0E"):
     """innermost_loops of the one function of `lib` whose mangled name
-    holds `kernel`."""
+    holds `kernel`, each with its loop_mix."""
     (ins,) = [v for k, v in sass_functions(lib).items() if kernel in k]
-    return innermost_loops(ins)
+    index = {a: i for i, (a, _) in enumerate(ins)}
+    return [(loop, loop_mix(t for _, t in
+                            ins[index[loop[0]]:index[loop[1]] + 1]))
+            for loop in innermost_loops(ins)]
+
+
+def loop_mix(body):
+    """{class: count} of a loop's instructions: shared loads by width
+    (`LDS` 32 bits, `LDS.64`, `LDS.128`), FFMA, global loads (LDG) and
+    the rest."""
+    mix = collections.Counter()
+    for t in body:
+        op = t.split()[0] if not t.startswith("@") else t.split()[1]
+        if op.startswith("LDS"):
+            width = re.search(r"\.(64|128)\b", op)
+            mix[f"LDS.{width.group(1) if width else 32}"] += 1
+        elif op.startswith("FFMA"):
+            mix["FFMA"] += 1
+        elif op.startswith("LDG"):
+            mix["LDG"] += 1
+        else:
+            mix["other"] += 1
+    return dict(mix)
 
 
 def resources(libs):
@@ -989,6 +1034,218 @@ def time_wsq():
             }), flush=True)
 
 
+def lane_batches():
+    """The batches of chip_smoke's 8d and 8f: the render's 10 frames
+    through the cvo (RGB) and the acvo (HSV) frontends at 3000 points,
+    their 9 consecutive pairs, and the coarse pcd pairs (grid 0.05) x7,
+    as lists of fixed and moving clouds."""
+    import torch
+
+    from cvo_rgbd_torch.batch import pad_clouds
+    from cvo_rgbd_torch.frontend import make_frontend
+
+    _, frames = render(10, (240, 320))
+    fe, fe_a = make_frontend(1, 3000, 1), make_frontend(1, 3000, 0)
+    cvo = [fe(f[2], f[3]) for f in frames]
+    acvo = [fe_a(f[2], f[3]) for f in frames]
+    pcd = pad_clouds(pcd_clouds((0.05,))[0.05], torch.device("cuda"))
+    return {"cvo": (cvo[:-1], cvo[1:]), "acvo": (acvo[:-1], acvo[1:]),
+            "pcd": (pcd[:-1] * 7, pcd[1:] * 7)}
+
+
+def lane_sha1s(*outs):
+    """The SHA-1 of each lane's outputs (the lane axis leading)."""
+    import torch
+
+    return [sha1(torch.cat([o[i].reshape(-1) for o in outs]))
+            for i in range(outs[0].shape[0])]
+
+
+def time_lane_case(kernel, case, fn, lanes=True, none=None, kept=None):
+    """One JSON line for a launch `fn` of a lane-axis row (or, with
+    `lanes` False, a one-pair row): its median time, launches a call,
+    device ms by kernel and each lane's SHA-1; `none`, a launch with no
+    lane live, timed beside it; `kept` the share of tiles kept."""
+    import cvo_rgbd_torch
+
+    outs = fn()
+    line = {"package": cvo_rgbd_torch.__file__, "kernel": kernel,
+            "case": case, "tiles_kept": kept, "ms": time_ms(fn),
+            "launches_per_call": launches_per_call(fn),
+            "device_ms_by_kernel": device_ms_by_kernel(fn)}
+    if none is not None:
+        line["no_lane_live_ms"] = time_ms(none)
+    if lanes:
+        line["lane_sha1"] = lane_sha1s(*outs)
+    else:
+        line["sha1"] = lane_sha1s(*(o.reshape(1, -1) for o in outs))[0]
+    print(json.dumps(line), flush=True)
+
+
+# the moving clouds of 8d and 8f, moved a little as an iteration sees
+# them
+LANE_SHIFT = (0.004, -0.002, 0.003)
+
+
+def _fast(q):
+    return dataclasses.replace(q, exp_mode="fast")
+
+
+def time_lanes():
+    """Rows 2b and 3b at 8d's and 8f's shapes, then their one-pair
+    launches (rows 2, 2f, 3, 3f) on the first render pair; see the
+    module docstring."""
+    batches = lane_batches()
+    time_lane_moments(batches)
+    time_lane_wsq(batches)
+
+
+def time_lane_moments(batches):
+    """Rows 2b and 2/2f of `time_lanes`."""
+    import torch
+
+    from cvo_rgbd_torch.core.cloud import (
+        aabb_min_d2,
+        block_bounds,
+        stack_clouds,
+    )
+    from cvo_rgbd_torch.core.registration import prepare_batch, route
+    from cvo_rgbd_torch.ops import gram, moments
+    from cvo_rgbd_torch.params import MATLAB_PARAMS, CvoParams
+
+    p = CvoParams()
+    dev = batches["cvo"][0][0].positions.device
+    shift = torch.tensor(LANE_SHIFT, device=dev)
+    fast = _fast
+    # (case, params, batch, ell of the first and last lane)
+    for name, q, key, ells in (
+            ("render 9x3072 ck skip ell 0.15-0.03", p, "cvo",
+             (p.ell_init, 0.03)),
+            ("render 9x3072 ck skip ell 0.15-0.03 fast", fast(p), "cvo",
+             (p.ell_init, 0.03)),
+            ("render 9x3072 ck skip ell 0.1", p, "cvo", (0.1, 0.1)),
+            ("render 9x3072 ck skip ell 0.3", p, "cvo", (0.3, 0.3)),
+            ("pcd 63x384 linear ell 0.15-0.03", MATLAB_PARAMS, "pcd",
+             (MATLAB_PARAMS.ell_init, 0.03))):
+        xs, ys = batches[key]
+        q, x, y = route(q, stack_clouds(xs), stack_clouds(ys))
+        b = x.positions.shape[0]
+        pre = prepare_batch(q, x, y, [None] * b)
+        c0, x_c, phi = pre.moments
+        y_pos = y.positions + shift
+        md = aabb_min_d2(*pre.skip[:2],
+                         *block_bounds(y_pos, y.mask, moments.TILE_J))
+        scal = gram.scalars(torch.linspace(*ells, b, device=dev), q)
+        args = (x_c, x.features, x.mask, y_pos - c0[:, None, :],
+                y.features, y.mask, phi, scal, pre.ck[0], md)
+        linear, fst = q.color_mode == "linear", q.exp_mode == "fast"
+        keep = md <= scal[:, gram.S_D2_THRES, None, None] + \
+            moments.SKIP_MARGIN
+        time_lane_case("fused_moments lanes", name, lambda: (
+            moments.fused_moments_cuda(*args, linear, fst)),
+            kept=keep.float().mean().item())
+        if key == "cvo" and ells[0] != ells[1]:
+            # the one-pair launch at phase 3's shape: lane 0 (the first
+            # render pair) at ell 0.03
+            one = [a[0] for a in args]
+            one[7] = gram.scalars(torch.full((), 0.03, device=dev), q)
+            time_lane_case(
+                "fused_moments", "render pair 3072 ck skip ell 0.03"
+                + " fast" * fst, lambda: moments.fused_moments_cuda(
+                    *one, linear, fst), lanes=False)
+
+
+def time_lane_wsq(batches):
+    """Rows 3b and 3/3f of `time_lanes`, then the Chebyshev tables."""
+    import torch
+
+    from cvo_rgbd_torch.core.cloud import stack_clouds
+    from cvo_rgbd_torch.core.registration import (
+        _cheb_span,
+        _self_sweeps,
+        prepare_batch,
+        route,
+    )
+    from cvo_rgbd_torch.ops import gram, wsq
+    from cvo_rgbd_torch.params import AcvoParams
+
+    pa = AcvoParams()
+    dev = batches["acvo"][0][0].positions.device
+    shift = torch.tensor(LANE_SHIFT, device=dev)
+    fast = _fast
+    for name, q, key, ells in (
+            ("acvo render 9x3072 ell 0.1-0.0391", pa, "acvo",
+             (pa.ell_init, pa.ell_min)),
+            ("acvo render 9x3072 ell 0.1-0.0391 fast", fast(pa), "acvo",
+             (pa.ell_init, pa.ell_min)),
+            ("acvo render 9x3072 ell 0.1", pa, "acvo", (0.1, 0.1)),
+            ("acvo render 9x3072 ell 0.3", pa, "acvo", (0.3, 0.3)),
+            ("pcd 63x384 ell 0.1-0.0391", pa, "pcd",
+             (pa.ell_init, pa.ell_min))):
+        xs, ys = batches[key]
+        q, x, y = route(q, stack_clouds(xs), stack_clouds(ys))
+        b = x.positions.shape[0]
+        pre = prepare_batch(q, x, y, [None] * b)
+        sweeps = _self_sweeps(x, (y.positions + shift, y.features, y.mask),
+                              pre.ck, pre.skip)
+        scal = gram.scalars(torch.linspace(*ells, b, device=dev), q)
+        fst = q.exp_mode == "fast"
+        nobody = torch.zeros(b, dtype=torch.bool, device=dev)
+        time_lane_case(
+            "fused_wsq lanes", name,
+            lambda: wsq.fused_wsq_sweeps_cuda(sweeps, scal, fst),
+            none=lambda: wsq.fused_wsq_sweeps_cuda(sweeps, scal, fst,
+                                                   nobody),
+            kept=wsq_kept(sweeps, scal))
+        if key == "acvo" and ells[0] != ells[1]:
+            lane0 = [wsq.lane_sweep(sw, 0) for sw in sweeps]
+            for e in (pa.ell_init, pa.ell_min):
+                s1 = gram.scalars(torch.full((), e, device=dev), q)
+                for sw, label in zip(lane0, ("fixed", "moving")):
+                    for use_ck in (True, False):
+                        one = [sw._replace(ck=sw.ck if use_ck else None)]
+                        time_lane_case(
+                            "fused_wsq", f"acvo pair 3072 {label} ell {e} "
+                            f"ck={use_ck}" + " fast" * fst,
+                            lambda one=one, s1=s1: wsq.fused_wsq_sweeps_cuda(
+                                one, s1, fst), lanes=False)
+                time_lane_case(
+                    "fused_wsq", f"acvo pair 3072 both sweeps ell {e} ck"
+                    + " fast" * fst, lambda s1=s1: wsq.fused_wsq_sweeps_cuda(
+                        lane0, s1, fst), lanes=False)
+    # the Chebyshev tables of the 9 acvo lanes: 2K sweeps a lane, each
+    # lane at its own nodes, one launch
+    qc = dataclasses.replace(pa, self_mode="cheb")
+    qc, x, y = route(qc, *(stack_clouds(c) for c in batches["acvo"]))
+    b = x.positions.shape[0]
+    pre = prepare_batch(qc, x, y, [None] * b)
+    ells = torch.tensor([_cheb_span(qc, None)[4]] * b, dtype=torch.float32,
+                        device=dev).repeat_interleave(2, dim=-1)
+    sweeps = _self_sweeps(x, y, pre.ck, pre.skip) * int(qc.self_cheb_k)
+    scal = gram.scalars(ells, qc)
+    nobody = torch.zeros(b, dtype=torch.bool, device=dev)
+    time_lane_case(
+        "fused_wsq lanes", f"acvo cheb tables 9x{len(sweeps)} sweeps x3072",
+        lambda: wsq.fused_wsq_sweeps_cuda(sweeps, scal),
+        none=lambda: wsq.fused_wsq_sweeps_cuda(sweeps, scal, False, nobody),
+        kept=wsq_kept(sweeps, scal))
+
+
+def wsq_kept(sweeps, scal):
+    """The share of the swept tiles that the (lane, sweep) units of a
+    lane-axis launch keep; `scal` [B, 8] or [B, S, 8]."""
+    from cvo_rgbd_torch.ops import gram, wsq
+
+    kept = total = 0
+    for i in range(scal.shape[0]):
+        for k, sw in enumerate(sweeps):
+            row = scal[i] if scal.dim() == 2 else scal[i, k]
+            thr = (row[gram.S_D2_THRES] + wsq.SKIP_MARGIN).item()
+            kept += wsq.kept_prefix(sw.tiles.sorted[i], thr)
+            total += sw.tiles.sorted.shape[-1]
+    return kept / total
+
+
 def time_gram():
     """color_gram_cuda on the first cvo render pair (3072 x 3072), the
     first acvo cloud's self-pair and a ragged (1000, 130) slice of the
@@ -1097,10 +1354,10 @@ def main(argv=None):
         lib = argv[1] if len(argv) > 1 else str(_build.BUILD
                                                 / "libalign_fused.so")
         kernel = argv[2] if len(argv) > 2 else "align_kernelILb1ELb0ELb0E"
-        for start, end, n, lds, frnd, ex2 in sass_loops(lib, kernel):
+        for (start, end, n, lds, frnd, ex2), mix in sass_loops(lib, kernel):
             print(json.dumps({"loop": f"{start:#x}-{end:#x}",
                               "instructions": n, "shared_loads": lds,
-                              "frnd": frnd, "mufu_ex2": ex2}))
+                              "frnd": frnd, "mufu_ex2": ex2, "mix": mix}))
         return 0
     if not torch.cuda.is_available():
         print("time_fused: no CUDA device", file=sys.stderr)
@@ -1117,6 +1374,10 @@ def main(argv=None):
             time_wsq()
         if "--gram" in argv:
             time_gram()
+        return 0
+    if argv[:1] == ["--lanes"]:
+        _build.build(("color_gram", "fused_moments", "fused_wsq"))
+        time_lanes()
         return 0
     if argv[:1] == ["--profiler"]:
         _build.build(("color_gram", "fused_flow"))

@@ -2080,3 +2080,123 @@ def test_batched_fused_moments_lanes_are_one_pair_launches(dev, mode):
     for i in (0, 2):
         assert torch.equal(part[i], mom[i])
         assert float(part_nnz[i]) == float(nnz[i])
+
+
+def _kept_lanes(dev, lanes=9):
+    """`lanes` pairs at 1024 whose tiles are mostly kept at ell 0.3-0.5
+    (the batch regime of the two sweeps on a lane axis)."""
+    from cvo_rgbd_torch.core.cloud import stack_clouds
+
+    pairs = [_clouds(dev, seed=80 + s) for s in range(lanes)]
+    return (stack_clouds([a for a, _ in pairs]),
+            stack_clouds([b for _, b in pairs]),
+            torch.linspace(0.3, 0.5, lanes, device=dev))
+
+
+@pytest.mark.parametrize("exp_mode", ["precise", "fast"])
+@pytest.mark.parametrize("kernel", ["fused_moments", "fused_wsq"])
+def test_lanes_where_most_tiles_are_kept_are_one_pair_launches(
+        dev, kernel, exp_mode):
+    """Nine lanes at length-scales where most tiles are kept: one launch,
+    each live lane the bits of its one-pair launch, a frozen lane not
+    swept (zeros) and the others unchanged by it."""
+    from cvo_rgbd_torch.core import registration as treg
+    from cvo_rgbd_torch.core.cloud import aabb_min_d2, block_bounds
+    from cvo_rgbd_torch.ops import gram, moments, wsq
+    from cvo_rgbd_torch.params import AcvoParams, CvoParams
+
+    fast = exp_mode == "fast"
+    x, y, ell = _kept_lanes(dev)
+    b = ell.numel()
+    live = torch.ones(b, dtype=torch.bool, device=dev)
+    live[4] = False
+    if kernel == "fused_moments":
+        p = CvoParams(exp_mode=exp_mode)
+        pre = treg.prepare_batch(p, x, y, [None] * b)
+        c0, xc, phi = pre.moments
+        md = aabb_min_d2(*pre.skip[:2],
+                         *block_bounds(y.positions, y.mask, moments.TILE_J))
+        scal = gram.scalars(ell, p)
+        keep = md <= scal[:, gram.S_D2_THRES, None, None] + \
+            moments.SKIP_MARGIN
+        assert keep.float().mean().item() > 0.5
+        args = (xc, x.features, x.mask, y.positions - c0[:, None, :],
+                y.features, y.mask, phi, scal, pre.ck[0], md)
+        before = moments.fused_moments.lanes.launches
+        out = moments.fused_moments_cuda(*args, False, fast)
+        frozen = moments.fused_moments_cuda(*args, False, fast, live)
+        assert moments.fused_moments.lanes.launches == before + 2
+
+        def one(i):
+            return moments.fused_moments_cuda(*(a[i] for a in args), False,
+                                              fast)
+    else:
+        p = AcvoParams(exp_mode=exp_mode)
+        pre = treg.prepare_batch(p, x, y, [None] * b)
+        sweeps = treg._self_sweeps(x, tuple(y), pre.ck, pre.skip)
+        scal = gram.scalars(ell, p)
+        kept = [wsq.kept_prefix(sw.tiles.sorted[i],
+                                scal[i, gram.S_D2_THRES].item()
+                                + moments.SKIP_MARGIN)
+                for i in range(b) for sw in sweeps]
+        assert sum(kept) > 0.5 * b * sum(wsq._swept_tiles(sw)
+                                         for sw in sweeps)
+        before = wsq.fused_wsq.launches
+        out = wsq.fused_wsq_sweeps_cuda(sweeps, scal, fast)
+        frozen = wsq.fused_wsq_sweeps_cuda(sweeps, scal, fast, live)
+        assert wsq.fused_wsq.launches == before + 2
+
+        def one(i):
+            return wsq.fused_wsq_sweeps_cuda(
+                [wsq.lane_sweep(sw, i) for sw in sweeps], scal[i], fast)
+    torch.cuda.synchronize()
+    for i in range(b):
+        single = one(i)
+        for got, want, part in zip(out, single, frozen):
+            assert torch.equal(_bits(got[i]), _bits(want)), i
+            if i == 4:
+                assert not part[i].any()
+            else:
+                assert torch.equal(_bits(part[i]), _bits(got[i])), i
+
+
+def test_fused_wsq_runs_split_over_blocks_keep_the_bits(dev, monkeypatch):
+    """A launch's bits do not depend on how its kept tiles fall into the
+    blocks' runs: nine lanes' two self-sweeps on a grid of one block an
+    SM (each unit's tiles over several blocks, a block over the end of
+    one unit and the start of the next), of the rule's and of a block a
+    tile, every lane the bits of its one-pair launch."""
+    from cvo_rgbd_torch.core import registration as treg
+    from cvo_rgbd_torch.ops import gram, moments, wsq
+    from cvo_rgbd_torch.params import AcvoParams
+
+    x, y, ell = _kept_lanes(dev)
+    b = ell.numel()
+    p = AcvoParams()
+    pre = treg.prepare_batch(p, x, y, [None] * b)
+    sweeps = treg._self_sweeps(x, tuple(y), pre.ck, pre.skip)
+    scal = gram.scalars(ell, p)
+    kept = [wsq.kept_prefix(sw.tiles.sorted[i],
+                            scal[i, gram.S_D2_THRES].item()
+                            + moments.SKIP_MARGIN)
+            for i in range(b) for sw in sweeps]
+    swept = b * sum(wsq._swept_tiles(sw) for sw in sweeps)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    singles = [wsq.fused_wsq_sweeps_cuda(
+        [wsq.lane_sweep(sw, i) for sw in sweeps], scal[i]) for i in range(b)]
+    outs = []
+    for per_sm in (1, wsq.BLOCKS_PER_SM, swept):
+        monkeypatch.setattr(wsq, "BLOCKS_PER_SM", per_sm)
+        runs = wsq.block_runs(kept, wsq.persistent_grid(swept, sms))
+        if per_sm == 1:
+            spans = [sum(any(u == k for k, _, _ in block) for block in runs)
+                     for u in range(len(kept))]
+            assert max(spans) > 1 and any(len(block) > 1 for block in runs)
+        outs.append(wsq.fused_wsq_sweeps_cuda(sweeps, scal))
+    torch.cuda.synchronize()
+    for w, n in outs:
+        assert torch.equal(_bits(w), _bits(outs[0][0]))
+        assert torch.equal(_bits(n), _bits(outs[0][1]))
+    for i, (w1, n1) in enumerate(singles):
+        assert torch.equal(_bits(outs[0][0][i]), _bits(w1)), i
+        assert torch.equal(_bits(outs[0][1][i]), _bits(n1)), i
