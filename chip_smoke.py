@@ -79,9 +79,12 @@ and prints no result line):
 7. the construct probes: `python -m cvo_rgbd_torch.probes` (its `main`)
    with the launch counts read around it, then each toy case of
    `csrc/construct_probe.cu` against its plain version (exact; e within
-   1e-6 relative) and its closed form, each timed, and the four tiled
-   aligns against `align_fused_plain(mode="tiled")` (equal iterations, tf
-   within 1e-5);
+   1e-6 relative) and its closed form on the scripts' inputs, each
+   timed, and on the seeded inputs of seeds 0 and 1 (and d and e with
+   the guard off: zeros): a, b, b2, c, d, k exact, e, h, i, j within
+   `probes.tolerance`; the library calls of e and h timed beside; and
+   the four tiled aligns against `align_fused_plain(mode="tiled")`
+   (equal iterations, tf within 1e-5);
 8. batched fused registration: the 9 pcd pairs of 6 stacked 7 times (63
    lanes) at both grids through `parallel.align_batched`: exactly one
    `align_fused` launch a batch, every lane the bits of `align` on its
@@ -307,6 +310,10 @@ LOADER_PASSES = 5
 # 3 x [8, 128] dots of depth 256 (an FMA is 2), j's 256 x 256
 # difference, square and sum (4 with the scaling), one or two for the rest
 PROBE_OPS = {"e": 3 * 8 * 128 * 256 * 2, "j": 256 * 256 * 4}
+# phase 7's seeded inputs of the probes: (label, seed, guard off), the
+# guard off only for the cases that have one
+PROBE_SEEDED = (("seed 0", 0, False), ("seed 1", 1, False),
+                ("guard off", 0, True))
 # the parts of its inputs each probe's [8, 128] result depends on (the
 # plain versions of probes.py), as (input, (rows, columns)): what the
 # function must read, whatever the kernel reads besides
@@ -1638,9 +1645,11 @@ def phase_odometry(frames, p, adaptive, num_want=NUM_WANT):
 def phase_probes():
     """7: the probes' entry point as a user runs it, with the launch
     counts read around it; then each toy case against its plain version
-    and its closed form, timed, and the tiled aligns against the plain
-    version.  Returns (the probe kernel's row, the entry point's
-    launches)."""
+    and its closed form, timed, and on seeded inputs against its plain
+    version; the library calls of e and h; and the tiled aligns against
+    the plain version.  The row's max_abs_err is the scripts' inputs'
+    (the seeded errors are logged).  Returns (the probe kernel's row,
+    the entry point's launches)."""
     import torch
 
     from cvo_rgbd_torch import probes
@@ -1698,10 +1707,41 @@ def phase_probes():
         log(f"probe {case}: {val!r} (closed form {probes.CLOSED[case]!r}), "
             f"max |kernel - plain| {e:.3e}; {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+        seeded = []
+        for label, seed, off in PROBE_SEEDED:
+            if off and case not in probes.GUARDED:
+                continue
+            s_ins = probes.seeded_inputs(
+                case, dev, seed, probes.GUARD_OFF if off else 0.0)
+            s_got = probes.construct_probe_cuda(case, *s_ins)
+            s_ref = probes.construct_probe_plain(case, *s_ins)
+            torch.cuda.synchronize()
+            s_err = (s_got - s_ref).abs().max().item()
+            if case in probes.EXACT:
+                check(torch.equal(s_got, s_ref), f"probe {case} {label}: "
+                      f"kernel and plain version differ by {s_err}")
+            else:
+                check(probes.within_tolerance(case, s_got, s_ref, s_ins),
+                      f"probe {case} {label}: kernel and plain version "
+                      f"differ by {s_err}, past probes.tolerance")
+            if off:
+                check(not s_got.any(), f"probe {case} {label}: not zeros")
+            seeded.append(f"{label} {s_err:.3e}")
+        log(f"probe {case} seeded: max |kernel - plain| "
+            + ", ".join(seeded) + (" (exact)" if case in probes.EXACT
+                                   else " (within probes.tolerance)"))
         err = max(err, e)
         ms_sum, plain_sum, bound_sum = (ms_sum + ms, plain_sum + plain_ms,
                                         bound_sum + b_ms)
         by[b_by] += b_ms
+    # one PyTorch call computing what e (one of its three products) and h
+    # compute: the yardsticks of PERF.md's row 8
+    a, b = probes.inputs("e", dev)[1:]
+    x = probes.inputs("h", dev)[0]
+    e_ms = time_ms(lambda: torch.matmul(a[:, 0:8].T, b))
+    h_ms = time_ms(lambda: torch.sum(x[256:512]))
+    log(f"probe library calls: e torch.matmul(a[:, 0:8].T, b) {e_ms:.4f} "
+        f"ms, h torch.sum(x[256:512]) {h_ms:.4f} ms")
     for case in probes.ALIGNS:
         p, x, y = probes.tiled_problem(case, dev)
         row = align_fused_cuda(p, x, y, mode="tiled")

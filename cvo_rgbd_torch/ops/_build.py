@@ -57,7 +57,7 @@ SIGNATURES = {
     ),
     "fused_flow": ("fused_flow_launch", [_P] * 12 + [_I] * 5 + [_P]),
     "fused_step_coeffs": ("fused_step_launch", [_P] * 13 + [_I] * 5 + [_P]),
-    "construct_probe": ("construct_probe_launch", [_I] + [_P] * 6),
+    "construct_probe": ("construct_probe_launch", [_I] + [_P] * 5),
     "align_fused_tiled_timed": (
         "align_fused_tiled_launch", [_P] * 27 + [_I] * 6 + [_P]
     ),

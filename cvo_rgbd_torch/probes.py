@@ -5,11 +5,20 @@ with toy `pallas_call`s: `scripts/tpu_construct_probe.py` (cases a, b,
 b2, c, d, e, and the tiled align at one and at 2x2 tiles, f and g) and
 `scripts/tpu_construct_probe2.py` (h, i, j, k, and the tiled align with
 N != M, g2_x2_y1 and g3_x1_y2).  Here each toy case is a hand-written
-CUDA kernel, `csrc/construct_probe.cu` (what each computes is listed
-there), behind `construct_probe`, with its plain torch version
-`construct_probe_plain` beside it; the align cases run the port's
-`align_fused` kernel forced to mode "tiled", as the scripts force the
-JAX one.
+CUDA kernel, `csrc/construct_probe.cu`, behind `construct_probe`, with
+its plain torch version `construct_probe_plain` beside it; the align
+cases run the port's `align_fused` kernel forced to mode "tiled", as the
+scripts force the JAX one.  Each kernel computes its TPU case's [8, 128]
+result from the same inputs; where the script's construct does not reach
+the result (the rows of b2's and k's scratches past the output, e's dot
+computed three times), the kernel drops it, and the source's header says
+per case what was kept.  No case keeps a device scratch: each is one
+launch of one pass.
+
+`inputs` gives each case the scripts' constant inputs, whose results
+have closed forms (CLOSED); `seeded_inputs` the same shapes drawn from a
+seed, on which each kernel is held to its plain version (`tolerance`),
+so a kernel that wrote a closed form without reading its inputs fails.
 
     python -m cvo_rgbd_torch.probes [--device cpu]
 
@@ -50,8 +59,18 @@ E_RTOL = 1e-5
 ALIGNS = {"f": (256, 256, 5), "g": (512, 512, 5),
           "g2_x2_y1": (512, 256, 4), "g3_x1_y2": (256, 512, 4)}
 OUT_SHAPE = (8, 128)
-# device scratch of the cases whose scratch exceeds a block's shared memory
-SCRATCH = {"b2": (128, 1024), "k": (128, 512)}
+# the shapes of each case's inputs, as the scripts give them
+SHAPES = {"a": ((8, 128),), "b": ((8, 1024),), "b2": ((256, 1024),),
+          "c": ((1, 160),), "d": ((1, 8),),
+          "e": ((1, 8), (256, 256), (256, 128)), "h": ((512, 1),),
+          "i": ((1, 512),), "j": ((512, 1), (1, 512)), "k": ((1, 8),)}
+# the cases whose first input is a guard row: the work runs while its
+# first element is > -1; GUARD_OFF turns it off
+GUARDED = ("d", "e")
+GUARD_OFF = -2.0
+# the cases whose kernel rounds every operation as the plain version
+# does, so it gives the plain version's bits on any input
+EXACT = ("a", "b", "b2", "c", "d", "k")
 
 
 def inputs(case, device):
@@ -74,6 +93,50 @@ def inputs(case, device):
         "j": lambda: (full((512, 1), 1.0), full((1, 512), 1.0)),
         "k": lambda: (full((1, 8), 0.0),),
     }[case]()
+
+
+def seeded_inputs(case, device, seed, guard=0.0):
+    """Case `case`'s inputs in the shapes of SHAPES, drawn with numpy's
+    default_rng(seed) uniformly from [0.5, 1.5) on a grid of 2^-23 (every
+    value exact in float32), on `device`; the guard row of d and e is
+    `guard` (0: on, GUARD_OFF: off).  Unlike the scripts' constant
+    inputs, these have no closed form a kernel could write unread."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for shape in SHAPES[case]:
+        v = 0.5 + rng.integers(0, 1 << 23, size=shape) * 2.0 ** -23
+        out.append(torch.from_numpy(v.astype(np.float32)).to(device))
+    if case in GUARDED:
+        out[0].fill_(guard)
+    return tuple(out)
+
+
+def tolerance(case, *ins):
+    """The largest |kernel - plain| allowed on each of the [8, 128]
+    outputs of `case` on `ins`: 0 where the kernel rounds every operation
+    as the plain version does (a, b, b2, c, d, k, and every output of h,
+    i, j outside row 0); for the sums, whose order differs, a fraction of
+    the sum of their terms' magnitudes: e 1e-6 (three times its 256
+    products), h and i 1e-6, j 1e-5 (its 65536 squares)."""
+    x = ins[0]
+    tol = torch.zeros(OUT_SHAPE, dtype=torch.float64, device=x.device)
+    if case == "e" and bool(x[0, 0] > -1.0):
+        a, b = ins[1].double().abs(), ins[2].double().abs()
+        tol += 1e-6 * 3 * (a[:, 0:8].T @ b[:, 0:128])
+    elif case in ("h", "i"):
+        tol[0] = 1e-6 * (1 if case == "h" else 2) * torch.sum(
+            x.double().reshape(-1)[256:512].abs())
+    elif case == "j":
+        d = x.double()[256:512, :] - 2 * ins[1].double()[:, 256:512]
+        tol[0] = 1e-5 * torch.sum(d * d)
+    return tol
+
+
+def within_tolerance(case, got, ref, ins):
+    """Whether the kernel's `got` lies within `tolerance` of the plain
+    `ref` on every output."""
+    err = (got.double() - ref.double()).abs()
+    return bool((err <= tolerance(case, *ins)).all())
 
 
 def _row0(v, like):
@@ -131,13 +194,18 @@ def construct_probe_cuda(case, *ins):
     `construct_probe.launches`."""
     dev = ins[0].device
     check_inputs("construct_probe", ins, dev)
+    shapes = tuple(tuple(t.shape) for t in ins)
+    if shapes != SHAPES[case]:
+        raise ValueError(f"construct_probe {case}: inputs of shapes "
+                         f"{SHAPES[case]}, got {shapes}")
+    if any(t.data_ptr() % 16 for t in ins):
+        raise ValueError(f"construct_probe {case}: the kernel reads its "
+                         "inputs in 16-byte loads; every input must be "
+                         "16-byte aligned")
     out = torch.empty(OUT_SHAPE, dtype=torch.float32, device=dev)
-    scratch = (torch.empty(SCRATCH[case], dtype=torch.float32, device=dev)
-               if case in SCRATCH else None)
     ptrs = [t.data_ptr() for t in ins] + [None] * (3 - len(ins))
     launch = _build.entry("construct_probe")
     err = launch(CASES.index(case), *ptrs, out.data_ptr(),
-                 None if scratch is None else scratch.data_ptr(),
                  torch.cuda.current_stream(dev).cuda_stream)
     _build.check("construct_probe", err)
     construct_probe.launches += 1

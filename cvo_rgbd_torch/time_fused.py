@@ -114,6 +114,20 @@ SHA-1 of each lane's outputs and, for the wsq batches, the launch with
 no lane live (its fixed cost).  The PYTHONPATH form runs it against an
 earlier checkout's package.
 
+    python -m cvo_rgbd_torch.time_fused --probes
+
+prints the launch floor, then for each toy case of
+`csrc/construct_probe.cu` (row 8) on the scripts' inputs one JSON line:
+the median of 30 CUDA-event runs, the device ms by kernel and launches
+a call (torch.profiler), and the SHA-1 of its output on the scripts'
+inputs, on the seeded inputs of seeds 0 and 1 and, for d and e, with
+the guard off; then the one-call library counterparts of e (one of its
+three products, `torch.matmul(a[:, 0:8].T, b)`) and h
+(`torch.sum(x[256:512])`).  The PYTHONPATH form runs it against an
+earlier checkout's package (one without `probes.seeded_inputs` takes
+this file's sibling `probes.py`'s), so that parent and change print
+their bits and times in turns in one call.
+
     python -m cvo_rgbd_torch.time_fused --sass [LIBRARY [KERNEL]]
 
 prints instead, for the resident cvo kernel of a built library (by
@@ -1287,6 +1301,68 @@ def time_gram():
         }), flush=True)
 
 
+# the seeds of the probes' seeded inputs
+PROBE_SEEDS = (0, 1)
+
+
+def seeded_probes():
+    """The `probes` module of the package under test or, for a package
+    from before `probes.seeded_inputs`, this file's sibling
+    `probes.py`: the source of the seeded inputs."""
+    import importlib.util
+
+    from cvo_rgbd_torch import probes
+
+    if hasattr(probes, "seeded_inputs"):
+        return probes
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "probes.py")
+    spec = importlib.util.spec_from_file_location("_sibling_probes", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def time_probes():
+    """Row 8's toy cases and their library counterparts; see the module
+    docstring."""
+    import torch
+
+    import cvo_rgbd_torch
+    from cvo_rgbd_torch import probes
+
+    sp = seeded_probes()
+    dev = torch.device("cuda")
+    launch_floor()
+    for case in probes.CASES:
+        ins = probes.inputs(case, dev)
+
+        def fn():
+            return probes.construct_probe_cuda(case, *ins)
+
+        bits = {"scripts": sha1(fn())}
+        for seed in PROBE_SEEDS:
+            bits[f"seed{seed}"] = sha1(probes.construct_probe_cuda(
+                case, *sp.seeded_inputs(case, dev, seed)))
+        if case in sp.GUARDED:
+            bits["guard_off"] = sha1(probes.construct_probe_cuda(
+                case, *sp.seeded_inputs(case, dev, 0, sp.GUARD_OFF)))
+        print(json.dumps({
+            "package": cvo_rgbd_torch.__file__, "case": case,
+            "ms": time_ms(fn), "launches_per_call": launches_per_call(fn),
+            "device_ms_by_kernel": device_ms_by_kernel(fn), "sha1": bits,
+        }), flush=True)
+    a, b = probes.inputs("e", dev)[1:]
+    x = probes.inputs("h", dev)[0]
+    for case, call, fn in (
+            ("e", "torch.matmul(a[:, 0:8].T, b)",
+             lambda: torch.matmul(a[:, 0:8].T, b)),
+            ("h", "torch.sum(x[256:512])", lambda: torch.sum(x[256:512]))):
+        print(json.dumps({"library": call, "case": case, "ms": time_ms(fn),
+                          "launches_per_call": launches_per_call(fn)}),
+              flush=True)
+
+
 def drift():
     """Card and float32 plain version against float64, pair by pair,
     after 1, 3 and 10 iterations from the same start: phase 8's pcd lanes
@@ -1378,6 +1454,10 @@ def main(argv=None):
     if argv[:1] == ["--lanes"]:
         _build.build(("color_gram", "fused_moments", "fused_wsq"))
         time_lanes()
+        return 0
+    if argv[:1] == ["--probes"]:
+        _build.build(("construct_probe",))
+        time_probes()
         return 0
     if argv[:1] == ["--profiler"]:
         _build.build(("color_gram", "fused_flow"))

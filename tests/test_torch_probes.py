@@ -130,6 +130,159 @@ def test_probe_bound_counts_what_the_result_depends_on(case):
             probes.construct_probe_plain(case, *poisoned), ref)
 
 
+SEEDS = (0, 1)
+
+
+def _reference64(case, ins):
+    """Case `case` transcribed in float64 numpy from the scripts:
+    (the [8, 128] result, the tolerance on each output).  Where the
+    float32 plain version rounds once (a, c) or not at all (b2, d, k),
+    the result is rounded to float32 and the tolerance is 0; b rounds
+    three times, 1e-6 of it; the sums take 1e-6 (e, h, i) or 1e-5 (j) of
+    the sum of their terms' magnitudes."""
+    x = ins[0]
+    out = np.zeros(probes.OUT_SHAPE)
+    tol = np.zeros(probes.OUT_SHAPE)
+    if case == "a":
+        out[:] = x * 2.0 + 1.0
+    elif case == "b":
+        s = np.zeros((8, 1024))
+        for acc in (1.0, 2.0, 3.0):
+            s[:, 256:512] += x[:, 0:256] * acc
+        out[:] = s[:, 256:384]
+        tol[:] = 1e-6 * np.abs(out)
+    elif case == "b2":
+        out[:] = x[0:8, 0:128]
+    elif case == "c":
+        out[0] = x[0, 0] + x[0, 159]
+    elif case == "d":
+        out[:] = 3.0 if x[0, 0] > -1.0 else 0.0
+    elif case == "e":
+        if x[0, 0] > -1.0:
+            a, b = ins[1][:, 0:8], ins[2][:, 0:128]
+            out[:] = 3 * (a.T @ b)
+            tol[:] = 1e-6 * 3 * (np.abs(a).T @ np.abs(b))
+    elif case == "h":
+        out[0] = np.sum(x[256:512, 0])
+        tol[0] = 1e-6 * np.sum(np.abs(x[256:512, 0]))
+    elif case == "i":
+        out[0] = np.sum(2.0 * x[0, 256:512])
+        tol[0] = 1e-6 * np.sum(np.abs(2.0 * x[0, 256:512]))
+    elif case == "j":
+        d = x[256:512, 0][:, None] - 2.0 * ins[1][0, 256:512][None, :]
+        out[0] = np.sum(d * d)
+        tol[0] = 1e-5 * out[0, 0]
+    elif case == "k":
+        s = np.zeros((128, 512))
+        for _ in range(2):
+            s[:] = 0.0
+            s[:, 256:512] += 2.0
+        out[:] = s[0:8, 256:384]
+    if case in ("a", "b2", "c", "d", "k"):
+        out = out.astype(np.float32).astype(np.float64)
+    return out, tol
+
+
+def test_seeded_inputs_are_the_scripts_shapes_drawn_from_the_seed():
+    for case in probes.CASES:
+        ins = probes.seeded_inputs(case, "cpu", 0)
+        script = probes.inputs(case, "cpu")
+        assert [t.shape for t in ins] == [t.shape for t in script]
+        assert all(t.dtype == torch.float32 for t in ins)
+        again = probes.seeded_inputs(case, "cpu", 0)
+        other = probes.seeded_inputs(case, "cpu", 1)
+        for i, (t, u, v) in enumerate(zip(ins, again, other)):
+            assert torch.equal(t, u)
+            if case in probes.GUARDED and i == 0:
+                assert (t == 0.0).all()
+                continue
+            assert not torch.equal(t, v)
+            assert bool((t >= 0.5).all()) and bool((t < 1.5).all())
+            # on the 2^-23 grid: exact in float32 and in float64
+            q = t.double() * 2.0 ** 23
+            assert torch.equal(q, torch.round(q))
+    off = probes.seeded_inputs("e", "cpu", 0, guard=probes.GUARD_OFF)
+    assert (off[0] == probes.GUARD_OFF).all()
+    assert torch.equal(off[1], probes.seeded_inputs("e", "cpu", 0)[1])
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("case", probes.CASES)
+def test_plain_probe_matches_float64_on_seeded_inputs(case, seed):
+    ins = probes.seeded_inputs(case, "cpu", seed)
+    got = probes.construct_probe(case, *ins)
+    assert got.shape == probes.OUT_SHAPE and got.dtype == torch.float32
+    want, tol = _reference64(case, [t.numpy().astype(np.float64)
+                                    for t in ins])
+    err = np.abs(got.numpy().astype(np.float64) - want)
+    assert (err <= tol).all(), (case, err.max())
+    # the tolerance the card holds the kernel to is no looser (up to the
+    # float64 rounding of two sums of magnitudes)
+    assert (probes.tolerance(case, *ins).numpy() <= np.maximum(
+        tol, 1e-6 * np.abs(want)) * (1 + 1e-12)).all()
+
+
+@pytest.mark.parametrize("case", probes.GUARDED)
+def test_plain_probe_with_the_guard_off_gives_zeros(case):
+    ins = probes.seeded_inputs(case, "cpu", 0, guard=probes.GUARD_OFF)
+    got = probes.construct_probe(case, *ins)
+    assert got.shape == probes.OUT_SHAPE and not got.any()
+    want, _ = _reference64(case, [t.numpy().astype(np.float64)
+                                  for t in ins])
+    assert not want.any()
+    assert not probes.tolerance(case, *ins).any()
+
+
+@pytest.mark.parametrize("case", [c for c in probes.CASES if c != "k"])
+def test_a_closed_form_written_unread_fails_the_seeded_checks(case):
+    """A kernel that wrote the scripts' closed form without reading its
+    inputs would pass every check on the scripts' inputs; on seeded ones
+    (d: with the guard off) it misses its plain version.  k reads no
+    input: its result is a constant."""
+    closed = probes.construct_probe_plain(case, *probes.inputs(case, "cpu"))
+    forms = [probes.seeded_inputs(case, "cpu", s) for s in SEEDS]
+    if case in probes.GUARDED:
+        forms.append(probes.seeded_inputs(case, "cpu", 0,
+                                          guard=probes.GUARD_OFF))
+    missed = [not probes.within_tolerance(
+        case, closed, probes.construct_probe_plain(case, *ins), ins)
+        for ins in forms]
+    assert any(missed)
+    if case != "d":
+        assert all(missed)
+
+
+def test_time_fused_takes_the_seeded_inputs_of_an_older_package(
+        monkeypatch):
+    """`time_fused.py --probes` against a package from before
+    `seeded_inputs` takes them from its sibling probes.py: the same
+    tensors."""
+    from cvo_rgbd_torch import time_fused
+
+    assert time_fused.seeded_probes() is probes
+    want = probes.seeded_inputs("j", "cpu", 1)
+    monkeypatch.delattr(probes, "seeded_inputs")
+    sibling = time_fused.seeded_probes()
+    assert sibling is not probes
+    for a, b in zip(sibling.seeded_inputs("j", "cpu", 1), want):
+        assert torch.equal(a, b)
+
+
+def test_probe_wrapper_rejects_wrong_shapes():
+    with pytest.raises(ValueError, match="inputs of shapes"):
+        probes.construct_probe_cuda("a", torch.zeros(8, 64))
+    with pytest.raises(ValueError, match="inputs of shapes"):
+        probes.construct_probe_cuda("j", torch.zeros(512, 1))
+
+
+def test_probe_wrapper_rejects_unaligned_inputs():
+    # the kernels read whole rows in 16-byte loads
+    x = torch.zeros(8 * 1024 + 1)[1:].view(8, 1024)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        probes.construct_probe_cuda("b", x)
+
+
 def test_probe_wrapper_rejects_unknown_cases():
     with pytest.raises(ValueError, match="unknown probe case"):
         probes.construct_probe("z", torch.zeros(1, 8))
