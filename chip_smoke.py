@@ -67,7 +67,16 @@ and prints no result line):
    the trajectory scored (ATE) against the exact ground truth.  Every
    pair goes through `align_jit` (graph replays on the kernel backend).
    The fused runs must launch `align_fused` once a pair and none of the
-   per-iteration kernels;
+   per-iteration kernels; 5e. `cli run`'s per-frame work outside align
+   at TUM's 480x640 (FRONTEND_FRAMES frames as the PNG loader gives
+   them, num_want 3000): the drivers' frontend (one captured program, a
+   graph replay a frame) against `_process` op by op, every frame's
+   SHA-1, ms and host launches a frame of both; the odometry step's
+   bookkeeping compiled against its eager ops, bits and ms a pair; and
+   `run_odometry_frames` cvo and acvo on the kernel and the fused
+   backend, one frontend replay a frame and one bookkeeping replay a
+   pair, frames/s, the trajectory that of the same run with the
+   frontend op by op;
 6. the MATLAB path on the pcd files at both grids: `cli batch` (kernel
    backend: `fused_moments`, never `color_gram`), `run_batch` on the
    fused backend (`align_fused` once a pair) and with
@@ -271,6 +280,8 @@ RESIDENT_NUM_WANT = 1024
 # the cell: a 10-frame sequence rendered at 240x320, 3000 points a frame
 # (capacity 3072); the small pair of the card-vs-CPU checks, 96x128
 FRAMES, SIZE, NUM_WANT = 10, (240, 320), 3000
+# phase 5e: `cli run` at TUM's image shape (camera 1 is fr1's)
+FRONTEND_FRAMES, FRONTEND_SIZE = 6, (480, 640)
 SMALL_SIZE, SMALL_NUM_WANT = (96, 128), 1024
 RUNS = 30
 WARMUP = 5
@@ -1640,6 +1651,235 @@ def phase_odometry(frames, p, adaptive, num_want=NUM_WANT):
           f"the {name} main path launched another kernel: {launches}")
     check(n_fused == 0, f"the {name} main path launched align_fused")
     return launches, run
+
+
+def _eager_processor(feature_type, num_want=NUM_WANT):
+    """The frontend op by op on the card: `_process` after a host-side
+    float32 conversion and a pageable copy (the processor's form before
+    it was one captured program)."""
+    import torch
+
+    from cvo_rgbd_torch.frontend.camera import get_camera
+    from cvo_rgbd_torch.frontend.pipeline import _process
+
+    def frontend(rgb, dep):
+        f32 = torch.float32
+        return _process(torch.as_tensor(rgb, dtype=f32).cuda(),
+                        torch.as_tensor(dep, dtype=f32).cuda(),
+                        cam=get_camera(1), num_want=num_want,
+                        feature_type=feature_type, dep_thres=20000.0,
+                        pot=3)
+
+    return frontend
+
+
+def _api_calls(fn):
+    """The host's calls that put work on the card during fn (kernel and
+    graph launches, copies), from a torch.profiler window."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.key.startswith(("cudaLaunch", "cudaGraphLaunch",
+                                 "cudaMemcpy", "cudaMemset"))}
+
+
+def phase_frontend_jit(p, pa, pf, paf):
+    """5e. `cli run`'s per-frame work outside align, compiled, at TUM's
+    480x640 (`synth.BandScene`; camera 1 holds fr1's intrinsics):
+    FRONTEND_FRAMES frames as the PNG loader gives them (uint8 RGB,
+    uint16 depth), num_want 3000.  For cvo (feature type 1) and acvo
+    (0) features: every frame's cloud from the drivers' processor has
+    the SHA-1 of `_process` op by op; ms a frame (the call's return and,
+    synchronized, its end; PhaseTimer) and the host's launches a frame
+    of both forms, the compiled one a graph replay a frame.  Then the
+    odometry step's bookkeeping on the first pair: the eager ops against
+    the compiled `_odom_step` (`align_jit` answering at once), their
+    bits and ms a pair.  Then `run_odometry_frames` over the frames,
+    cvo and acvo on the kernel and the fused backend (3072, tiled): one
+    frontend replay a frame and one bookkeeping replay a pair, frames/s,
+    and the trajectory line for line that of the same run with the
+    frontend op by op.  Returns the launches of the compiled runs by
+    kernel line row."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from cvo_rgbd_torch import odometry
+    from cvo_rgbd_torch.evaluation import ate_rmse
+    from cvo_rgbd_torch.frontend import make_frontend
+    from cvo_rgbd_torch.io.tum import parse_trajectory
+    from cvo_rgbd_torch.synth import BandScene, render_frames, revisit_path
+    from cvo_rgbd_torch.utils.timing import PhaseTimer
+
+    t0 = time.perf_counter()
+    frames = [(i, nm, rgb.astype(np.uint8), dep.astype(np.uint16), pose)
+              for i, nm, rgb, dep, pose in render_frames(
+                  revisit_path(FRONTEND_FRAMES, period=33),
+                  BandScene(*FRONTEND_SIZE))]
+    log(f"5e: rendered {len(frames)} frames at {FRONTEND_SIZE[0]}x"
+        f"{FRONTEND_SIZE[1]} in {time.perf_counter() - t0:.2f} s")
+
+    def sha1s(cloud):
+        return [hashlib.sha1(t.cpu().numpy().tobytes()).hexdigest()
+                for t in cloud]
+
+    first = {}
+    for ft in (1, 0):
+        fe = make_frontend(1, NUM_WANT, ft, device="cuda")
+        eager = _eager_processor(ft)
+        for i, _, rgb, dep, _ in frames:
+            got, ref = fe(rgb, dep), eager(rgb, dep)
+            check(sha1s(got) == sha1s(ref), f"5e: frame {i}'s compiled "
+                  f"cloud (feature type {ft}) is not _process's")
+            first.setdefault(ft, []).append(got)
+        timer = PhaseTimer()
+        for _ in range(3):
+            for name, fn in (("compiled", fe), ("eager", eager)):
+                for _, _, rgb, dep, _ in frames:
+                    torch.cuda.synchronize()
+                    with timer.phase(f"{name} host"):
+                        out = fn(rgb, dep)
+                    timer.sync_point(f"{name} wait", out)
+        times = {k: v["mean_ms"] for k, v in timer.report().items()}
+        replays = fe.replays
+        calls = {name: _api_calls(lambda fn=fn: [
+            fn(f[2], f[3]) for f in frames])
+            for name, fn in (("compiled", fe), ("eager", eager))}
+        reps = fe.replays - replays
+        per = {k: sum(v.values()) / len(frames) for k, v in calls.items()}
+        host = {k: times[f"{k} host"] for k in ("compiled", "eager")}
+        wall = {k: host[k] + times[f"{k} wait"] for k in host}
+        log(f"5e frontend feature type {ft} at {FRONTEND_SIZE[0]}x"
+            f"{FRONTEND_SIZE[1]}, {NUM_WANT} points: every frame the bits "
+            f"of _process; ms a frame, host (to return) compiled "
+            f"{host['compiled']:.4f}, eager {host['eager']:.4f}; to the end "
+            f"of the frame compiled {wall['compiled']:.4f}, eager "
+            f"{wall['eager']:.4f}; host launches a frame compiled "
+            f"{per['compiled']:.2f} {calls['compiled']}, eager "
+            f"{per['eager']:.2f} {calls['eager']}; replays {reps} for "
+            f"{len(frames)} frames; programs {len(fe.programs)}")
+        check(reps == len(frames) and calls["compiled"].get(
+            "cudaGraphLaunch") == len(frames)
+            and not calls["compiled"].get("cudaLaunchKernel"),
+            f"5e: the compiled frontend is not one replay a frame: {reps} "
+            f"replays, {calls['compiled']}")
+
+    # the step's bookkeeping on the first pair
+    x, y = first[1][:2]
+    warm = (torch.eye(3, device="cuda"), torch.zeros(3, device="cuda"),
+            torch.full((), p.ell_init, device="cuda"))
+    res = odometry.align_jit(p, x, y, *warm)
+    real = odometry.align_jit
+    odometry.align_jit = lambda *a, **k: res
+    try:
+        def compiled_step():
+            return odometry._odom_step(p, False, x, y, warm, 64, "cuda")
+
+        def eager_step():
+            return odometry._bookkeeping(
+                p, False, 64, res.tf, res.R, res.T, res.ell,
+                res.iterations, res.converged, x.positions, x.mask,
+                y.positions, y.mask)
+
+        packed, nxt = compiled_step()
+        flat = eager_step()
+        same = torch.equal(packed, flat[:19]) and all(
+            torch.equal(a, b) for a, b in zip(
+                nxt, (flat[32:41].view(3, 3), flat[48:51], flat[64])))
+        step_ms = {}
+        for name, fn in (("compiled", compiled_step), ("eager", eager_step)):
+            step_ms[name] = time_host(fn)
+        step_calls = {name: sum(_api_calls(fn).values())
+                      for name, fn in (("compiled", compiled_step),
+                                       ("eager", eager_step))}
+    finally:
+        odometry.align_jit = real
+    log(f"5e step bookkeeping, cvo kernel pair: the eager bits {same}; ms "
+        f"a pair compiled {step_ms['compiled']:.4f}, eager "
+        f"{step_ms['eager']:.4f}; host launches compiled "
+        f"{step_calls['compiled']}, eager {step_calls['eager']}")
+    check(same, "5e: the compiled bookkeeping is not the eager bits")
+
+    launches = {k: 0 for k in KERNELS + FUSED}
+    gt = {float(nm): pose for _, nm, _, _, pose in frames}
+    for q, adaptive in ((p, False), (pa, True), (pf, False), (paf, True)):
+        name = ("acvo" if adaptive else "cvo") + f" {q.backend}"
+        fe = make_frontend(1, NUM_WANT, 0 if adaptive else 1,
+                           device="cuda")
+
+        def run():
+            traj = io.StringIO()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            recs = odometry.run_odometry_frames(
+                ((i, nm, rgb, dep) for i, nm, rgb, dep, _ in frames), 1,
+                adaptive=adaptive, params=q, traj=traj, num_want=NUM_WANT,
+                log=lambda *a: None)
+            torch.cuda.synchronize()
+            return traj.getvalue(), recs, time.perf_counter() - t0
+
+        steps0 = sum(v.runs for v in odometry.STEP_CACHE.values())
+        replays = fe.replays
+        reset_launches()
+        traj, recs, dt = run()
+        got = read_launches()
+        steps = sum(v.runs for v in odometry.STEP_CACHE.values()) - steps0
+        replays = fe.replays - replays
+        real = odometry.make_frontend
+        odometry.make_frontend = lambda *a, **k: _eager_processor(
+            0 if adaptive else 1)
+        try:
+            ref, _, dt_e = run()
+        finally:
+            odometry.make_frontend = real
+        ate = ate_rmse(gt, parse_trajectory(traj.splitlines()))["rmse"]
+        n = len(recs)
+        log(f"5e odometry {name} at {FRONTEND_SIZE[0]}x{FRONTEND_SIZE[1]}: "
+            f"{n} pairs, failed {sum(r.failed for r in recs)}, converged "
+            f"{all(r.converged for r in recs)}, iterations "
+            f"{[r.iterations for r in recs]}, {n / dt:.3f} frames/s "
+            f"(frontend op by op {n / dt_e:.3f}), ATE {ate:.5f} m, the "
+            f"eager frontend's trajectory {traj == ref}; frontend replays "
+            f"{replays}, bookkeeping replays {steps}; launches {got}")
+        check(traj == ref, f"5e {name}: the trajectory is not the eager "
+              "frontend's")
+        check(n == len(frames) - 1 and not any(r.failed for r in recs)
+              and all(r.converged for r in recs),
+              f"5e {name}: a pair failed or did not converge")
+        check(replays == len(frames) and steps == n,
+              f"5e {name}: frontend replays {replays}, bookkeeping "
+              f"replays {steps}")
+        if q.backend == "fused":
+            check(got["align_fused"] == n, f"5e {name}: launches {got}")
+            launches["align_fused_tiled"] += got["align_fused"]
+        else:
+            check(got["color_gram"] and got["fused_moments"],
+                  f"5e {name}: launches {got}")
+            for k in KERNELS:
+                launches[k] += got[k]
+    return launches
+
+
+def time_host(fn, runs=RUNS):
+    """Median ms of fn to its end (synchronized) on the host clock."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return median(times)
 
 
 def phase_probes():
@@ -4182,6 +4422,9 @@ def main():
             launches[k] += v
         mark(f"5 ({params.backend}, {params.step_mode}, "
              f"{type(params).__name__}, {nw})")
+    # 5e. cli run's per-frame work outside align, compiled, at 480x640
+    _added(launches, phase_frontend_jit(p, pa, pf, paf))
+    mark("5e (the compiled frontend at 480x640)")
 
     # 6. the MATLAB path
     for k, v in phase_matlab(root, frames).items():

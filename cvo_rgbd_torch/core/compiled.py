@@ -47,6 +47,12 @@ replay: each graph records its counts, adds them on every replay, and
 `align_jit.replays` counts the replays (on the CPU, the blocks run).
 The warm-up block's launches are counted as they run, and
 `align_jit.warmups` counts its iterations.
+
+`CapturedProgram` is the same design for a function of a few tensors
+that runs once a call: the frontend (`frontend.pipeline.Frontend`, the
+JAX package's `jax.jit` of `_process`) and the odometry step's
+bookkeeping after align (`odometry._odom_step`, the rest of JAX's
+jitted step), one graph each, a replay a call.
 """
 
 from __future__ import annotations
@@ -102,20 +108,76 @@ def _static(x):
     return x
 
 
-def _copy_in(dst, src):
+def _copy_in(dst, src, non_blocking=False):
     """Copy `src` into the static `dst` of the same structure; raises
-    where a tensor's shape or type differs from the compiled one."""
+    where a tensor's shape or type differs from the compiled one.
+    `non_blocking` for a source in pinned host memory."""
     if isinstance(dst, torch.Tensor):
         if src.shape != dst.shape or src.dtype != dst.dtype:
             raise ValueError(
-                f"align_jit: compiled for {dst.dtype} {tuple(dst.shape)}, "
-                f"got {src.dtype} {tuple(src.shape)}")
-        dst.copy_(src)
+                f"compiled for {dst.dtype} {tuple(dst.shape)}, got "
+                f"{src.dtype} {tuple(src.shape)}")
+        dst.copy_(src, non_blocking=non_blocking)
     elif isinstance(dst, tuple):
         for d, s in zip(dst, src, strict=True):
-            _copy_in(d, s)
+            _copy_in(d, s, non_blocking)
     elif src is not None:
-        raise ValueError("align_jit: an input the compiled align lacks")
+        raise ValueError("an input the compiled program lacks")
+
+
+class CapturedProgram:
+    """`fn` (tensors -> one tensor) on static inputs: one CUDA graph on
+    the card, captured on the first run after one eager warm-up run on
+    the capture stream, replayed on every run; on the CPU `fn` itself on
+    the same static inputs.  Built from an example of the inputs (their
+    shapes, types and strides); `what` names the program in a capture's
+    error.  A run returns a fresh copy of the output (a replay overwrites
+    the static one), one launch.  `runs` counts the runs (on the card,
+    the replays).  The frontend (`frontend.pipeline.Frontend`) and the
+    odometry step's bookkeeping (`odometry._odom_step`) run as these."""
+
+    def __init__(self, fn, example, what):
+        self.fn, self.what = fn, what
+        self.inputs = _static(example)
+        self.device = self.inputs[0].device
+        self.graph = self.output = None
+        self.runs = 0
+
+    def _capture(self):
+        dev = self.device
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            self.fn(*self.inputs)
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, stream=stream):
+                self.output = self.fn(*self.inputs)
+        except Exception as e:
+            raise RuntimeError(
+                f"capturing {self.what} failed: {e}") from e
+        self.graph = graph
+
+    def load(self, inputs, non_blocking=False):
+        """Copy `inputs` into the static inputs (`non_blocking` for
+        sources in pinned host memory)."""
+        _copy_in(self.inputs, tuple(inputs), non_blocking)
+
+    def run(self):
+        """Run on the static inputs; a copy of the output."""
+        if self.device.type != "cuda":
+            self.output = self.fn(*self.inputs)
+        else:
+            if self.graph is None:
+                self._capture()
+            self.graph.replay()
+        self.runs += 1
+        return self.output.clone()
+
+    def __call__(self, *inputs):
+        self.load(inputs)
+        return self.run()
 
 
 class CompiledAlign:

@@ -20,18 +20,29 @@ import torch
 PYR_LEVELS = 3  # data_type.h:25
 
 
+def _f32(x: float) -> float:
+    """x rounded to float32, as a Python float (which holds it exactly)."""
+    return torch.tensor(x, dtype=torch.float32).item()
+
+
+# the OpenCV Y weights as float32 constants: Python floats, so that the
+# frontend's captured program makes no host-to-device copy for them
+_Y_R, _Y_G, _Y_B = _f32(0.299), _f32(0.587), _f32(0.114)
+
+
 def _fma(a, b, c):
-    """fp32 a*b + c with a single rounding, like a fused multiply-add."""
-    return (a.double() * b.double() + c.double()).to(torch.float32)
+    """fp32 a*b + c with a single rounding, like a fused multiply-add;
+    `a` a tensor or a float32 value as a Python float."""
+    a = a.double() if isinstance(a, torch.Tensor) else a
+    return (a * b.double() + c.double()).to(torch.float32)
 
 
 def rgb_to_gray(rgb):
     """[H,W,3] float (0..255) -> [H,W] luma, OpenCV Y weights, evaluated
     as (0.299 r + 0.587 g) + 0.114 b with XLA's fused roundings."""
-    c = rgb.new_tensor
     r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
-    rg = _fma(c(0.299), r, c(0.587) * g)
-    return _fma(c(0.114), b, rg)
+    rg = _fma(_Y_R, r, _Y_G * g)
+    return _fma(_Y_B, b, rg)
 
 
 def rgb_to_hsv_cv(rgb):

@@ -75,9 +75,8 @@ def _block_threshold_map(abs_sq_grad):
 
     # pixels beyond the 32-divisible crop get an infinite threshold
     full = torch.full((h, w), float("inf"), dtype=torch.float32, device=dev)
-    full[:hc, :wc] = ths_sm.repeat_interleave(HIST_BLOCK, 0).repeat_interleave(
-        HIST_BLOCK, 1
-    )
+    full[:hc, :wc] = ths_sm[:, None, :, None].expand(
+        h32, HIST_BLOCK, w32, HIST_BLOCK).reshape(hc, wc)
     return full
 
 

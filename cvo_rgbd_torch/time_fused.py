@@ -128,6 +128,23 @@ earlier checkout's package (one without `probes.seeded_inputs` takes
 this file's sibling `probes.py`'s), so that parent and change print
 their bits and times in turns in one call.
 
+    python -m cvo_rgbd_torch.time_fused --frontend
+
+times instead the per-frame work of `cli run` outside align at num_want
+3000, on 4 renders at 240x320 and at 480x640 (TUM's shape), each as the
+native loader gives it (uint8 RGB, uint16 depth), cvo (feature type 1)
+and acvo (0) features: `make_frontend`'s processor beside `_process`
+called directly (after a host-side float32 conversion and a pageable
+copy), host ms a frame (the call's return) and wall ms (to a
+synchronize), device ms, the sort kernels' device ms and the host's
+launches a frame from torch.profiler, that conversion and copy alone,
+and whether the processor's clouds have `_process`'s bits; then the
+odometry step's bookkeeping (`odometry._odom_step` around an
+`align_jit` that answers at once) host ms and launches a pair, beside
+`align_jit`'s wall ms on the first pair, cvo and acvo, kernel and fused
+backends.  The PYTHONPATH form runs it against an earlier checkout's
+package.
+
     python -m cvo_rgbd_torch.time_fused --sass [LIBRARY [KERNEL]]
 
 prints instead, for the resident cvo kernel of a built library (by
@@ -662,6 +679,143 @@ def time_odometry(num_want=3000, runs=2):
                           "frames_per_s": rates,
                           "iterations": [r.iterations for r in recs]}),
               flush=True)
+
+
+def host_ms(fn, runs=RUNS):
+    """(host ms, wall ms): the medians over `runs` calls of fn (after a
+    warm-up call) of the time to return from the call, and of the time
+    to return and then synchronize."""
+    import time
+
+    import torch
+
+    fn()
+    host, wall = [], []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        host.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+    return (sorted(host)[runs // 2] * 1e3, sorted(wall)[runs // 2] * 1e3)
+
+
+def per_call_profile(fn, calls):
+    """fn's device ms, its sort kernels' device ms and its host API calls
+    that put work on the card (kernel and graph launches, copies, sets),
+    each a call, from torch.profiler over one run of fn that makes
+    `calls` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    gpu = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not gpu:
+        raise RuntimeError("the profiler recorded no device activity")
+    dev = sum(e.time_range.elapsed_us() for e in gpu) / 1e3
+    sort = sum(e.time_range.elapsed_us() for e in gpu
+               if "sort" in e.name.lower()) / 1e3
+    api = {e.key: e.count / calls for e in prof.key_averages()
+           if e.key.startswith(("cudaLaunch", "cudaGraphLaunch",
+                                "cudaMemcpy", "cudaMemset"))}
+    return dev / calls, sort / calls, api
+
+
+def time_frontend(sizes=((240, 320), (480, 640)), n_frames=4):
+    """`make_frontend`'s processor against `_process` called directly on
+    the card at num_want 3000, on `n_frames` renders of each size as the
+    native loader gives them (uint8 RGB, uint16 depth), for feature
+    types 1 (cvo) and 0 (acvo): host and wall ms a frame, device ms,
+    the sort kernels' device ms and the host's launches a frame, the
+    host-side float32 conversion and pageable copy of one frame alone,
+    and whether every cloud has `_process`'s bits.  Then the odometry
+    step's bookkeeping (`odometry._odom_step` with `align_jit` answering
+    at once with a result computed before) beside `align_jit`'s own
+    wall ms a pair on the first pair, on the kernel and the fused
+    backend."""
+    import numpy as np
+    import torch
+
+    from cvo_rgbd_torch import odometry
+    from cvo_rgbd_torch.core.compiled import align_jit
+    from cvo_rgbd_torch.frontend import make_frontend
+    from cvo_rgbd_torch.frontend.camera import get_camera
+    from cvo_rgbd_torch.frontend.pipeline import _process
+    from cvo_rgbd_torch.params import AcvoParams, CvoParams
+
+    dev = torch.device("cuda")
+    f32 = torch.float32
+
+    def upload(rgb, dep):
+        return (torch.as_tensor(rgb, dtype=f32).to(dev),
+                torch.as_tensor(dep, dtype=f32).to(dev))
+
+    for size in sizes:
+        frames = [(f[2].astype(np.uint8), f[3].astype(np.uint16))
+                  for f in render(n_frames, size)[1]]
+        clouds = {}
+        for ft in (1, 0):
+            fe = make_frontend(1, 3000, ft)
+            cfg = dict(cam=get_camera(1), num_want=3000, feature_type=ft,
+                       dep_thres=20000.0, pot=3)
+            forms = {"processor": fe,
+                     "eager": lambda r, d: _process(*upload(r, d), **cfg)}
+            out = {}
+            for name, fn in forms.items():
+                def run(fn=fn):
+                    return [fn(r, d) for r, d in frames]
+
+                clouds[ft, name] = run()
+                host, wall = host_ms(run, runs=5)
+                dev_ms, sort_ms, api = per_call_profile(run, n_frames)
+                out[name] = {"host_ms": host / n_frames,
+                             "wall_ms": wall / n_frames,
+                             "device_ms": dev_ms, "sort_device_ms": sort_ms,
+                             "launches": sum(api.values()), "api": api}
+            same = all(torch.equal(a, b) for c, e in zip(
+                clouds[ft, "processor"], clouds[ft, "eager"])
+                for a, b in zip(c, e))
+            conv = host_ms(lambda: upload(*frames[0]))[1]
+            print(json.dumps({
+                "frontend": f"{size[0]}x{size[1]}", "feature_type": ft,
+                "num_want": 3000, "frames": n_frames,
+                "valid": [int(c.mask.sum()) for c in clouds[ft, "eager"]],
+                "processor_bits_of_eager": same,
+                "conversion_and_copy_ms": conv, **out}), flush=True)
+
+        for adaptive, p in ((False, CvoParams()), (True, AcvoParams()),
+                            (False, CvoParams(backend="fused")),
+                            (True, AcvoParams(backend="fused"))):
+            x, y = clouds[0 if adaptive else 1, "eager"][:2]
+            res = align_jit(p, x, y, device=dev)
+            align_ms = host_ms(lambda: align_jit(p, x, y, device=dev),
+                               runs=3)[1]
+            cold = (torch.eye(3, device=dev), torch.zeros(3, device=dev),
+                    torch.full((), p.ell_init, device=dev))
+            real = odometry.align_jit
+            odometry.align_jit = lambda *a, **k: res
+            try:
+                def step():
+                    return odometry._odom_step(p, adaptive, x, y, cold, 64,
+                                               dev)
+
+                host, wall = host_ms(step)
+                _, _, api = per_call_profile(step, 1)
+            finally:
+                odometry.align_jit = real
+            print(json.dumps({
+                "bookkeeping": f"{size[0]}x{size[1]}",
+                "algo": "acvo" if adaptive else "cvo",
+                "backend": p.backend, "iterations": int(res.iterations) + 1,
+                "align_wall_ms": align_ms, "host_ms": host, "wall_ms": wall,
+                "launches": sum(api.values()), "api": api}), flush=True)
 
 
 def flow_cases():
@@ -1470,6 +1624,9 @@ def main(argv=None):
         time_flow()
         return 0
     _build.build()
+    if argv[:1] == ["--frontend"]:
+        time_frontend()
+        return 0
     if argv[:1] == ["--drift"]:
         drift()
         return 0

@@ -2218,3 +2218,180 @@ def test_fused_wsq_runs_split_over_blocks_keep_the_bits(dev, monkeypatch):
     for i, (w1, n1) in enumerate(singles):
         assert torch.equal(_bits(outs[0][0][i]), _bits(w1)), i
         assert torch.equal(_bits(outs[0][1][i]), _bits(n1)), i
+
+
+# ---- the compiled frontend and the odometry step's bookkeeping ---------------
+
+_FRONTEND_SIZES = [(240, 320), (480, 640)]
+
+
+@pytest.fixture(scope="module")
+def frontend_frames():
+    """Two frames of the revisit path at 240x320 and at TUM's 480x640, as
+    the PNG loader gives them (uint8 RGB, uint16 depth)."""
+    from cvo_rgbd_torch import synth
+
+    return {size: [(f[2].astype(np.uint8), f[3].astype(np.uint16))
+                   for f in synth.render_frames(
+                       synth.revisit_path(2, period=33),
+                       synth.BandScene(*size))]
+            for size in _FRONTEND_SIZES}
+
+
+def _sha1s(cloud):
+    import hashlib
+
+    return [hashlib.sha1(t.cpu().numpy().tobytes()).hexdigest()
+            for t in cloud]
+
+
+def _eager_frontend(dev, rgb, dep, feature_type, bgr_quirk=False):
+    """`_process` op by op on the card, after a host-side float32
+    conversion."""
+    from cvo_rgbd_torch.frontend.camera import get_camera
+    from cvo_rgbd_torch.frontend.pipeline import _process
+
+    return _process(torch.as_tensor(rgb, dtype=torch.float32).to(dev),
+                    torch.as_tensor(dep, dtype=torch.float32).to(dev),
+                    cam=get_camera(1), num_want=3000,
+                    feature_type=feature_type, dep_thres=20000.0, pot=3,
+                    bgr_quirk=bgr_quirk)
+
+
+@pytest.mark.parametrize("inputs", ["raw", "float32", "holes"])
+@pytest.mark.parametrize("feature_type,bgr_quirk",
+                         [(1, False), (0, False), (1, True), (0, True)])
+@pytest.mark.parametrize("size", _FRONTEND_SIZES)
+def test_frontend_jit_has_the_bits_of_process_on_the_card(
+        dev, frontend_frames, size, feature_type, bgr_quirk, inputs):
+    """The compiled processor's clouds at num_want 3000 have the SHA-1 of
+    `_process` op by op, on uint8/uint16 and float32 frames and on a
+    frame with zero and NaN depth; one graph replay a frame."""
+    from cvo_rgbd_torch.frontend import make_frontend
+
+    fe = make_frontend(1, 3000, feature_type, bgr_quirk=bgr_quirk,
+                       device="cuda")
+    for rgb, dep in frontend_frames[size]:
+        if inputs != "raw":
+            rgb, dep = rgb.astype(np.float32), dep.astype(np.float32)
+        if inputs == "holes":
+            h, w = dep.shape
+            dep[h // 8:h // 4, w // 8:w // 2] = 0.0
+            dep[h // 2:h // 2 + h // 8, w // 4:w // 2] = np.nan
+        replays = fe.replays
+        got = fe(rgb, dep)
+        assert fe.replays == replays + 1
+        ref = _eager_frontend(dev, rgb, dep, feature_type, bgr_quirk)
+        assert _sha1s(got) == _sha1s(ref)
+        assert got.positions.is_cuda and got.capacity == 3072
+        assert int(got.mask.sum()) > 1000
+
+
+def test_frontend_jit_is_one_replay_a_frame_on_the_card(dev,
+                                                        frontend_frames):
+    """Once built, a frame is one graph launch beside its copies in and
+    its one copy out: no kernel launch of its own, and the clouds keep
+    their own storage."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cvo_rgbd_torch.frontend import make_frontend
+
+    fe = make_frontend(1, 3000, 1, device="cuda")
+    frames = frontend_frames[(480, 640)]
+    first = fe(*frames[0])
+    kept = [t.clone() for t in first]
+    fe(*frames[1])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        clouds = [fe(*f) for f in frames * 2]
+        torch.cuda.synchronize()
+    calls = {e.key: e.count for e in prof.key_averages()}
+    assert calls.get("cudaGraphLaunch") == 4
+    assert not calls.get("cudaLaunchKernel")
+    assert all(torch.equal(a, b) for a, b in zip(first, kept))
+    assert _sha1s(clouds[0]) == _sha1s(clouds[2]) == _sha1s(first)
+
+
+def test_frontend_jit_raises_when_capture_fails(dev, frontend_frames,
+                                                monkeypatch):
+    """A frontend whose body reads the card from the host cannot be
+    captured: the call raises with the config and the input key, and
+    nothing runs op by op instead."""
+    from cvo_rgbd_torch.frontend import pipeline
+    from cvo_rgbd_torch.frontend.camera import get_camera
+
+    real = pipeline._process
+
+    def with_host_read(rgb, depth, **kw):
+        float(depth.sum().item())
+        return real(rgb, depth, **kw)
+
+    monkeypatch.setattr(pipeline, "_process", with_host_read)
+    fe = pipeline.Frontend(1, get_camera(1), dict(
+        num_want=3000, feature_type=1, dep_thres=20000.0, pot=3,
+        bgr_quirk=False), dev)
+    with pytest.raises(RuntimeError,
+                       match=r"capturing the frontend of camera 1 .*"
+                       r"'num_want': 3000.*\(480, 640, 3\)"):
+        fe(*frontend_frames[(480, 640)][0])
+    assert fe.replays == 0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("backend", ["kernel", "fused"])
+@pytest.mark.parametrize("adaptive", [False, True])
+def test_frontend_jit_odometry_on_the_card(dev, frontend_frames, monkeypatch,
+                                           backend, adaptive):
+    """`run_odometry_frames` at 240x320: the compiled frontend's and the
+    compiled bookkeeping's trajectory is the eager frontend's, one
+    bookkeeping replay a pair, and each step's packed row and warm state
+    the eager bookkeeping's bits."""
+    import dataclasses
+    import io
+
+    from cvo_rgbd_torch import odometry
+    from cvo_rgbd_torch.params import AcvoParams, CvoParams
+
+    p = dataclasses.replace(AcvoParams() if adaptive else CvoParams(),
+                            backend=backend)
+    ft = 0 if adaptive else 1
+    pair = frontend_frames[(240, 320)]
+    frames = [(i, f"{i}", *pair[i % 2]) for i in range(4)]
+
+    def run():
+        traj = io.StringIO()
+        recs = odometry.run_odometry_frames(
+            frames, 1, adaptive=adaptive, params=p, traj=traj,
+            log=lambda *a: None)
+        return traj.getvalue(), recs
+
+    runs0 = {k: v.runs for k, v in odometry.STEP_CACHE.items()}
+    got, recs = run()
+    stepped = sum(v.runs - runs0.get(k, 0)
+                  for k, v in odometry.STEP_CACHE.items())
+    assert stepped == len(recs) == 3
+    assert not any(r.failed for r in recs)
+
+    def eager_make_frontend(*a, **kw):
+        return lambda rgb, dep: _eager_frontend(dev, rgb, dep, ft)
+
+    with monkeypatch.context() as m:
+        m.setattr(odometry, "make_frontend", eager_make_frontend)
+        ref, _ = run()
+    assert got == ref
+
+    # the bookkeeping's bits against the eager ops on one real pair
+    x, y = (_eager_frontend(dev, *f, ft) for f in pair)
+    warm = (torch.eye(3, device=dev), torch.zeros(3, device=dev),
+            torch.full((), p.ell_init, device=dev))
+    res = odometry.align_jit(p, x, y, *warm)
+    flat = odometry._bookkeeping(p, adaptive, 64, res.tf, res.R, res.T,
+                                 res.ell, res.iterations, res.converged,
+                                 x.positions, x.mask, y.positions, y.mask)
+    monkeypatch.setattr(odometry, "align_jit", lambda *a, **k: res)
+    packed, nxt = odometry._odom_step(p, adaptive, x, y, warm, 64, dev)
+    torch.cuda.synchronize()
+    assert torch.equal(packed, flat[:19])
+    for a, b in zip(nxt, (flat[32:41].view(3, 3), flat[48:51], flat[64])):
+        assert torch.equal(a, b)

@@ -166,7 +166,8 @@ def test_frame_source_native_and_pil_give_the_same_frames(lib, tmp_path):
     b = list(make_frame_source(str(folder), entries, 2, use_native=False))
     assert [f[0] for f in a] == [f[0] for f in b] == list(range(2, N_FRAMES))
     for (_, ra, da), (_, rb, db) in zip(a, b):
-        assert ra.dtype == da.dtype == np.float32
+        assert ra.dtype == rb.dtype == np.uint8
+        assert da.dtype == db.dtype == np.uint16
         np.testing.assert_array_equal(ra, rb)
         np.testing.assert_array_equal(da, db)
 
