@@ -154,9 +154,27 @@ and prints no result line):
    turns with their precise forms at the shapes of these launches (the
    linear sweeps at the coarse grid's capacity, acvo's moment sweep and
    self-sweeps at 1024).
+   9b. `cli slam`'s work outside align as captured programs (the JAX
+   package's jitted forms; `core.compiled`), on phase 9's clouds at the
+   0.05 m grid: a KeyframeSlam run on the kernel backend records every
+   align; for each, the self and cross inner products, `cloud_ok` and
+   the SLAM step's program have the SHA-1 of their functions op by op;
+   `process` over the frames with the aligns answered from the record,
+   compiled and op by op: the same keyframes, loop closures, poses and
+   self products, host ms and launches a frame of each; each
+   loop-closure search's scores and post-align inner products the op
+   by op bits; `posegraph.optimize` dense and PCG on the keyframe graph
+   against the eager loop (2e-4, costs 1e-3; the bits where every
+   scatter-add sum is order-free), first call (capture included), later
+   call and eager ms; multiseq's lane post on a 4-lane batch the eager
+   bits; the slam s/frame through the compiled path on the kernel and
+   fused backends;
 
 10. the rest of `cli run` and `cli slam`: the native PNG loader,
-   `--profile-dir`, `align_trace`, `cli slam --refine`;
+   `--profile-dir`, `align_trace`, `cli slam --refine` (its `ba_solve`
+   one captured GN iteration replayed, against the CPU's solve and
+   against the eager loop on the card, ms at its first call, a later
+   call and eager);
 11. the mesh paths (`cvo_rgbd_torch.parallel`): 11a. `color_gram`
    [N/2, M], `fused_moments` [N/2, M] with the cache and [N/2, M/2]
    without, `fused_wsq` cross [N/2, N] and [N/2, N/2] on the first
@@ -214,6 +232,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import inspect
 import io
 import json
 import os
@@ -3010,6 +3029,294 @@ def phase_slam(scene, root):
 
 
 
+def sha1s(*ts):
+    """SHA-1 of each tensor's bytes (NaN and -0 included)."""
+    import hashlib
+
+    return [hashlib.sha1(t.detach().cpu().contiguous().numpy().tobytes())
+            .hexdigest() for t in ts]
+
+
+@contextlib.contextmanager
+def programs_op_by_op():
+    """Within: every caller of `core.compiled.program_for` (the keyframe
+    inner products, `cloud_ok`, the SLAM step, multiseq's lane post) runs
+    its function op by op, uncaptured, on its own inputs."""
+    import functools
+
+    from cvo_rgbd_torch import keyframes, multiseq, slam
+
+    def op_by_op(name, fn, static, inputs):
+        return functools.partial(fn, *static)
+
+    mods = (keyframes, slam, multiseq)
+    real = [m.program_for for m in mods]
+    for m in mods:
+        m.program_for = op_by_op
+    try:
+        yield
+    finally:
+        for m, r in zip(mods, real):
+            m.program_for = r
+
+
+def scatters_order_free(graph):
+    """Whether every scatter-add of a pose-graph GN iteration gives the
+    same bits in any order: the node sums (`_gradient`, the block
+    diagonal, the PCG matvec: the edges' i then their j) and the dense
+    blocks (ii, jj, ij, ji in turn).  On the card these are atomic; a
+    target's sum is order-free when it takes at most two terms onto a
+    zero base, or one onto a base already written.  Two eager runs that
+    agree show nothing: the order of atomics varies from run to run."""
+    ei, ej = (t.tolist() for t in (graph.edge_i, graph.edge_j))
+
+    def free(calls):
+        written = set()
+        for keys in calls:
+            for key in set(keys):
+                if keys.count(key) > (1 if key in written else 2):
+                    return False
+            written.update(keys)
+        return True
+
+    return free([ei, ej]) and free([list(zip(ei, ei)), list(zip(ej, ej)),
+                                    list(zip(ei, ej)), list(zip(ej, ei))])
+
+
+def eager_optimize(graph, solver, kw, cg_iters):
+    """`posegraph.optimize`'s Gauss-Newton loop op by op (its form before
+    the iteration was captured; the mesh path's form)."""
+    import torch
+
+    from cvo_rgbd_torch.core import posegraph
+
+    nodes, costs = graph.nodes, []
+    for k in range(kw["iters"]):
+        args = (kw["huber_delta"], kw["robust"], k, kw["robust_warmup"])
+        if solver == "dense":
+            nodes, cost = posegraph._gn_step_dense(graph, nodes, 1e-6, *args)
+        else:
+            nodes, cost = posegraph._gn_step_pcg(graph, nodes, 1e-6,
+                                                 cg_iters, *args)
+        costs.append(cost)
+    return nodes, torch.stack(costs)
+
+
+def phase_slam_jit(root):
+    """9b: `cli slam`'s work outside align, compiled, on phase 9's .pcd
+    folder at BATCH_GRID (MATLAB_PARAMS; see the module docstring).
+    Returns the launches by kernel line row."""
+    import numpy as np
+    import torch
+
+    from cvo_rgbd_torch import multiseq
+    from cvo_rgbd_torch import slam as slam_mod
+    from cvo_rgbd_torch.batch import load_pcd_dir, pad_clouds
+    from cvo_rgbd_torch.core import posegraph
+    from cvo_rgbd_torch.core.cloud import cloud_ok, stack_clouds
+    from cvo_rgbd_torch.core.registration import function_inner_product
+    from cvo_rgbd_torch.keyframes import aligned_fip, inner_product_async
+    from cvo_rgbd_torch.parallel import align_batched
+    from cvo_rgbd_torch.params import MATLAB_PARAMS
+    from cvo_rgbd_torch.slam import KeyframeSlam, SlamConfig
+
+    dev = torch.device("cuda")
+    p = MATLAB_PARAMS
+    clouds = pad_clouds(load_pcd_dir(root, grid=BATCH_GRID), dev)
+    n = len(clouds)
+    names = ("align_jit", "keyframe_scores_batched", "aligned_fip")
+    launches = {k: 0 for k in KERNELS + FUSED}
+
+    # the compiled path's whole run, recording each align and search
+    recs = {name: [] for name in names}
+    reals = {name: getattr(slam_mod, name) for name in names}
+
+    def spy(name):
+        def call(*a, **kw):
+            out = reals[name](*a, **kw)
+            recs[name].append((a, kw, out))
+            return out
+        return call
+
+    for name in names:
+        setattr(slam_mod, name, spy(name))
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        slam = KeyframeSlam(p, SlamConfig())
+        for i, c in enumerate(clouds):
+            slam.process(i, c)
+        slam.solve()
+        torch.cuda.synchronize()
+        per_frame = (time.perf_counter() - t0) / n
+    finally:
+        for name in names:
+            setattr(slam_mod, name, reals[name])
+    got = read_launches()
+    for k in KERNELS:
+        launches[k] += got[k]
+    kf = [k.index for k in slam.keyframes]
+    loops = [(i, j) for i, j, _, _ in slam.loop_edges]
+    check(len(loops) >= 1 and got["fused_moments"] > 0,
+          f"9b: the recorded slam closed {loops}, launched {got}")
+
+    # every align of the run: the programs against their functions
+    cold = (torch.eye(3, device=dev), torch.zeros(3, device=dev),
+            torch.full((), p.ell_init, device=dev))
+    mismatch = []
+    for q, (a, _, res) in enumerate(recs["align_jit"]):
+        key, c = a[1], a[2]
+        pairs = [
+            (inner_product_async(p, c, c), function_inner_product(p, c, c)),
+            (inner_product_async(p, key, c),
+             function_inner_product(p, key, c)),
+            (slam_mod._compiled_cloud_ok(c, 64), cloud_ok(c, 64))]
+        slam_mod.align_jit = lambda *a, **kw: res
+        try:
+            step = slam_mod._slam_step(p, key, c, cold, 64, dev)
+        finally:
+            slam_mod.align_jit = reals["align_jit"]
+        pairs += list(zip(step[1:], slam_mod._step_post(
+            p, 64, res.tf, res.R, res.T, *key, *c)))
+        if any(sha1s(x) != sha1s(y) for x, y in pairs):
+            mismatch.append(q)
+    log(f"9b: {len(recs['align_jit'])} aligns of {n} frames (keyframes {kf},"
+        f" loop closures {loops}): self and cross inner products, cloud_ok "
+        f"and the SLAM step's program the op by op SHA-1 on "
+        f"{len(recs['align_jit']) - len(mismatch)}")
+    check(not mismatch, f"9b: programs off their functions at aligns "
+          f"{mismatch}")
+
+    # process outside align, compiled and op by op
+    def outside(form, timed=None):
+        results = iter([r for _, _, r in recs["align_jit"]])
+        slam_mod.align_jit = lambda *a, **kw: next(results)
+        ctx = programs_op_by_op() if form == "op by op" else (
+            contextlib.nullcontext())
+        try:
+            with ctx:
+                s = KeyframeSlam(p, SlamConfig())
+                for i, c in enumerate(clouds):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    s.process(i, c)
+                    t1 = time.perf_counter()
+                    torch.cuda.synchronize()
+                    if timed is not None:
+                        timed.append((t1 - t0, time.perf_counter() - t0))
+        finally:
+            slam_mod.align_jit = reals["align_jit"]
+        return s
+
+    runs = {}
+    for form in ("compiled", "op by op"):
+        outside(form)
+        timed = []
+        s = outside(form, timed)
+        api = _api_calls(lambda form=form: outside(form))
+        host, wall = (np.array(t) * 1e3 for t in zip(*timed))
+        runs[form] = s
+        log(f"9b: process outside align, {form}: host ms a frame mean "
+            f"{host.mean():.4f} median {np.median(host):.4f}, to the "
+            f"frame's end mean {wall.mean():.4f} median "
+            f"{np.median(wall):.4f}; host launches a frame "
+            f"{sum(api.values()) / n:.2f} ({api})")
+    a, b = runs["compiled"], runs["op by op"]
+    check([k.index for k in a.keyframes] == [k.index for k in b.keyframes]
+          == kf and a.loop_edges.__len__() == len(loops)
+          and all(x.self_fip == y.self_fip
+                  for x, y in zip(a.keyframes, b.keyframes))
+          and all(np.array_equal(x, y) for x, y in zip(a.frame_poses,
+                                                        b.frame_poses)),
+          "9b: the compiled process parts from the op by op one")
+
+    # each loop-closure search: scores and post-align inner products
+    for q, ((sa, skw, sout), (fa, fkw, fout)) in enumerate(zip(
+            recs["keyframe_scores_batched"], recs["aligned_fip"])):
+        with programs_op_by_op():
+            s_ref = reals["keyframe_scores_batched"](*sa, **skw)
+            f_ref = reals["aligned_fip"](*fa, **fkw)
+        ms = time_host(lambda: reals["keyframe_scores_batched"](*sa, **skw),
+                       runs=5)
+        log(f"9b: loop search {q}: {len(sa[1])} candidates, scores "
+            f"{sout.tolist()} ({ms:.4f} ms), aligned_fip {fout.tolist()}")
+        check(np.array_equal(sout, s_ref) and sha1s(fout) == sha1s(f_ref),
+              f"9b: loop search {q} off its op by op bits")
+
+    # the keyframe graph's solves, compiled against the eager loop
+    cfg = slam.config
+    kw = dict(iters=cfg.optimize_iters, huber_delta=cfg.huber_delta,
+              robust=cfg.robust_kernel, robust_warmup=cfg.robust_warmup_iters)
+    graph = posegraph.from_odometry(np.stack([k.pose for k in
+                                              slam.keyframes]),
+                                    loop_edges=slam.loop_edges, device=dev)
+    for solver in ("dense", "pcg"):
+        cg = max(64, 2 * len(kf))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first = posegraph.optimize(graph, solver=solver, **kw)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        later_ms = time_host(lambda: posegraph.optimize(graph, solver=solver,
+                                                        **kw), runs=5)
+        later = posegraph.optimize(graph, solver=solver, **kw)
+        eager = [eager_optimize(graph, solver, kw, cg) for _ in range(2)]
+        eager_ms = time_host(lambda: eager_optimize(graph, solver, kw, cg),
+                             runs=3)
+        rerun = max(float((x - y).abs().max()) for x, y in zip(*eager))
+        gaps = [max(float((x - y).abs().max()) for x, y in zip(
+            got[:1], eager[0][:1])) for got in (first, later)]
+        cost_gap = max(float(((got[1] - eager[0][1]).abs()
+                              / eager[0][1].abs().clamp_min(1e-30)).max())
+                       for got in (first, later))
+        loop = [v for k2, v in posegraph.CACHE.items()
+                if k2[:3] == (solver, len(kf), graph.edge_i.shape[0])]
+        log(f"9b: optimize {solver}, {len(kf)} nodes, "
+            f"{graph.edge_i.shape[0]} edges, {kw}: ms first call "
+            f"{first_ms:.3f} (this process's first of the key for pcg; "
+            f"phase 9's cli slam made dense's), later {later_ms:.3f}, eager "
+            f"{eager_ms:.3f}; captures {loop[-1].captures}; nodes from the "
+            f"eager loop {gaps}, costs {cost_gap:.2e} relative, the eager "
+            f"rerun {rerun:.2e}")
+        exact = scatters_order_free(graph)
+        same = all(sha1s(*got) == sha1s(*eager[0]) for got in (first, later))
+        log(f"9b: optimize {solver}: the eager bits {same}; every scatter-add "
+            f"sum order-free {exact}")
+        check(same or not exact, f"9b: optimize {solver} off the eager bits")
+        check(max(gaps) <= 2e-4 and cost_gap <= 1e-3,
+              f"9b: optimize {solver} off the eager loop")
+
+    # multiseq's lane post on a 4-lane batch of consecutive pairs
+    fb, mb = stack_clouds(clouds[:4]), stack_clouds(clouds[1:5])
+    res = align_batched(p, fb, mb, device=dev)
+    for adaptive in (False, True):
+        got = multiseq.lane_post(res, fb, mb, adaptive, p.ell_init, 64)
+        ref = multiseq._lane_post(adaptive, p.ell_init, 64, res.tf, res.R,
+                                  res.T, res.ell, fb.positions, fb.mask,
+                                  mb.positions, mb.mask)
+        check(sha1s(*got) == sha1s(*ref) and bool(got[0].all()),
+              f"9b: lane post (adaptive {adaptive}) off its op by op bits")
+
+    # the slam through the compiled path on the fused backend
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    fused = KeyframeSlam(dataclasses.replace(p, backend="fused"), SlamConfig())
+    for i, c in enumerate(clouds):
+        fused.process(i, c)
+    fused.solve()
+    torch.cuda.synchronize()
+    fused_s = (time.perf_counter() - t0) / n
+    got = fused_by_mode(read_launches(), "resident")
+    launches["align_fused_resident"] += got["align_fused_resident"]
+    check(len(fused.loop_edges) >= 1 and got["align_fused_resident"] > 0,
+          f"9b: the fused slam closed {len(fused.loop_edges)}, launched {got}")
+    log(f"9b: slam s/frame through the compiled path (solve included): "
+        f"kernel {per_frame:.4f}, fused {fused_s:.4f}")
+    return launches
+
+
 def write_tum_folder(root, frames):
     """10a: the render as a TUM folder (rgb/, depth/, assoc.txt,
     groundtruth.txt), the PNGs written by `png_bytes`: 8-bit RGB and
@@ -3227,7 +3534,10 @@ def phase_slam_refine(root, gt):
     `ba_solve` on that problem against the CPU's (poses and landmarks
     within 1e-4, costs 1e-3 relative, tests/test_torch_ba.py), a rerun
     on the card beside it (atomic scatter-adds: logged, not gated), the
-    BA time, and the keyframe ATE before and after.  Returns the
+    captured solve against the eager loop on the card (the same gates,
+    the eager rerun logged), the BA ms at the first call (its capture
+    included), a later call and eager, and the keyframe ATE before and
+    after.  Returns the
     launches by kernel line row, and the keyframe pose graph and BA
     problem (host arrays) with their solvers' arguments for phase 11."""
     import numpy as np
@@ -3235,6 +3545,7 @@ def phase_slam_refine(root, gt):
 
     from cvo_rgbd_torch import cli, parallel
     from cvo_rgbd_torch.core.posegraph import from_odometry
+    from cvo_rgbd_torch.parallel import ba as ba_mod
     from cvo_rgbd_torch.evaluation import ate_rmse
     from cvo_rgbd_torch.io.tum import read_trajectory
     from cvo_rgbd_torch.slam import KeyframeSlam
@@ -3253,8 +3564,13 @@ def phase_slam_refine(root, gt):
         return out
 
     def solve_spy(problem, **kw):
-        seen.update(problem=problem, kw=kw)
-        return ba_solve(problem, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = ba_solve(problem, **kw)
+        torch.cuda.synchronize()
+        seen.update(problem=problem, kw=kw,
+                    first_ms=(time.perf_counter() - t0) * 1e3)
+        return out
 
     out = os.path.join(root, "slam_refined.txt")
     buf = io.StringIO()
@@ -3292,6 +3608,26 @@ def phase_slam_refine(root, gt):
     gaps = [float((a.cpu() - b).abs().max()) for a, b in zip(card[:2], cpu)]
     cost_gap = float(((card[2].cpu() - cpu[2]).abs() / cpu[2].abs()).max())
     rerun = [float((a - b).abs().max()) for a, b in zip(card, again)]
+    # the captured GN iteration against the eager loop on the card
+    defaults = inspect.signature(parallel.ba_solve).parameters
+    eager_args = (kw.get("iters", defaults["iters"].default),
+                  kw.get("damping", defaults["damping"].default),
+                  kw.get("cg_iters", defaults["cg_iters"].default))
+    eager = [ba_mod._solve_local(problem, *eager_args) for _ in range(2)]
+    eager_ms = time_host(lambda: ba_mod._solve_local(problem, *eager_args),
+                         runs=3)
+    loop = [v for k, v in ba_mod.CACHE.items()
+            if k[:4] == (problem.poses.shape[0], problem.landmarks.shape[0],
+                         problem.obs_pose.shape[0],
+                         problem.edge_pose.shape[0])
+            and k[7] == problem.poses.device][-1]
+    to_eager = [max(float((a - b).abs().max()) for a, b in zip(
+        got[:2], eager[0][:2])) for got in (card, again)]
+    eager_cost = max(float(((got[2] - eager[0][2]).abs()
+                            / eager[0][2].abs()).max())
+                     for got in (card, again))
+    eager_rerun = [float((a - b).abs().max())
+                   for a, b in zip(*eager)]
     ts = sorted(gt)
     kf_t = [ts[k.index] for k in seen["slam"].keyframes]
     kf_gt = {t: gt[t] for t in kf_t}
@@ -3306,8 +3642,16 @@ def phase_slam_refine(root, gt):
         f"{gaps[1]:.2e}, costs {cost_gap:.2e} relative; card rerun "
         f"{rerun}; keyframe ATE {before['rmse']:.5f} m before, "
         f"{after['rmse']:.5f} m after (not gated); launches {got}")
+    log(f"10e: ba_solve captured ({loop.runs} GN iterations replayed, "
+        f"captures {loop.captures}): ms first call {seen['first_ms']:.2f} "
+        f"(capture included), later call {ba_ms:.2f}, eager loop "
+        f"{eager_ms:.2f}; poses and landmarks from the eager loop "
+        f"{to_eager}, costs {eager_cost:.2e} relative; the eager rerun "
+        f"{eager_rerun} (atomic scatter-adds)")
     check(gaps[0] <= 1e-4 and gaps[1] <= 1e-4 and cost_gap <= 1e-3,
           "the card's ba_solve is off the CPU's")
+    check(max(to_eager) <= 1e-4 and eager_cost <= 1e-3 and loop.runs >= 16,
+          "the captured ba_solve is off the eager loop on the card")
     # phase 11's SLAM problem: the keyframe pose graph and the BA problem
     slam = seen["slam"]
     graph = from_odometry(np.stack([k.pose for k in slam.keyframes]),
@@ -4490,6 +4834,9 @@ def main():
         launches[f"{k}/fast"] = v
     kernels.update(fast_rows)
     mark("9 (slam)")
+    # 9b. the same work outside align as captured programs
+    _added(launches, phase_slam_jit(tmp9.name))
+    mark("9b (slam programs)")
 
     # 10. the rest of cli run and cli slam: the loader, --profile-dir,
     # align_trace, slam --refine

@@ -52,11 +52,17 @@ The warm-up block's launches are counted as they run, and
 that runs once a call: the frontend (`frontend.pipeline.Frontend`, the
 JAX package's `jax.jit` of `_process`) and the odometry step's
 bookkeeping after align (`odometry._odom_step`, the rest of JAX's
-jitted step), one graph each, a replay a call.
+jitted step), one graph each, a replay a call; `program_for` keeps one
+per (name, static arguments, input key) for `cli slam`'s inner
+products, `cloud_ok`, its SLAM step and multiseq's lane post.
+`CapturedLoop` is its in-place iteration form, JAX's `lax.scan` of a
+step: one captured step on a static state, replayed n times a call
+(`posegraph.optimize` and `ba_solve` without a mesh).
 """
 
 from __future__ import annotations
 
+import functools
 import time
 
 import torch
@@ -85,6 +91,9 @@ COUNTED = (ops.color_gram, ops.fused_moments, ops.fused_moments.lanes,
 # device, layout, lanes), kept for the life of the process as JAX keeps its
 # compiled aligns; `align_jit.cache_clear()` drops them
 CACHE: dict = {}
+# the captured programs of `program_for` (the keyframe inner products,
+# `cloud_ok`, the SLAM step, multiseq's lane post), kept likewise
+PROGRAMS: dict = {}
 
 
 def _strides(x) -> tuple:
@@ -125,16 +134,80 @@ def _copy_in(dst, src, non_blocking=False):
         raise ValueError("an input the compiled program lacks")
 
 
+def _fresh(out):
+    """A copy of `out` (a tensor or a tuple of them), each tensor with
+    storage of its own."""
+    if isinstance(out, tuple):
+        return tuple(t.clone() for t in out)
+    return out.clone()
+
+
+class _Capture:
+    """A CUDA graph's capture on a side stream after one eager warm-up
+    run there, with the wrappers' launch counts moved from the capture to
+    each replay and the capture's seconds and pool bytes recorded
+    (`captures`, as `CompiledAlign` records them).  Capture never falls
+    back: a body that cannot be captured (a host sync, a host-to-card
+    copy) raises with `what`."""
+
+    def __init__(self, device, what):
+        self.device, self.what = device, what
+        self.captures = {}   # name -> capture seconds and bytes
+        self.counts = {}     # name -> [(wrapper, launches)]
+
+    def capture(self, name, body, warm_up=None):
+        """Run `warm_up` (default `body`) eagerly on a side stream, then
+        capture `body` there; returns the graph and `body`'s output."""
+        dev = self.device
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            (warm_up or body)()
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        before = [w.launches for w in COUNTED]
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        mem0 = (torch.cuda.memory_allocated(dev),
+                torch.cuda.memory_reserved(dev))
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, stream=stream):
+                out = body()
+        except Exception as e:
+            raise RuntimeError(f"capturing {self.what} failed: {e}") from e
+        finally:
+            counts = [(w, w.launches - b) for w, b in zip(COUNTED, before)]
+            for w, b in zip(COUNTED, before):
+                w.launches = b
+        self.captures[name] = {
+            "seconds": time.perf_counter() - t0,
+            "allocated_bytes": torch.cuda.memory_allocated(dev) - mem0[0],
+            "reserved_bytes": torch.cuda.memory_reserved(dev) - mem0[1]}
+        self.counts[name] = [(w, k) for w, k in counts if k]
+        return graph, out
+
+    def replayed(self, name, graph, n=1):
+        for _ in range(n):
+            graph.replay()
+        for wrapper, k in self.counts[name]:
+            wrapper.launches += k * n
+
+
 class CapturedProgram:
-    """`fn` (tensors -> one tensor) on static inputs: one CUDA graph on
-    the card, captured on the first run after one eager warm-up run on
-    the capture stream, replayed on every run; on the CPU `fn` itself on
-    the same static inputs.  Built from an example of the inputs (their
-    shapes, types and strides); `what` names the program in a capture's
-    error.  A run returns a fresh copy of the output (a replay overwrites
-    the static one), one launch.  `runs` counts the runs (on the card,
-    the replays).  The frontend (`frontend.pipeline.Frontend`) and the
-    odometry step's bookkeeping (`odometry._odom_step`) run as these."""
+    """`fn` (tensors -> a tensor or a tuple of tensors) on static inputs:
+    one CUDA graph on the card, captured on the first run after one
+    eager warm-up run on the capture stream, replayed on every run; on
+    the CPU `fn` itself on the same static inputs.  Built from an example
+    of the inputs (their shapes, types and strides); `what` names the
+    program in a capture's error.  A run returns a fresh copy of each
+    output (a replay overwrites the static ones), one launch.  `runs`
+    counts the runs (on the card, the replays); `captures` holds the
+    capture's seconds and pool bytes.  The frontend
+    (`frontend.pipeline.Frontend`), the odometry step's bookkeeping
+    (`odometry._odom_step`), the keyframe inner products
+    (`keyframes.py`), the SLAM step and `cloud_ok` (`slam.py`) and
+    multiseq's lane post run as these."""
 
     def __init__(self, fn, example, what):
         self.fn, self.what = fn, what
@@ -142,22 +215,8 @@ class CapturedProgram:
         self.device = self.inputs[0].device
         self.graph = self.output = None
         self.runs = 0
-
-    def _capture(self):
-        dev = self.device
-        stream = torch.cuda.Stream(dev)
-        stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(stream):
-            self.fn(*self.inputs)
-        torch.cuda.current_stream(dev).wait_stream(stream)
-        graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(graph, stream=stream):
-                self.output = self.fn(*self.inputs)
-        except Exception as e:
-            raise RuntimeError(
-                f"capturing {self.what} failed: {e}") from e
-        self.graph = graph
+        self._cap = _Capture(self.device, what)
+        self.captures = self._cap.captures
 
     def load(self, inputs, non_blocking=False):
         """Copy `inputs` into the static inputs (`non_blocking` for
@@ -168,16 +227,83 @@ class CapturedProgram:
         """Run on the static inputs; a copy of the output."""
         if self.device.type != "cuda":
             self.output = self.fn(*self.inputs)
+        elif self.graph is None:
+            self.graph, self.output = self._cap.capture(
+                "run", lambda: self.fn(*self.inputs))
+            self._cap.replayed("run", self.graph)
         else:
-            if self.graph is None:
-                self._capture()
-            self.graph.replay()
+            self._cap.replayed("run", self.graph)
         self.runs += 1
-        return self.output.clone()
+        return _fresh(self.output)
 
     def __call__(self, *inputs):
         self.load(inputs)
         return self.run()
+
+
+def program_for(name, fn, static, inputs):
+    """The captured program of `fn(*static, *inputs)`, one per (name,
+    `static` (hashable), device, the inputs' shapes, types and strides)
+    in `PROGRAMS`, built on the key's first call."""
+    dev = inputs[0].device
+    key = (name, static, dev, tuple((t.shape, t.dtype) for t in inputs),
+           _strides(inputs))
+    program = PROGRAMS.get(key)
+    if program is None:
+        program = PROGRAMS[key] = CapturedProgram(
+            functools.partial(fn, *static), inputs,
+            f"{name} of {static} on {dev} for inputs "
+            + ", ".join(f"{t.dtype} {tuple(t.shape)}" for t in inputs))
+    return program
+
+
+class CapturedLoop:
+    """The in-place iteration form of `CapturedProgram`, the JAX
+    package's `lax.scan` of a step: each `step` of `steps` ({name: fn})
+    updates the static `state` (a tuple of tensors the caller owns and
+    loads) in place and returns nothing; a call `run(name, n)` runs step
+    `name` `n` times.  On the card each step is one CUDA graph, captured
+    on its first run after one eager warm-up run whose effect on the
+    state is undone before the capture, and replayed `n` times; on the
+    CPU the step itself runs `n` times on the same state.  `runs` counts
+    the iterations run (on the card, the replays); `captures` holds each
+    step's capture seconds and pool bytes.  `posegraph.optimize` and
+    `parallel.ba.ba_solve` without a mesh run their Gauss-Newton loops
+    as these."""
+
+    def __init__(self, steps, state, what):
+        self.steps, self.state, self.what = steps, state, what
+        self.device = state[0].device
+        self.graphs = {}
+        self.runs = 0
+        self._cap = _Capture(self.device, what)
+        self.captures = self._cap.captures
+
+    def _capture(self, name):
+        step = self.steps[name]
+        saved = [t.clone() for t in self.state]
+
+        def warm_up():
+            # an eager step, undone; the capture itself runs nothing
+            step(*self.state)
+            for dst, src in zip(self.state, saved):
+                dst.copy_(src)
+
+        graph, _ = self._cap.capture(name, lambda: step(*self.state),
+                                     warm_up)
+        self.graphs[name] = graph
+        return graph
+
+    def run(self, name, n):
+        if n <= 0:
+            return
+        if self.device.type != "cuda":
+            for _ in range(n):
+                self.steps[name](*self.state)
+        else:
+            graph = self.graphs.get(name) or self._capture(name)
+            self._cap.replayed(name, graph, n)
+        self.runs += n
 
 
 class CompiledAlign:

@@ -17,6 +17,8 @@ JAX package takes jnp.exp(-z).
 
 from __future__ import annotations
 
+import numbers
+
 import torch
 
 from cvo_rgbd_torch.core.numerics import gram_exp
@@ -24,7 +26,11 @@ from cvo_rgbd_torch.core.numerics import gram_exp
 
 def _lane_ell(ell, device):
     """`ell` (a number, a 0-dim tensor or one a lane, [B]) as an f32
-    tensor on `device` that broadcasts against [B, N, M] Grams."""
+    tensor on `device` that broadcasts against [B, N, M] Grams.  A number
+    is filled on the device (no host copy, so a CUDA graph can capture
+    it), rounded to float32 as a host tensor would be."""
+    if isinstance(ell, numbers.Real):
+        return torch.full((), float(ell), dtype=torch.float32, device=device)
     ell = torch.as_tensor(ell, dtype=torch.float32).to(device)
     return ell[..., None, None] if ell.dim() else ell
 

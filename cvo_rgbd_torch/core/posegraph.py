@@ -21,9 +21,25 @@ Edge Jacobians take the small-residual form
   d r / d xi_i = -Jr^{-1}(r) Ad(X_j^{-1} X_i),   d r / d xi_j = Jr^{-1}(r)
 with the exact right-Jacobian inverse from se3.left_jacobian_se3.
 Everything is float32, as in the JAX package, with full-fp32 matmuls
-(`device.pin_fp32`).  Over a mesh (`optimize(mesh=...)`) the edge set
-shards over the ranks of an axis and the PCG solver's sums are psum'd
-(`collectives.py`).
+(`device.pin_fp32`).
+
+Without a mesh, the JAX package jits the whole solve, its Gauss-Newton
+loop one `lax.scan` (`_optimize_dense`, `_optimize_pcg`).  Here one GN
+iteration is captured in place (`core.compiled.CapturedLoop`) on a static
+state (the nodes, a [iters] cost tensor, the cost slot and the edges),
+once per (solver, nodes, edges, iters, damping, cg_iters, huber_delta,
+robust, warmup, device, dtype), and replayed `iters` times, each replay
+writing its cost into its slot; the graduated kernel (Cauchy after
+`robust_warmup` Huber iterations) is two captured iterations, replayed
+in turn.  On the CPU the same iteration runs uncaptured on the same
+state.  The linear algebra takes the `_ex` forms (`solve_ex`, `inv_ex`),
+whose info stays on the device: the checked forms read it on the host,
+which a capture forbids; the eager mesh path runs the same ops.
+
+Over a mesh (`optimize(mesh=...)`) the edge set shards over the ranks of
+an axis and the PCG solver's sums are psum'd (`collectives.py`); that
+path runs eagerly, as gloo collectives cannot be captured (the JAX
+package jits it too, `_compiled_pcg_sharded`).
 """
 
 from __future__ import annotations
@@ -34,11 +50,17 @@ import numpy as np
 import torch
 
 from cvo_rgbd_torch import se3
+from cvo_rgbd_torch.collectives import psum
+from cvo_rgbd_torch.core.compiled import CapturedLoop, _copy_in, _static
 from cvo_rgbd_torch.core.pcg import pcg
 from cvo_rgbd_torch.device import pin_fp32, resolve_device
-from cvo_rgbd_torch.collectives import psum
 
 _GAUGE = 1e6
+
+# the compiled solves, one per (solver, nodes, edges, iters, damping,
+# cg_iters, huber_delta, robust, warmup, device, dtype), kept for the life
+# of the process as JAX keeps its jitted solves
+CACHE: dict = {}
 
 
 class PoseGraph(NamedTuple):
@@ -95,7 +117,7 @@ def _edge_residual_jac(Xi, Xj, Z):
     E = _se3_inv44(Z) @ rel
     r = se3.log_se3(E)
     # right Jacobian inverse: Jr(r) = Jl(-r)
-    Jr_inv = torch.linalg.inv(se3.left_jacobian_se3(-r))
+    Jr_inv = torch.linalg.inv_ex(se3.left_jacobian_se3(-r))[0]
     Adj = se3.adjoint_se3(_se3_inv44(rel))
     return r, -Jr_inv @ Adj, Jr_inv
 
@@ -171,7 +193,7 @@ def _gn_step_dense(graph, nodes, damping, huber_delta, robust, k, warmup):
     Hd = H.permute(0, 2, 1, 3).reshape(6 * n, 6 * n)
     Hd = Hd + damping * torch.eye(6 * n, dtype=nodes.dtype,
                                   device=nodes.device)
-    delta = torch.linalg.solve(Hd, -b.reshape(6 * n)).reshape(n, 6)
+    delta = torch.linalg.solve_ex(Hd, -b.reshape(6 * n))[0].reshape(n, 6)
     return _apply_update(nodes, delta), cost
 
 
@@ -204,7 +226,7 @@ def _gn_step_pcg(graph, nodes, damping, cg_iters, huber_delta, robust, k,
             off = psum(off, axis)
         return (Hd @ x[..., None])[..., 0] + damping * x + off
 
-    Minv = torch.linalg.inv(Hd + damping * eye6)  # block-Jacobi
+    Minv = torch.linalg.inv_ex(Hd + damping * eye6)[0]  # block-Jacobi
 
     def precond(r):
         return (Minv @ r[..., None])[..., 0]
@@ -235,6 +257,62 @@ def _edge_shard(graph: PoseGraph, ax) -> PoseGraph:
         "edge_i", "edge_j", "edge_z", "edge_w")})
 
 
+def _gn_iteration(solver, damping, cg_iters, huber_delta, robust, k,
+                  warmup):
+    """One GN iteration in place on the static state (nodes, costs,
+    slot, edge_i, edge_j, edge_z, edge_w): the step of iteration `k`
+    (which matters only to the graduated kernel's `k < warmup`), its cost
+    into `costs[slot]`, then the slot moved on."""
+
+    def iteration(nodes, costs, slot, *edges):
+        graph = PoseGraph(nodes, *edges)
+        if solver == "dense":
+            new, cost = _gn_step_dense(graph, nodes, damping, huber_delta,
+                                       robust, k, warmup)
+        else:
+            new, cost = _gn_step_pcg(graph, nodes, damping, cg_iters,
+                                     huber_delta, robust, k, warmup)
+        nodes.copy_(new)
+        costs.index_copy_(0, slot, cost.reshape(1))
+        slot.add_(1)
+
+    return iteration
+
+
+def _compiled_solve(graph, solver, iters, damping, cg_iters, huber_delta,
+                    robust, warmup):
+    """`optimize` without a mesh: the GN iterations replayed on the
+    key's `CapturedLoop` (built on the key's first call); fresh nodes
+    and costs."""
+    n, e = int(graph.nodes.shape[0]), int(graph.edge_i.shape[0])
+    dev = graph.nodes.device
+    key = (solver, n, e, iters, damping, cg_iters, huber_delta, robust,
+           warmup, dev, graph.nodes.dtype)
+    loop = CACHE.get(key)
+    if loop is None:
+        state = _static((graph.nodes, graph.nodes.new_zeros(iters),
+                         torch.zeros(1, dtype=torch.int64, device=dev),
+                         *graph[1:]))
+        phases = ({"huber": 0, "cauchy": warmup}
+                  if robust == "cauchy" and warmup else {robust: warmup})
+        loop = CACHE[key] = CapturedLoop(
+            {name: _gn_iteration(solver, damping, cg_iters, huber_delta,
+                                 robust, k, warmup)
+             for name, k in phases.items()}, state,
+            f"the {solver} pose-graph solve of {n} nodes and {e} edges "
+            f"({iters} iterations, damping {damping}, cg_iters {cg_iters}, "
+            f"{robust} {huber_delta}, warmup {warmup}) on {dev}")
+    nodes, costs, slot, *edges = loop.state
+    _copy_in((nodes, *edges), (graph.nodes, *graph[1:]))
+    slot.zero_()
+    if len(loop.steps) == 2:
+        loop.run("huber", min(warmup, iters))
+        loop.run("cauchy", iters - min(warmup, iters))
+    else:
+        loop.run(robust, iters)
+    return nodes.clone(), costs.clone()
+
+
 def optimize(graph: PoseGraph, iters: int = 10, damping: float = 1e-6,
              solver: str = "auto", cg_iters: int | None = None, mesh=None,
              axis: str = "sp", huber_delta: float = 0.0,
@@ -248,10 +326,13 @@ def optimize(graph: PoseGraph, iters: int = 10, damping: float = 1e-6,
     an iteration.  `huber_delta`, `robust` and `robust_warmup` as in
     `_edge_terms` (0 = exact least squares, the default).
 
-    `mesh` (a `parallel.make_mesh` mesh) shards the edge set over its
-    `axis` and forces PCG: every rank of the mesh calls it with the same
-    graph, on its own device, and gets the same result; the edges are
-    padded with weight-0 self-loops to a multiple of the axis size."""
+    Without a mesh the GN loop is one captured iteration replayed
+    `iters` times (`_compiled_solve`; uncaptured on the CPU).  `mesh` (a
+    `parallel.make_mesh` mesh) shards the edge set over its `axis` and
+    forces PCG: every rank of the mesh calls it with the same graph, on
+    its own device, and gets the same result; the edges are padded with
+    weight-0 self-loops to a multiple of the axis size.  That path runs
+    its iterations eagerly (gloo collectives cannot be captured)."""
     pin_fp32()
     n = int(graph.nodes.shape[0])
     if solver == "auto":
@@ -260,21 +341,17 @@ def optimize(graph: PoseGraph, iters: int = 10, damping: float = 1e-6,
         raise ValueError(f"unknown solver {solver!r}")
     if cg_iters is None:
         cg_iters = max(64, 2 * n)
-    ax = None
-    if mesh is not None:
-        solver = "pcg"
-        ax = mesh.axis(axis)
-        graph = _edge_shard(graph, ax)
+    if mesh is None:
+        return _compiled_solve(graph, solver, iters, damping, cg_iters,
+                               huber_delta, robust, robust_warmup)
+    solver = "pcg"
+    ax = mesh.axis(axis)
+    graph = _edge_shard(graph, ax)
     nodes = graph.nodes
     costs = []
     for k in range(iters):
-        if solver == "dense":
-            nodes, cost = _gn_step_dense(graph, nodes, damping, huber_delta,
-                                         robust, k, robust_warmup)
-        else:
-            nodes, cost = _gn_step_pcg(graph, nodes, damping, cg_iters,
-                                       huber_delta, robust, k, robust_warmup,
-                                       ax)
+        nodes, cost = _gn_step_pcg(graph, nodes, damping, cg_iters,
+                                   huber_delta, robust, k, robust_warmup, ax)
         costs.append(cost)
     return nodes, torch.stack(costs) if costs else graph.nodes.new_zeros(0)
 

@@ -19,6 +19,7 @@ import torch
 import torch.distributed as dist
 
 from cvo_rgbd_torch.core.cloud import PointCloud, cloud_ok, stack_clouds
+from cvo_rgbd_torch.core.compiled import program_for
 from cvo_rgbd_torch.core.registration import check_supported
 from cvo_rgbd_torch.device import pin_fp32, resolve_device
 from cvo_rgbd_torch.frontend import make_frontend
@@ -26,6 +27,22 @@ from cvo_rgbd_torch.io.tum import load_assoc, write_trajectory_line
 from cvo_rgbd_torch.odometry import load_image_pair
 from cvo_rgbd_torch.parallel.mesh import rank_device
 from cvo_rgbd_torch.params import AcvoParams, CvoParams
+
+
+def _lane_post(adaptive, ell_init, min_valid, tf, R, T, ell, f_pos, f_mask,
+               m_pos, m_mask):
+    ok = (torch.isfinite(tf).all(dim=-1).all(dim=-1)
+          & cloud_ok(PointCloud(f_pos, None, f_mask), min_valid)
+          & cloud_ok(PointCloud(m_pos, None, m_mask), min_valid))
+    f32 = torch.float32
+    eye = torch.eye(3, dtype=f32, device=ok.device)
+    Rw = torch.where(ok[:, None, None], R, eye)
+    Tw = torch.where(ok[:, None], T, 0.0)
+    if adaptive:
+        ellw = torch.full_like(ell, ell_init)
+    else:
+        ellw = torch.where(ok, ell, ell_init)
+    return ok, Rw, Tw, ellw
 
 
 def lane_post(res, fixed_b: PointCloud, moving_b: PointCloud, adaptive,
@@ -37,19 +54,15 @@ def lane_post(res, fixed_b: PointCloud, moving_b: PointCloud, adaptive,
     `run_odometry`); a good lane carries its R/T and, for cvo, its ell
     (acvo resets ell per pair, adaptive_cvo.cpp:475).  A retired lane's
     all-masked cloud fails too, which is harmless: its results are never
-    written.  Nothing here waits on the host, so the lockstep chain
-    dispatches step k+1 before step k is read back."""
-    ok = (torch.isfinite(res.tf).all(dim=-1).all(dim=-1)
-          & cloud_ok(fixed_b, min_valid) & cloud_ok(moving_b, min_valid))
-    f32 = torch.float32
-    eye = torch.eye(3, dtype=f32, device=ok.device)
-    R = torch.where(ok[:, None, None], res.R, eye)
-    T = torch.where(ok[:, None], res.T, 0.0)
-    if adaptive:
-        ell = torch.full_like(res.ell, ell_init)
-    else:
-        ell = torch.where(ok, res.ell, ell_init)
-    return ok, R, T, ell
+    written.  One captured program (`core.compiled.program_for`, one
+    CUDA graph replay on the card) per (lanes, capacities, adaptive,
+    ell_init, min_valid, device); nothing here waits on the host, so the
+    lockstep chain dispatches step k+1 before step k is read back."""
+    inputs = (res.tf, res.R, res.T, res.ell, fixed_b.positions,
+              fixed_b.mask, moving_b.positions, moving_b.mask)
+    return program_for("multiseq's lane post",
+                       _lane_post, (bool(adaptive), float(ell_init),
+                                    int(min_valid)), inputs)(*inputs)
 
 
 def run_multiseq(

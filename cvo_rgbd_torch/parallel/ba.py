@@ -40,7 +40,19 @@ and all-gathered; the PCG loop, O(Ne*18) a matvec, runs replicated.  Its
 scatter-adds may round differently on each rank's card, so the axis's
 first rank broadcasts its updated poses and landmarks (K*16 + M*3
 floats) each GN iteration, and every rank starts the next one from the
-same bits.
+same bits.  The mesh path runs eagerly: gloo collectives cannot be
+captured (the JAX package jits it, `_compiled_ba_sharded`).
+
+Without a mesh, the JAX package jits the whole solve (`_ba_single`, the
+GN loop one `lax.scan`).  Here one GN iteration (the accumulators, the
+landmark inverse, the Schur step with its PCG) is captured in place
+(`core.compiled.CapturedLoop`) on a static state (poses, landmarks, a
+[iters] cost tensor, the cost slot and the problem's other fields), once
+per (K poses, M landmarks, observations, edges, iters, damping,
+cg_iters, device, dtype), and replayed `iters` times; on the CPU the
+same iteration runs uncaptured.  The block inverses take `inv_ex`, whose
+info stays on the device (`inv` reads it on the host, which a capture
+forbids); the mesh path runs the same op.
 """
 
 from __future__ import annotations
@@ -51,12 +63,18 @@ import numpy as np
 import torch
 
 from cvo_rgbd_torch import se3
+from cvo_rgbd_torch.collectives import all_gather, broadcast, psum
+from cvo_rgbd_torch.core.compiled import CapturedLoop, _copy_in, _static
 from cvo_rgbd_torch.core.pcg import pcg
 from cvo_rgbd_torch.device import pin_fp32, resolve_device
-from cvo_rgbd_torch.collectives import all_gather, broadcast, psum
 from cvo_rgbd_torch.parallel.mesh import rank_device
 
 _INDEX_FIELDS = ("obs_pose", "obs_lm", "obs_edge", "edge_pose", "edge_lm")
+
+# the compiled solves, one per (K, M, observations, edges, iters, damping,
+# cg_iters, device, dtype), kept for the life of the process as JAX keeps
+# its jitted solve
+CACHE: dict = {}
 
 
 class BAProblem(NamedTuple):
@@ -178,10 +196,10 @@ def _landmark_inverse(H_ll, damping, axis=None):
     eye3 = torch.eye(3, dtype=H_ll.dtype, device=H_ll.device)
     damped = H_ll + damping * eye3
     if axis is None:
-        return torch.linalg.inv(damped)
+        return torch.linalg.inv_ex(damped)[0]
     local = damped.shape[0] // axis.size
     mine = damped[axis.index * local:(axis.index + 1) * local]
-    return all_gather(torch.linalg.inv(mine), axis)
+    return all_gather(torch.linalg.inv_ex(mine)[0], axis)
 
 
 def _edge_matvecs(E, edge_pose, edge_lm, n_lm):
@@ -208,7 +226,7 @@ def _schur_precond(E, edge_pose, edge_lm, W, H_pp, damping, gauge):
     eye6 = torch.eye(6, dtype=H_pp.dtype, device=H_pp.device)
     Sdiag = H_pp - _scatter(k, edge_pose, AWAt) + damping * eye6
     Sdiag[0] += gauge * eye6
-    return torch.linalg.inv(Sdiag)
+    return torch.linalg.inv_ex(Sdiag)[0]
 
 
 def _schur_step(problem, poses, landmarks, acc, damping, cg_iters,
@@ -265,23 +283,69 @@ def _solve_local(problem: BAProblem, iters: int, damping: float,
                               else poses.new_zeros(0))
 
 
+def _ba_iteration(n_edges, damping, cg_iters):
+    """One GN iteration of `_solve_local` in place on the static state
+    (poses, landmarks, costs, slot, then the problem's other fields):
+    its cost into `costs[slot]`, then the slot moved on."""
+
+    def iteration(poses, landmarks, costs, slot, *fields):
+        problem = BAProblem(poses, landmarks, *fields)
+        acc = _accumulate(problem, poses, landmarks, n_edges)
+        W = _landmark_inverse(acc[2], damping)
+        new_poses, new_landmarks, cost = _schur_step(
+            problem, poses, landmarks, acc + (W,), damping, cg_iters)
+        poses.copy_(new_poses)
+        landmarks.copy_(new_landmarks)
+        costs.index_copy_(0, slot, cost.reshape(1))
+        slot.add_(1)
+
+    return iteration
+
+
+def _compiled_solve(problem: BAProblem, iters, damping, cg_iters):
+    """`ba_solve` without a mesh: the GN iterations replayed on the key's
+    `CapturedLoop` (built on the key's first call); fresh poses,
+    landmarks and costs."""
+    k, m = (int(t.shape[0]) for t in problem[:2])
+    o, e = int(problem.obs_pose.shape[0]), int(problem.edge_pose.shape[0])
+    dev, dtype = problem.poses.device, problem.poses.dtype
+    key = (k, m, o, e, iters, damping, cg_iters, dev, dtype)
+    loop = CACHE.get(key)
+    if loop is None:
+        state = _static((problem.poses, problem.landmarks,
+                         problem.poses.new_zeros(iters),
+                         torch.zeros(1, dtype=torch.int64, device=dev),
+                         *problem[2:]))
+        loop = CACHE[key] = CapturedLoop(
+            {"gn": _ba_iteration(e, damping, cg_iters)}, state,
+            f"ba_solve of {k} poses, {m} landmarks, {o} observations and "
+            f"{e} edges ({iters} iterations, damping {damping}, cg_iters "
+            f"{cg_iters}) on {dev}")
+    poses, landmarks, costs, slot, *fields = loop.state
+    _copy_in((poses, landmarks, *fields), tuple(problem))
+    slot.zero_()
+    loop.run("gn", iters)
+    return poses.clone(), landmarks.clone(), costs.clone()
+
+
 def ba_solve(problem: BAProblem, mesh=None, axis: str = "sp",
              iters: int = 10, damping: float = 1e-4, cg_iters: int = 48,
              device=None):
     """Bundle-adjust on `device`; returns (poses [K,4,4], landmarks [M,3],
     costs [iters]) there.
 
-    Without a mesh, on one device (the card unless `device="cpu"`).
-    With a mesh (`parallel.make_mesh`), every rank of it calls this with
+    Without a mesh, on one device (the card unless `device="cpu"`), one
+    captured GN iteration replayed `iters` times (`_compiled_solve`;
+    uncaptured on the CPU).  With a mesh (`parallel.make_mesh`), every rank of it calls this with
     the same problem and gets the same result on its own device (the
     rank's card unless `device="cpu"`): the observations shard over
     `axis`, padded with weight-0 observations, and the landmarks with
     unobserved ones, to multiples of its size (the padding landmarks are
-    dropped from the result)."""
+    dropped from the result); that path runs its iterations eagerly."""
     if mesh is None:
         dev = resolve_device(device)
         pin_fp32()
-        return _solve_local(problem.to(dev), iters, damping, cg_iters)
+        return _compiled_solve(problem.to(dev), iters, damping, cg_iters)
     dev = rank_device(device)
     pin_fp32()
     ax = mesh.axis(axis)

@@ -11,13 +11,23 @@ pieces into a SLAM system:
   defines and never wires);
 - a new keyframe is scored against the past ones; a high-overlap,
   non-adjacent pair is registered and added as a loop-closure edge;
-- the SE(3) pose graph (`core.posegraph`) spreads the loop error.
+- the SE(3) pose graph (`core.posegraph`) spreads the loop error;
+- `refine_map` bundle-adjusts the keyframe poses and a landmark map
+  harvested from the keyframe clouds (`parallel.ba`).
 
 Every align, inner product and pose-graph solve runs on the slam's
 device (the card unless `device="cpu"`); a frame's results reach the host
-in one read (`process`), a group's in one read (`process_batch`).  The
-JAX package's `refine_map` (bundle adjustment, `parallel/ba.py`) is not
-ported.
+in one read (`process`), a group's in one read (`process_batch`).
+
+The JAX package's compiled forms are captured programs here
+(`core.compiled`): the aligns go through `align_jit`; a frame's self
+and cross inner products (`keyframes.py`) and `cloud_ok`
+(`_compiled_cloud_ok`) are one CUDA graph each, and `process_batch`'s
+step after its align (`_slam_step`, the JAX package's
+`_compiled_slam_step`) is one; the loop-closure search replays the
+one-pair inner product programs; `solve`'s `posegraph.optimize` and
+`refine_map`'s `ba_solve` replay one captured Gauss-Newton iteration
+(`CapturedLoop`).  On the CPU the same functions run uncaptured.
 """
 
 from __future__ import annotations
@@ -27,9 +37,10 @@ import dataclasses
 import numpy as np
 import torch
 
-from cvo_rgbd_torch.core.cloud import cloud_ok
+from cvo_rgbd_torch.core.cloud import PointCloud, cloud_ok
+from cvo_rgbd_torch.core.compiled import align_jit, program_for
 from cvo_rgbd_torch.core.posegraph import from_odometry, optimize
-from cvo_rgbd_torch.core.compiled import align_jit
+from cvo_rgbd_torch.core.registration import function_inner_product
 from cvo_rgbd_torch.device import resolve_device
 from cvo_rgbd_torch.keyframes import (
     KeyframePolicy,
@@ -38,6 +49,17 @@ from cvo_rgbd_torch.keyframes import (
     inner_product_async,
     keyframe_scores_batched,
 )
+
+
+def _cloud_ok(min_valid, positions, mask):
+    return cloud_ok(PointCloud(positions, None, mask), min_valid)
+
+
+def _compiled_cloud_ok(cloud, min_valid):
+    """`cloud_ok` as a captured program (the JAX package's
+    `_compiled_cloud_ok`): a 0-dim bool tensor where the cloud lies."""
+    inputs = (cloud.positions, cloud.mask)
+    return program_for("cloud_ok", _cloud_ok, (min_valid,), inputs)(*inputs)
 
 
 def _fetch(*values):
@@ -53,12 +75,31 @@ def _fetch(*values):
     return out
 
 
+def _step_post(params, min_valid, tf, R, T, k_pos, k_feat, k_mask, pos,
+               feat, mask):
+    """The work of a frame after its align (the rest of the JAX
+    package's `_compiled_slam_step`): (finite, warm R, warm T, fresh ell,
+    <f,f>, <f_key,f>)."""
+    key_cloud = PointCloud(k_pos, k_feat, k_mask)
+    cloud = PointCloud(pos, feat, mask)
+    dev = tf.device
+    finite = torch.isfinite(tf).all() & cloud_ok(cloud, min_valid)
+    f32 = torch.float32
+    Rw = torch.where(finite, R, torch.eye(3, dtype=f32, device=dev))
+    Tw = torch.where(finite, T, torch.zeros(3, dtype=f32, device=dev))
+    ellw = torch.full((), params.ell_init, dtype=f32, device=dev)
+    cs = function_inner_product(params, cloud, cloud)
+    cross = function_inner_product(params, key_cloud, cloud)
+    return finite, Rw, Tw, ellw, cs, cross
+
+
 def _slam_step(params, key_cloud, cloud, warm, min_valid, device):
     """One frame's work on the device, no host sync: the align against
-    the keyframe with the warm-start bookkeeping folded in, and the
-    self and cross inner products the promotion needs.  Returns (tf,
-    finite, R, T, ell, <f,f>, <f_key,f>), the next warm state being the
-    three in the middle.
+    the keyframe through `align_jit`, then one captured program
+    (`_step_post`) that folds in the warm-start bookkeeping and the self
+    and cross inner products the promotion needs.  Returns (tf, finite,
+    R, T, ell, <f,f>, <f_key,f>), the next warm state being the three in
+    the middle.
 
     Warm R/T, FRESH ell: keyframe-relative pairs have growing baselines,
     and carrying the previous pair's fully shrunk ell (0.03 after the
@@ -66,14 +107,10 @@ def _slam_step(params, key_cloud, cloud, warm, min_valid, device):
     that the flow dies before covering the extra offset; the warm
     transform is the right prior, the warm length-scale is not."""
     res = align_jit(params, key_cloud, cloud, *warm, device=device)
-    finite = torch.isfinite(res.tf).all() & cloud_ok(cloud, min_valid)
-    f32 = torch.float32
-    Rw = torch.where(finite, res.R, torch.eye(3, dtype=f32, device=device))
-    Tw = torch.where(finite, res.T, torch.zeros(3, dtype=f32, device=device))
-    ellw = torch.full((), params.ell_init, dtype=f32, device=device)
-    cs = inner_product_async(params, cloud, cloud)
-    cross = inner_product_async(params, key_cloud, cloud)
-    return res.tf, finite, Rw, Tw, ellw, cs, cross
+    inputs = (res.tf, res.R, res.T, *key_cloud, *cloud)
+    post = program_for("the SLAM step", _step_post, (params, min_valid),
+                       inputs)(*inputs)
+    return (res.tf,) + post
 
 
 def _angle(R):
@@ -147,7 +184,7 @@ class KeyframeSlam:
         """Register one frame; returns its (odometry) world pose."""
         cloud = cloud.to(self.device)
         cloud_self_d = inner_product_async(self.params, cloud, cloud)
-        ok_d = cloud_ok(cloud, self.config.min_valid)
+        ok_d = _compiled_cloud_ok(cloud, self.config.min_valid)
         if not self.keyframes:
             pose = np.eye(4)
             self.frame_poses.append(pose)

@@ -145,6 +145,18 @@ odometry step's bookkeeping (`odometry._odom_step` around an
 backends.  The PYTHONPATH form runs it against an earlier checkout's
 package.
 
+    python -m cvo_rgbd_torch.time_fused --slam
+
+times `cli slam`'s work outside align (`time_slam`): `KeyframeSlam.
+process` with `align_jit` answering from a recorded run, host ms a frame
+to the call's return and to the frame's end, device ms and launches a
+frame; each loop-closure search's scores and post-align inner products;
+`posegraph.optimize` (dense and PCG) on the keyframe graph and
+`ba_solve` on `refine_map`'s problem, first call and later calls, with
+the captures the package records.  MATLAB_PARAMS on the kernel backend
+over chip_smoke's phase-9 render at the 0.05 m and 0.015 m grids.  The
+PYTHONPATH form runs it against an earlier checkout's package.
+
     python -m cvo_rgbd_torch.time_fused --sass [LIBRARY [KERNEL]]
 
 prints instead, for the resident cvo kernel of a built library (by
@@ -816,6 +828,202 @@ def time_frontend(sizes=((240, 320), (480, 640)), n_frames=4):
                 "backend": p.backend, "iterations": int(res.iterations) + 1,
                 "align_wall_ms": align_ms, "host_ms": host, "wall_ms": wall,
                 "launches": sum(api.values()), "api": api}), flush=True)
+
+
+def slam_sets(grids):
+    """{grid: chip_smoke's phase-9 render (`synth.depth_loop_path(40,
+    period=30)` at 240x320) written as .pcd and loaded at `grid`}, as
+    `cli slam` loads it."""
+    import tempfile
+
+    from cvo_rgbd_torch.batch import load_pcd_dir
+    from cvo_rgbd_torch.io.export import depth_to_cloud, write_pcd
+    from cvo_rgbd_torch.synth import BandScene, depth_loop_path, render_frames
+
+    scene = BandScene(240, 320)
+    frames = render_frames(depth_loop_path(40, period=30), scene)
+    with tempfile.TemporaryDirectory() as root:
+        for _, nm, rgb, dep, _ in frames:
+            write_pcd(os.path.join(root, f"{nm}.pcd"),
+                      *depth_to_cloud(rgb, dep, scene.cam))
+        return {g: load_pcd_dir(root, grid=g) for g in grids}
+
+
+def _spied(module, name, log):
+    """Replace `module.name` by a function that appends (args, kwargs,
+    result) of each call to `log`; returns the original."""
+    real = getattr(module, name)
+
+    def spy(*a, **kw):
+        out = real(*a, **kw)
+        log.append((a, kw, out))
+        return out
+
+    setattr(module, name, spy)
+    return real
+
+
+def _captures(cache):
+    """The capture seconds and pool bytes that the compiled objects of a
+    cache record (`captures`), where the package has them."""
+    out = []
+    for obj in cache.values():
+        for rec in getattr(obj, "captures", {}).values():
+            out.append(rec)
+    return out
+
+
+def time_slam(grids=(0.05, 0.015), runs=5):
+    """`cli slam`'s work outside `align_jit` on the card: MATLAB_PARAMS
+    on the kernel backend, the default SlamConfig, over chip_smoke's
+    phase-9 render as .pcd at each grid.  A first run records every
+    `align_jit` result and each loop-closure search's arguments; then
+    `KeyframeSlam.process` runs again over the frames with `align_jit`
+    answering from the record at once: host ms a frame to the call's
+    return and to the frame's end (a synchronize), device ms and host
+    launches a frame (torch.profiler).  Then each search's
+    `keyframe_scores_batched` and `aligned_fip`, `posegraph.optimize`
+    on the keyframe graph (dense, and PCG) and, at `cli slam`'s grid,
+    `ba_solve` on `refine_map`'s problem (phase 10e's): ms of the first
+    call in the process and of later calls (median of `runs`), launches
+    and device ms of a later call, and the captures the package's
+    compiled objects record.  One JSON line a reading."""
+    import numpy as np
+    import torch
+
+    from cvo_rgbd_torch import slam as slam_mod
+    from cvo_rgbd_torch.batch import pad_clouds
+    from cvo_rgbd_torch.core import posegraph
+    from cvo_rgbd_torch.parallel import ba as ba_mod
+    from cvo_rgbd_torch.params import MATLAB_PARAMS
+    from cvo_rgbd_torch.slam import KeyframeSlam, SlamConfig
+
+    dev = torch.device("cuda")
+    sets = slam_sets(grids)
+
+    def first_and_later(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        first = (time.perf_counter() - t0) * 1e3
+        host, wall = host_ms(fn, runs=runs)
+        dev_ms, _, api = per_call_profile(fn, 1)
+        return {"first_ms": first, "host_ms": host, "wall_ms": wall,
+                "device_ms": dev_ms, "launches": sum(api.values()),
+                "api": api}
+
+    for grid in grids:
+        clouds = pad_clouds(sets[grid], dev)
+        cap = clouds[0].capacity
+        aligns, scores, afips = [], [], []
+        reals = [_spied(slam_mod, "align_jit", aligns),
+                 _spied(slam_mod, "keyframe_scores_batched", scores),
+                 _spied(slam_mod, "aligned_fip", afips)]
+        try:
+            slam = KeyframeSlam(MATLAB_PARAMS, SlamConfig(), device=dev)
+            t0 = time.perf_counter()
+            for i, c in enumerate(clouds):
+                slam.process(i, c)
+            torch.cuda.synchronize()
+            whole = (time.perf_counter() - t0) / len(clouds)
+        finally:
+            for name, real in zip(("align_jit", "keyframe_scores_batched",
+                                   "aligned_fip"), reals):
+                setattr(slam_mod, name, real)
+        kf = [k.index for k in slam.keyframes]
+        loops = [(i, j) for i, j, _, _ in slam.loop_edges]
+
+        def outside(host=None, wall=None):
+            """`process` over the frames, `align_jit` answering from the
+            record."""
+            results = iter([r for _, _, r in aligns])
+            slam_mod.align_jit = lambda *a, **kw: next(results)
+            try:
+                s = KeyframeSlam(MATLAB_PARAMS, SlamConfig(), device=dev)
+                for i, c in enumerate(clouds):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    s.process(i, c)
+                    t1 = time.perf_counter()
+                    torch.cuda.synchronize()
+                    if host is not None:
+                        host.append((t1 - t0) * 1e3)
+                        wall.append((time.perf_counter() - t0) * 1e3)
+            finally:
+                slam_mod.align_jit = reals[0]
+            return s
+
+        outside()
+        host, wall = [], []
+        s = outside(host, wall)
+        same = ([k.index for k in s.keyframes] == kf and
+                [(i, j) for i, j, _, _ in s.loop_edges] == loops)
+        dev_ms, _, api = per_call_profile(outside, len(clouds))
+        print(json.dumps({
+            "slam_process": f"grid {grid}", "capacity": cap,
+            "frames": len(clouds), "keyframes": kf, "loop_closures": loops,
+            "replayed_path_same": same, "s_per_frame_whole": whole,
+            "host_ms_mean": float(np.mean(host)),
+            "host_ms_median": float(np.median(host)),
+            "wall_ms_mean": float(np.mean(wall)),
+            "wall_ms_median": float(np.median(wall)),
+            "device_ms": dev_ms, "launches": sum(api.values()),
+            "api": api}), flush=True)
+
+        for q, ((sa, skw, _), (fa, fkw, _)) in enumerate(zip(scores,
+                                                             afips)):
+            print(json.dumps({
+                "loop_search": f"grid {grid}", "search": q,
+                "candidates": len(sa[1]),
+                "keyframe_scores_batched": first_and_later(
+                    lambda: slam_mod.keyframe_scores_batched(*sa, **skw)),
+                "aligned_fip": first_and_later(
+                    lambda: slam_mod.aligned_fip(*fa, **fkw).cpu())}),
+                flush=True)
+
+        cfg = slam.config
+        graph = posegraph.from_odometry(
+            np.stack([k.pose for k in slam.keyframes]),
+            loop_edges=slam.loop_edges, device=dev)
+        for solver in ("dense", "pcg"):
+            def solve(solver=solver):
+                return posegraph.optimize(
+                    graph, iters=cfg.optimize_iters, solver=solver,
+                    huber_delta=cfg.huber_delta, robust=cfg.robust_kernel,
+                    robust_warmup=cfg.robust_warmup_iters)
+
+            out = first_and_later(solve)
+            nodes, costs = solve()
+            print(json.dumps({
+                "optimize": f"grid {grid}", "solver": solver,
+                "nodes": len(slam.keyframes), "edges": int(
+                    graph.edge_i.shape[0]), "iters": cfg.optimize_iters,
+                "cost_first_last": [float(costs[0]), float(costs[-1])],
+                "nodes_sha1": sha1(nodes), **out,
+                "captures": _captures(getattr(posegraph, "CACHE", {}))}),
+                flush=True)
+
+        if grid != grids[0]:
+            continue
+        _, kf_nodes = slam.solve()
+        problem = ba_mod.ba_from_keyframes(
+            [k.cloud for k in slam.keyframes], kf_nodes, grid=0.05,
+            radius=0.03, feature_weight=2.0, device=dev)
+
+        def ba():
+            return ba_mod.ba_solve(problem, iters=8, device=dev)
+
+        out = first_and_later(ba)
+        _, _, costs = ba()
+        print(json.dumps({
+            "ba_solve": f"grid {grid}", "poses": int(problem.poses.shape[0]),
+            "landmarks": int(problem.landmarks.shape[0]),
+            "observations": int(problem.obs_pose.shape[0]),
+            "edges": int(problem.edge_pose.shape[0]), "iters": 8,
+            "cost_first_last": [float(costs[0]), float(costs[-1])], **out,
+            "captures": _captures(getattr(ba_mod, "CACHE", {}))}),
+            flush=True)
 
 
 def flow_cases():
@@ -1624,6 +1832,9 @@ def main(argv=None):
         time_flow()
         return 0
     _build.build()
+    if argv[:1] == ["--slam"]:
+        time_slam()
+        return 0
     if argv[:1] == ["--frontend"]:
         time_frontend()
         return 0

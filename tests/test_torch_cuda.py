@@ -2395,3 +2395,242 @@ def test_frontend_jit_odometry_on_the_card(dev, frontend_frames, monkeypatch,
     assert torch.equal(packed, flat[:19])
     for a, b in zip(nxt, (flat[32:41].view(3, 3), flat[48:51], flat[64])):
         assert torch.equal(a, b)
+
+
+# ---- cli slam's compiled forms: the inner products, cloud_ok, the SLAM step,
+# the pose-graph and BA solves, multiseq's lane post
+
+
+def _pcd_like_clouds(dev, k=3, cap=512, seed=21):
+    """k clouds in MATLAB's linear mode (3 colour features, 0..255), each
+    a shifted copy of one random cloud."""
+    from cvo_rgbd_torch import pad_cloud
+
+    rng = np.random.default_rng(seed)
+    pos = rng.standard_normal((400, 3)) * 0.4 + np.array([0, 0, 2.0])
+    feat = rng.random((400, 3)) * 255.0
+    return [pad_cloud(pos + np.array([0.03, -0.01, 0.02]) * q, feat, cap,
+                      device=dev) for q in range(k)]
+
+
+def _graph_runs(fn, graphs, kernels=0):
+    """fn() under torch.profiler, which must launch `graphs` CUDA graphs
+    and at most `kernels` kernels of its own (a stack, a fill) beside its
+    copies."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    calls = {e.key: e.count for e in prof.key_averages()}
+    assert calls.get("cudaGraphLaunch") == graphs, calls
+    assert calls.get("cudaLaunchKernel", 0) <= kernels, calls
+    return out
+
+
+@pytest.mark.parametrize("mode", ["linear", "se"])
+def test_inner_product_programs_have_the_eager_bits_on_the_card(dev, mode):
+    """Each inner product's program (self, cross, under a transform) is
+    one graph replay with the SHA-1 of `function_inner_product` op by
+    op; the loop-closure scores are a replay a candidate."""
+    import cvo_rgbd_torch as ct
+    from cvo_rgbd_torch import keyframes as kf
+    from cvo_rgbd_torch.core.registration import function_inner_product
+
+    if mode == "linear":
+        p, clouds = ct.MATLAB_PARAMS, _pcd_like_clouds(dev, 4)
+    else:
+        p, clouds = ct.AcvoParams(), list(_clouds(dev)) + list(
+            _clouds(dev, seed=1))
+    a, b = clouds[:2]
+    for x, y in ((a, b), (a, a), (b, a)):
+        kf.inner_product_async(p, x, y)   # built and captured
+        got = _graph_runs(lambda: kf.inner_product_async(p, x, y), 1)
+        assert _sha1s([got]) == _sha1s([function_inner_product(p, x, y)])
+    tfs = torch.eye(4, device=dev).repeat(3, 1, 1)
+    tfs[1, :3, 3] = torch.tensor([0.02, 0.0, -0.01], device=dev)
+    tfs[2, :3, :3] = ct.se3.exp_so3(torch.tensor([0.01, -0.02, 0.005],
+                                                 device=dev))
+    kf.aligned_fip(p, a, b, tfs)
+    got = _graph_runs(lambda: kf.aligned_fip(p, a, b, tfs), 3, kernels=1)
+    for q in range(3):
+        moved = b._replace(positions=b.positions @ tfs[q, :3, :3].T
+                           + tfs[q, :3, 3])
+        assert _sha1s([got[q]]) == _sha1s([function_inner_product(
+            p, a, moved)])
+    selfs = [float(function_inner_product(p, c, c)) for c in clouds]
+    scores = kf.keyframe_scores_batched(p, clouds[1:], clouds[0], selfs[1:],
+                                        selfs[0])
+    cross = np.array([float(function_inner_product(p, c, clouds[0]))
+                      for c in clouds[1:]])
+    assert np.array_equal(scores, (cross / np.sqrt(
+        np.asarray(selfs[1:]) * selfs[0] + 1e-30)).astype(np.float32))
+
+
+def test_slam_step_and_cloud_ok_programs_have_the_eager_bits_on_the_card(
+        dev):
+    """`_compiled_cloud_ok` and the SLAM step's program after align
+    (`_step_post`) against the same functions op by op, a good frame and
+    a degenerate one."""
+    import cvo_rgbd_torch as ct
+    from cvo_rgbd_torch import slam
+    from cvo_rgbd_torch.core.cloud import cloud_ok
+
+    p = ct.MATLAB_PARAMS
+    key, cloud = _pcd_like_clouds(dev, 2)
+    empty = cloud._replace(mask=torch.zeros_like(cloud.mask))
+    warm = (torch.eye(3, device=dev), torch.zeros(3, device=dev),
+            torch.full((), p.ell_init, device=dev))
+    for frame in (cloud, empty):
+        assert torch.equal(slam._compiled_cloud_ok(frame, 64),
+                           cloud_ok(frame, 64))
+        res = slam.align_jit(p, key, frame, *warm)
+        got = slam._slam_step(p, key, frame, warm, 64, dev)
+        ref = slam._step_post(p, 64, res.tf, res.R, res.T, *key, *frame)
+        assert _sha1s(got[1:]) == _sha1s(ref)
+        assert bool(got[1]) == (frame is cloud)
+
+
+def _eager_posegraph(graph, solver, iters, cg_iters, kw, damping=1e-6):
+    from cvo_rgbd_torch.core import posegraph
+
+    nodes, costs = graph.nodes, []
+    for k in range(iters):
+        if solver == "dense":
+            nodes, cost = posegraph._gn_step_dense(
+                graph, nodes, damping, kw["huber_delta"], kw["robust"], k,
+                kw["robust_warmup"])
+        else:
+            nodes, cost = posegraph._gn_step_pcg(
+                graph, nodes, damping, cg_iters, kw["huber_delta"],
+                kw["robust"], k, kw["robust_warmup"])
+        costs.append(cost)
+    return nodes, torch.stack(costs)
+
+
+@pytest.mark.parametrize("loops", [1, 2])
+@pytest.mark.parametrize("solver", ["dense", "pcg"])
+def test_optimize_is_captured_with_the_ex_algebra_on_the_card(dev, solver,
+                                                              loops):
+    """`optimize` without a mesh captures its GN iteration (the `_ex`
+    solve and inverses inside) and replays it: a later call is `iters`
+    graph launches and one kernel launch (the slot's reset).  With one
+    loop edge (0, 20) every scatter-add sum takes at most two terms onto
+    a zero base, so the card's atomics sum it in any order to the same
+    bits: the eager loop's bits.  With a second loop edge (2, 15) node
+    15's sums take two terms onto a written base, whose order varies
+    from run to run, eager or captured: within 2e-4 (costs 1e-3)."""
+    from cvo_rgbd_torch.core import posegraph
+
+    rng = np.random.default_rng(4)
+    poses = [np.eye(4)]
+    for _ in range(20):
+        step = np.eye(4)
+        step[:3, 3] = [0.2, 0.0, 0.01]
+        poses.append(poses[-1] @ step)
+    noisy = [q.copy() for q in poses]
+    for k, q in enumerate(noisy):
+        q[:3, 3] += rng.normal(0.0, 0.01 * k ** 0.5, 3)
+    edges = [(0, 20), (2, 15)][:loops]
+    graph = posegraph.from_odometry(noisy, [
+        (i, j, np.linalg.inv(poses[i]) @ poses[j], 5.0) for i, j in edges],
+        device=dev)
+    kw = dict(huber_delta=0.3, robust="cauchy", robust_warmup=3)
+    first = posegraph.optimize(graph, iters=9, solver=solver, cg_iters=64,
+                               **kw)
+    later = _graph_runs(lambda: posegraph.optimize(
+        graph, iters=9, solver=solver, cg_iters=64, **kw), 9, kernels=1)
+    eager = _eager_posegraph(graph, solver, 9, 64, kw)
+    for got in (first, later):
+        if loops == 1:
+            assert all(torch.equal(a, b) for a, b in zip(got, eager))
+        assert (got[0] - eager[0]).abs().max().item() <= 2e-4
+        assert torch.allclose(got[1], eager[1], rtol=1e-3, atol=1e-6)
+
+
+def test_ba_solve_is_captured_with_the_ex_algebra_on_the_card(dev):
+    """`ba_solve` without a mesh: a later call is `iters` graph launches
+    and no kernel launch, against `_solve_local` op by op within
+    tests/test_torch_ba.py's tolerances (atomic scatter-adds)."""
+    from cvo_rgbd_torch.parallel import ba
+
+    problem = _ba_problem(0.005, False, dev)
+    first = ba.ba_solve(problem, iters=6, device=dev)
+    later = _graph_runs(lambda: ba.ba_solve(problem, iters=6, device=dev), 6,
+                        kernels=1)
+    eager = ba._solve_local(problem, 6, 1e-4, 48)
+    for got in (first, later):
+        for a, b in zip(got[:2], eager[:2]):
+            assert (a - b).abs().max().item() <= 1e-4
+        assert torch.allclose(got[2], eager[2], rtol=1e-3, atol=1e-7)
+
+
+def test_lane_post_program_has_the_eager_bits_on_the_card(dev):
+    from types import SimpleNamespace
+
+    from cvo_rgbd_torch import multiseq
+    from cvo_rgbd_torch.core.cloud import stack_clouds
+
+    clouds = _pcd_like_clouds(dev, 4)
+    fixed = stack_clouds(clouds)
+    moving = stack_clouds(clouds[1:] + [clouds[0]._replace(
+        mask=torch.zeros_like(clouds[0].mask))])
+    rng = np.random.default_rng(5)
+    tf = torch.eye(4, device=dev).repeat(4, 1, 1)
+    tf[:, :3, 3] = torch.tensor(rng.normal(0, 0.1, (4, 3)),
+                                dtype=torch.float32, device=dev)
+    tf[1, 0, 0] = float("nan")
+    res = SimpleNamespace(tf=tf, R=tf[:, :3, :3].clone(),
+                          T=tf[:, :3, 3].clone(),
+                          ell=torch.tensor([0.05, 0.06, 0.07, 0.08],
+                                           device=dev))
+    for adaptive in (False, True):
+        multiseq.lane_post(res, fixed, moving, adaptive, 0.1, 64)
+        got = _graph_runs(lambda: multiseq.lane_post(
+            res, fixed, moving, adaptive, 0.1, 64), 1)
+        ref = multiseq._lane_post(adaptive, 0.1, 64, res.tf, res.R, res.T,
+                                  res.ell, fixed.positions, fixed.mask,
+                                  moving.positions, moving.mask)
+        assert _sha1s(got) == _sha1s(ref)
+        assert got[0].tolist() == [True, False, True, False]
+
+
+def test_captures_with_a_host_sync_raise_on_the_card(dev, monkeypatch):
+    """A program or a GN iteration whose body reads the card from the
+    host cannot be captured: the call raises and nothing runs op by op
+    in its place."""
+    import dataclasses
+
+    import cvo_rgbd_torch as ct
+    from cvo_rgbd_torch import keyframes as kf
+    from cvo_rgbd_torch.core import posegraph
+
+    p = dataclasses.replace(ct.MATLAB_PARAMS, ell_init=0.0917)
+    a, b = _pcd_like_clouds(dev, 2)
+    real = kf._FORMS["cross"]
+
+    def with_host_read(*args):
+        out = real(*args)
+        float(out.item())
+        return out
+
+    monkeypatch.setitem(kf._FORMS, "cross", with_host_read)
+    with pytest.raises(RuntimeError,
+                       match=r"capturing the cross inner product .*failed"):
+        kf.inner_product_async(p, a, b)
+    monkeypatch.undo()
+
+    real_step = posegraph._gn_step_dense
+
+    def step_with_host_read(*args):
+        nodes, cost = real_step(*args)
+        float(cost.item())
+        return nodes, cost
+
+    monkeypatch.setattr(posegraph, "_gn_step_dense", step_with_host_read)
+    graph = posegraph.from_odometry(np.stack([np.eye(4)] * 3), device=dev)
+    with pytest.raises(RuntimeError, match=r"capturing the dense pose-graph"):
+        posegraph.optimize(graph, iters=3, solver="dense", damping=3.3e-6)
+    torch.cuda.synchronize()
