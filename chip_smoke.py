@@ -189,8 +189,19 @@ and prints no result line):
    unsharded launch's bits), `run_multiseq(mesh=)` on the render and a
    2-frame prefix (the unsharded run's files), `optimize(mesh=)` and
    `ba_solve(mesh=)` over 4 ranks on phase 10e's SLAM problem; 11d. one
-   rank over NCCL, `align_sharded` at sp=1.  Every rank must launch the
-   kernels of its path; their launches join the kernel line;
+   rank over NCCL, `align_sharded` at sp=1.  Every mesh path runs
+   compiled (`core.compiled.run_mesh`, `CapturedLoop`); 11e holds the
+   compiled forms to their eager loops on the same ranks: on the filled
+   render over 2 gloo ranks sharded cvo and acvo and ring cvo (the
+   SHA-1 of tf, iterations and ell; host ms an iteration, graph
+   segments, replays and collective calls an iteration, both forms), at
+   4 ranks `optimize(mesh=)` and `ba_solve(mesh=)` (2e-4 / 1e-4, costs
+   1e-3, optimize's bits where every shard's scatter-adds are
+   order-free; ms first call, later, eager), on 1 NCCL rank sharded cvo
+   as one graph a block beside its eager loop and `align_jit`, and on 2
+   NCCL ranks a card each where the host has two cards.  Every rank
+   must launch the kernels of its path; their launches join the kernel
+   line;
 12. degraded input and the rotation orbit (`synth.Degradation`,
    `synth.linear_orbit_path`): 12a. tests/test_degradation.py's
    sequence on the kernel backend: `run_odometry` over 13 frames fails
@@ -3657,13 +3668,15 @@ def phase_slam_refine(root, gt):
     graph = from_odometry(np.stack([k.pose for k in slam.keyframes]),
                           loop_edges=slam.loop_edges, device="cpu")
     cfg = slam.config
-    opt_kw = dict(iters=cfg.optimize_iters, huber_delta=cfg.huber_delta,
-                  robust=cfg.robust_kernel,
+    # every argument given, so that 11e's eager loops take the same ones:
+    # the SLAM run's own, and damping and cg_iters chosen here
+    opt_kw = dict(iters=cfg.optimize_iters, damping=1e-6, cg_iters=64,
+                  huber_delta=cfg.huber_delta, robust=cfg.robust_kernel,
                   robust_warmup=cfg.robust_warmup_iters)
     return got, {"graph": [t.numpy() for t in graph], "opt_kw": opt_kw,
                  "problem": [t.cpu().numpy() for t in problem],
-                 "ba_kw": {k: v for k, v in kw.items()
-                           if k not in ("device", "mesh")}}
+                 "ba_kw": dict(iters=kw["iters"], damping=1e-4,
+                               cg_iters=48)}
 
 
 def block_rows(cloud, r, nblocks):
@@ -3913,7 +3926,9 @@ def mesh_rank(job, data):
     import torch.distributed as dist
 
     from cvo_rgbd_torch.convert import posegraph_from_numpy
+    from cvo_rgbd_torch.core import posegraph
     from cvo_rgbd_torch.core.cloud import PointCloud, stack_clouds
+    from cvo_rgbd_torch.core.compiled import axis_key
     from cvo_rgbd_torch.core.posegraph import optimize
     from cvo_rgbd_torch.multiseq import run_multiseq
     from cvo_rgbd_torch.parallel import (
@@ -3924,6 +3939,7 @@ def mesh_rank(job, data):
         make_mesh,
         train_step_2d,
     )
+    from cvo_rgbd_torch.parallel import ba as ba_mod
     from cvo_rgbd_torch.parallel.ba import problem_on
 
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -3944,6 +3960,7 @@ def mesh_rank(job, data):
         out = [_mesh_run(label, lambda: fields(entries[fn](
             p, mesh, c[pair[0]], c[pair[1]])))
             for label, fn, p, pair in data["cases"]]
+        out += _jit_runs(mesh, c, data.get("jit", ()), fields)
         return out + [("backend", dist.get_backend(mesh.axis("sp").group),
                        {})]
     # dp=2 x sp=2, then sp over the four ranks for the solvers
@@ -3959,17 +3976,77 @@ def mesh_rank(job, data):
         mesh=mesh, warm_start=False, log=lambda *a: None)))
     mesh4 = make_mesh({"sp": dist.get_world_size()})
     slam = data["slam"]
-    out.append(_mesh_run("optimize", lambda: [t.cpu().numpy() for t in
-                                              optimize(posegraph_from_numpy(
-                                                  *slam["graph"], device=dev),
-                                                  mesh=mesh4,
-                                                  **slam["opt_kw"])]))
-    out.append(_mesh_run("ba_solve", lambda: [t.cpu().numpy() for t in
-                                              ba_solve(problem_on(
-                                                  slam["problem"], dev),
-                                                  mesh=mesh4,
-                                                  **slam["ba_kw"])]))
+    graph = posegraph_from_numpy(*slam["graph"], device=dev)
+    problem = problem_on(slam["problem"], dev)
+    # the first call captures; 11e times a later call and the eager loop
+    for tag in ("", " later"):
+        out.append(_mesh_run(f"optimize{tag}", lambda: [
+            t.cpu().numpy() for t in optimize(graph, mesh=mesh4,
+                                              **slam["opt_kw"])]))
+        out.append(_mesh_run(f"ba_solve{tag}", lambda: [
+            t.cpu().numpy() for t in ba_solve(problem, mesh=mesh4,
+                                              **slam["ba_kw"])]))
+    ax4 = mesh4.axis("sp")
+    for lb, _, cnt in out[-4:]:
+        cache = (posegraph.CACHE if lb.startswith("optimize")
+                 else ba_mod.CACHE)
+        cnt["captures"] = [v.captures for k, v in cache.items()
+                           if axis_key(ax4) in k]
+    out += _eager_solves(mesh4, graph, problem, slam)
     return out
+
+
+def _jit_runs(mesh, clouds, cases, fields):
+    """11e on this rank: each case (label, entry, params, pair) through
+    its compiled loop (a later call of its key: its graphs exist) and its
+    eager loop (`sharded._run_eager`), each timed by `_mesh_run`; the
+    compiled run's counts add its block replays and its loop's captures
+    (seconds, pool bytes, graph segments by block length)."""
+    from cvo_rgbd_torch.core import compiled
+    from cvo_rgbd_torch.parallel import sharded
+
+    fns = {"sharded": sharded._align_sharded, "ring": sharded._align_ring}
+    out = []
+    for label, entry, p, pair in cases:
+        for form, run in (("compiled", compiled.run_mesh),
+                          ("eager", sharded._run_eager)):
+            replays = compiled.run_mesh.replays
+            lb, res, cnt = _mesh_run(f"{label} {form}", lambda: fields(
+                fns[entry](p, mesh, clouds[pair[0]], clouds[pair[1]], "sp",
+                           None, run)))
+            cnt["replays"] = compiled.run_mesh.replays - replays
+            if form == "compiled":
+                cnt["captures"] = [v.captures for k, v in compiled.MESH.items()
+                                   if k[1] == p
+                                   and k[0].startswith(f"align_{entry}")][-1]
+            out.append((lb, res, cnt))
+    return out
+
+
+def _eager_solves(mesh, graph, problem, slam):
+    """11e on this rank: optimize(mesh=)'s and ba_solve(mesh=)'s GN loops
+    op by op on the same shards (`posegraph._mesh_eager`,
+    `ba._solve_local`), with the arguments `slam["opt_kw"]` and
+    `slam["ba_kw"]` give in full."""
+    from cvo_rgbd_torch.core import posegraph
+    from cvo_rgbd_torch.parallel import ba as ba_mod
+
+    ax = mesh.axis("sp")
+    opt, ba = slam["opt_kw"], slam["ba_kw"]
+    shard, m = ba_mod._mesh_shard(problem, ax, problem.poses.device)
+
+    def solve():
+        poses, lms, costs = ba_mod._solve_local(
+            shard, ba["iters"], ba["damping"], ba["cg_iters"], ax)
+        return [t.cpu().numpy() for t in (poses, lms[:m], costs)]
+
+    return [
+        _mesh_run("optimize eager", lambda: [t.cpu().numpy() for t in
+                                             posegraph._mesh_eager(
+            posegraph._edge_shard(graph, ax), ax, opt["iters"],
+            opt["damping"], opt["cg_iters"], opt["huber_delta"],
+            opt["robust"], opt["robust_warmup"])]),
+        _mesh_run("ba_solve eager", solve)]
 
 
 def _same_on_every_rank(ranks, label):
@@ -4025,7 +4102,7 @@ def phase_mesh(clouds, sets, slam_problem, root):
     import numpy as np
     import torch
 
-    from cvo_rgbd_torch import align
+    from cvo_rgbd_torch import align, align_jit
     from cvo_rgbd_torch.batch import pad_clouds
     from cvo_rgbd_torch.convert import posegraph_from_numpy
     from cvo_rgbd_torch.core.cloud import PointCloud, stack_clouds
@@ -4090,12 +4167,18 @@ def phase_mesh(clouds, sets, slam_problem, root):
     log("11b: 2 ranks on cuda:0 over gloo, their CUDA payloads staged "
         "through pinned host memory (NCCL refuses two ranks on one card): "
         "a correctness run, not a scaling run")
+    # 11e's cases: the filled render's, whose keys 11b's runs compiled
+    jit = [(f"{name} {fn} filled", fn, q, pair)
+           for name, fn, q, pair in (("cvo", "sharded", p, ("f0", "f1")),
+                                     ("acvo", "sharded", pa, ("fa0", "fa1")),
+                                     ("cvo", "ring", p, ("f0", "f1")))]
     t0 = time.perf_counter()
-    ranks = launch(mesh_rank, 2, ("sp", {"clouds": host, "cases": cases}),
-                   timeout=600)
+    ranks = launch(mesh_rank, 2, ("sp", {"clouds": host, "cases": cases,
+                                         "jit": jit}), timeout=600)
     log(f"11b: launch of 2 ranks in {time.perf_counter() - t0:.1f} s")
     got = _same_on_every_rank(ranks, "11b")
     counts = _rank_counts(ranks, "11b")
+    _jit_report("2 ranks over gloo", got, counts, jit, one_graph=False)
     check(got["backend"] == "gloo", f"11b ran on {got['backend']}")
     for label, fn, q, pair in cases:
         ref, ref_s = single(q, pair)
@@ -4211,6 +4294,7 @@ def phase_mesh(clouds, sets, slam_problem, root):
         f"{cost_gap:.2e} relative of the single solve on the card")
     check(gaps[0] <= 1e-4 and gaps[1] <= 1e-4 and cost_gap <= 1e-3,
           "11c ba_solve(mesh=) is off")
+    _jit_solves(got, counts, slam)
     for r, c in enumerate(counts):
         log(f"11c rank {r}: " + "; ".join(
             f"{lb} {cnt['s']:.2f} s, launches "
@@ -4227,9 +4311,10 @@ def phase_mesh(clouds, sets, slam_problem, root):
     # 11d: NCCL at one rank (10 iterations first, for the warm-up)
     t0 = time.perf_counter()
     label = "cvo sharded sp=1"
+    jit = [(label, "sharded", p, ("c0", "c1"))]
     ranks = launch(mesh_rank, 1, ("sp", {"clouds": host, "cases": [
         (f"{label} it10", "sharded", dataclasses.replace(p, **it10),
-         ("c0", "c1")), (label, "sharded", p, ("c0", "c1"))]}),
+         ("c0", "c1")), (label, "sharded", p, ("c0", "c1"))], "jit": jit}),
                    backend="nccl", timeout=300)
     got = _same_on_every_rank(ranks, "11d")
     log(f"11d: 1 rank over {got['backend']} in "
@@ -4249,7 +4334,123 @@ def phase_mesh(clouds, sets, slam_problem, root):
           and cnt["launches"]["color_gram"] > 0,
           f"11d: a kernel of its path never launched: {cnt['launches']}")
     add(counts)
+    # 11e: the same key's compiled loop, one graph a block, and the eager
+    # loop, beside align_jit on the pair here (a later call of its key)
+    jit_rows = _jit_report("1 rank over NCCL", got, counts, jit,
+                           one_graph=True)
+    align_jit(p, *(clouds[k] for k in ("c0", "c1")))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = align_jit(p, *(clouds[k] for k in ("c0", "c1")))
+    torch.cuda.synchronize()
+    jit_ms = (time.perf_counter() - t0) * 1e3 / (int(res.iterations) + 1)
+    log(f"11e {label} over NCCL: host ms an iteration compiled "
+        f"{jit_rows[label][0]:.3f}, eager {jit_rows[label][1]:.3f}, "
+        f"align_jit on the pair here {jit_ms:.3f}, the single eager align "
+        f"{ref_ms:.3f}")
+    if torch.cuda.device_count() < 2:
+        log("11e: 2 ranks over NCCL not run: this host has "
+            f"{torch.cuda.device_count()} card")
+        return launches
+    # 11e: two cards over NCCL, a rank on each, the ring included
+    both = [("cvo sharded filled", "sharded", p, ("f0", "f1")),
+            ("cvo ring filled", "ring", p, ("f0", "f1"))]
+    t0 = time.perf_counter()
+    ranks = launch(mesh_rank, 2, ("sp", {"clouds": host, "cases": both,
+                                         "jit": both}),
+                   backend="nccl", timeout=300)
+    log(f"11e: 2 ranks over NCCL, a card each, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    got = _same_on_every_rank(ranks, "11e")
+    check(got["backend"] == "nccl", f"11e ran on {got['backend']}")
+    counts = _rank_counts(ranks, "11e")
+    _jit_report("2 ranks over NCCL", got, counts, both, one_graph=True)
+    add(counts)
     return launches
+
+
+def _jit_solves(got, counts, slam):
+    """11e at 4 ranks: optimize(mesh=) and ba_solve(mesh=), their first
+    call (captures included) and a later one, against their eager mesh
+    loops on the same ranks: poses within 2e-4 (BA 1e-4, landmarks too),
+    costs 1e-3 relative, and optimize's bits where every rank's
+    scatter-adds are order-free (`scatters_order_free` on its edge
+    shard); logs each rank's ms of the three and the graph segments."""
+    import numpy as np
+
+    from cvo_rgbd_torch.convert import posegraph_from_numpy
+    from cvo_rgbd_torch.core.posegraph import _edge_shard
+    from cvo_rgbd_torch.parallel.mesh import Axis
+
+    graph = posegraph_from_numpy(*slam["graph"], device="cpu")
+    free = all(scatters_order_free(_edge_shard(
+        graph, Axis("sp", len(counts), r, None, ())))
+        for r in range(len(counts)))
+    for name, tol in (("optimize", 2e-4), ("ba_solve", 1e-4)):
+        eager = got[f"{name} eager"]
+        for tag in ("", " later"):
+            comp = got[name + tag]
+            gap = max(float(np.abs(a - b).max())
+                      for a, b in zip(comp[:-1], eager[:-1]))
+            cost = float((np.abs(comp[-1] - eager[-1])
+                          / np.abs(eager[-1])).max())
+            same = all(np.array_equal(a, b) for a, b in zip(comp, eager))
+            log(f"11e {name}{tag} over sp={len(counts)} against its eager "
+                f"mesh loop: {gap:.2e} (tolerance {tol:g}), costs "
+                f"{cost:.2e} relative, the same bits {same} (every "
+                f"shard's scatter-adds order-free: {free})")
+            check(gap <= tol and cost <= 1e-3
+                  and (name != "optimize" or not free or same),
+                  f"11e {name}{tag}(mesh=) is off its eager loop")
+        for r, c in enumerate(counts):
+            log(f"11e {name} rank {r}: ms first call "
+                f"{c[name]['s'] * 1e3:.2f} (capture included), later "
+                f"{c[name + ' later']['s'] * 1e3:.2f}, eager "
+                f"{c[name + ' eager']['s'] * 1e3:.2f}; collective calls "
+                f"later {c[name + ' later']['collectives']['calls']}, eager "
+                f"{c[name + ' eager']['collectives']['calls']}; captures "
+                f"{c[name + ' later']['captures']}")
+
+
+def _jit_report(tag, got, counts, cases, one_graph):
+    """11e: each case's compiled loop against its eager loop on the same
+    ranks (`_jit_runs`): the SHA-1 of tf, iterations and ell must agree,
+    and a block must be one graph on NCCL (`one_graph`) and graph
+    segments on gloo; logs each rank's host ms an iteration, graph
+    segments, replays and collective calls an iteration of both forms.
+    Returns {label: (compiled ms, eager ms)} an iteration, rank 0's."""
+    import numpy as np
+    import torch
+
+    rows = {}
+    for label, *_ in cases:
+        comp, eag = got[f"{label} compiled"], got[f"{label} eager"]
+        sha = [sha1s(*(torch.from_numpy(np.asarray(r[f]))
+                       for f in ("tf", "iterations", "ell")))
+               for r in (comp, eag)]
+        iters = int(comp["iterations"]) + 1
+        for r, c in enumerate(counts):
+            cc, ce = c[f"{label} compiled"], c[f"{label} eager"]
+            segs = {n: v["segments"] for n, v in cc["captures"].items()}
+            ms = (cc["s"] * 1e3 / iters, ce["s"] * 1e3 / iters)
+            rows.setdefault(label, ms)
+            log(f"11e {tag} {label} rank {r}: SHA-1 of tf, iterations and "
+                f"ell compiled == eager {sha[0] == sha[1]} ({iters} "
+                f"iterations); host ms an iteration compiled {ms[0]:.3f}, "
+                f"eager {ms[1]:.3f}; graph segments by block length {segs}, "
+                f"{cc['replays']} replays; collective calls an iteration "
+                f"compiled {cc['collectives']['calls'] / iters:.2f}, eager "
+                f"{ce['collectives']['calls'] / iters:.2f}, their host ms an "
+                f"iteration {cc['collectives']['seconds'] * 1e3 / iters:.3f}"
+                f", {ce['collectives']['seconds'] * 1e3 / iters:.3f}; "
+                f"captures {cc['captures']}")
+            check(all((n == 1) == one_graph for n in segs.values())
+                  and cc["replays"] > 0,
+                  f"11e {tag} {label}: graph segments {segs}, replays "
+                  f"{cc['replays']}")
+        check(sha[0] == sha[1],
+              f"11e {tag} {label}: the compiled loop is off the eager bits")
+    return rows
 
 
 def _quiet(*a):

@@ -40,13 +40,15 @@ tensors, uncaptured.  The fused backend's loop is one launch already:
 
 Capture on the card never falls back: a block that cannot be captured
 raises.  Before capture, one eager warm-up block on the capture stream
-loads the kernels' libraries and modules, and the stream's kernel
-tickets (`ops.gram.stream_tickets`) exist, zeroed, outside the graph's
-memory pool.  The wrappers' launch counters count at capture, not at
-replay: each graph records its counts, adds them on every replay, and
-`align_jit.replays` counts the replays (on the CPU, the blocks run).
-The warm-up block's launches are counted as they run, and
-`align_jit.warmups` counts its iterations.
+loads the kernels' libraries and modules (and creates NCCL's
+communicators), and the stream's kernel tickets
+(`ops.gram.stream_tickets`) exist, zeroed, outside the graph's memory
+pool.  The wrappers' launch counters, and the collectives' calls, count
+at capture, not at replay: each graph records its counts, adds them on
+every replay, and `align_jit.replays` counts the replays (on the CPU,
+the blocks run; `run_mesh.replays` for the mesh paths).  The warm-up
+block's launches are counted as they run, and `align_jit.warmups`
+counts its iterations.
 
 `CapturedProgram` is the same design for a function of a few tensors
 that runs once a call: the frontend (`frontend.pipeline.Frontend`, the
@@ -57,17 +59,32 @@ per (name, static arguments, input key) for `cli slam`'s inner
 products, `cloud_ok`, its SLAM step and multiseq's lane post.
 `CapturedLoop` is its in-place iteration form, JAX's `lax.scan` of a
 step: one captured step on a static state, replayed n times a call
-(`posegraph.optimize` and `ba_solve` without a mesh).
+(`posegraph.optimize` and `ba_solve`, with a mesh or without).
+
+The mesh paths (`parallel/sharded.py`: `align_sharded`, `train_step_2d`,
+`align_ring`; JAX jits each as a `shard_map` of its loop) run through
+`run_mesh`: the path's per-align precompute (its psums and gathers
+included) runs eagerly, then its step, a function of the state, its
+blocks and that precompute, goes through a `CompiledAlign` keyed also
+by the mesh axis and its backend, blocks and tail as above.  A step's
+collectives (`collectives.py`) shape its capture: on an NCCL axis a
+block is one graph, the all_reduces inside it; gloo stages CUDA
+payloads through host memory, which no graph can hold, so on a gloo
+axis a block is graph segments cut at each collective, the staged
+transports run between them at replay (`_Segments`).  The eager loops
+stay as the references the tests hold these to (`sharded._run_eager`,
+`posegraph._mesh_eager`, `ba._solve_local`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import time
 
 import torch
 
-from cvo_rgbd_torch import ops
+from cvo_rgbd_torch import collectives, ops
 from cvo_rgbd_torch.core.registration import (
     CHECK_EVERY,
     AlignResult,
@@ -91,6 +108,8 @@ COUNTED = (ops.color_gram, ops.fused_moments, ops.fused_moments.lanes,
 # device, layout, lanes), kept for the life of the process as JAX keeps its
 # compiled aligns; `align_jit.cache_clear()` drops them
 CACHE: dict = {}
+# the compiled mesh loops of `run_mesh`, kept likewise
+MESH: dict = {}
 # the captured programs of `program_for` (the keyframe inner products,
 # `cloud_ok`, the SLAM step, multiseq's lane post), kept likewise
 PROGRAMS: dict = {}
@@ -142,56 +161,133 @@ def _fresh(out):
     return out.clone()
 
 
+class _Segments:
+    """A block captured on a gloo axis: CUDA graph segments cut at its
+    collectives, each exchange between two segments reading the static
+    buffers the segment before it wrote and writing those the segment
+    after it was captured reading (`collectives.cutting`).  A replay runs
+    them in turn, each exchange's staged transport on the host."""
+
+    def __init__(self):
+        self.graphs, self.exchanges = [], []
+
+    def replay(self):
+        for graph, ex in zip(self.graphs, self.exchanges + [None]):
+            graph.replay()
+            if ex is not None:
+                collectives.exchange(*ex)
+
+
 class _Capture:
-    """A CUDA graph's capture on a side stream after one eager warm-up
-    run there, with the wrappers' launch counts moved from the capture to
-    each replay and the capture's seconds and pool bytes recorded
-    (`captures`, as `CompiledAlign` records them).  Capture never falls
-    back: a body that cannot be captured (a host sync, a host-to-card
-    copy) raises with `what`."""
+    """The CUDA graphs of one compiled object, captured on one side
+    stream into one memory pool, each after one eager warm-up run there
+    (which loads the kernels' modules, creates NCCL's communicators and
+    leaves the stream's kernel tickets, `ops.gram.stream_tickets`,
+    zeroed outside the pool), with the wrappers' launch counts and the
+    collectives' calls moved from the capture to each replay and the
+    capture's seconds, pool bytes and segments recorded (`captures`).
+    With a mesh `axis` whose collectives a graph can hold (NCCL) a
+    capture is one graph, collectives included; on a gloo axis it is
+    graph segments cut at each collective (`_Segments`).  Capture never
+    falls back: a body that cannot be captured (a host sync, a
+    host-to-card copy) raises, naming what was captured."""
 
-    def __init__(self, device, what):
-        self.device, self.what = device, what
-        self.captures = {}   # name -> capture seconds and bytes
-        self.counts = {}     # name -> [(wrapper, launches)]
+    def __init__(self, device, what, axis=None):
+        self.device, self.what, self.axis = device, what, axis
+        self.captures = {}   # name -> capture seconds, bytes, segments
+        self.counts = {}     # name -> ([(wrapper, launches)], calls)
+        self.stream = self.pool = None
 
-    def capture(self, name, body, warm_up=None):
-        """Run `warm_up` (default `body`) eagerly on a side stream, then
-        capture `body` there; returns the graph and `body`'s output."""
+    def _segmented(self, body):
+        """`body` captured as `_Segments`, and its output."""
+        segs = _Segments()
+        cur = [torch.cuda.CUDAGraph()]
+
+        def cut(kind, flats, axis):
+            cur[0].capture_end()
+            segs.graphs.append(cur[0])
+            outs = [collectives.result_like(kind, f, axis) for f in flats]
+            segs.exchanges.append((kind, flats, axis, outs))
+            cur[0] = torch.cuda.CUDAGraph()
+            cur[0].capture_begin(pool=self.pool)
+            return outs
+
+        with torch.cuda.stream(self.stream):
+            cur[0].capture_begin(pool=self.pool)
+            try:
+                with collectives.cutting(cut):
+                    out = body()
+            except BaseException:
+                with contextlib.suppress(RuntimeError):
+                    cur[0].capture_end()
+                raise
+            cur[0].capture_end()
+        segs.graphs.append(cur[0])
+        return segs, out
+
+    def capture(self, name, body, keep=(), label=None, warmed=None):
+        """Run `body` eagerly on the capture stream and put back the
+        tensors of `keep` (what the warm-up moved), call `warmed()`, then
+        capture `body` there; returns the graph (or `_Segments`) and
+        `body`'s output.  `label` names the capture in an error (default
+        `what`)."""
         dev = self.device
-        stream = torch.cuda.Stream(dev)
-        stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(stream):
-            (warm_up or body)()
-        torch.cuda.current_stream(dev).wait_stream(stream)
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(dev)
+            self.pool = torch.cuda.graph_pool_handle()
+            with torch.cuda.stream(self.stream):
+                self.tickets, _ = stream_tickets(dev, MAX_UNITS)
+        saved = [t.clone() for t in keep]
+        self.stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(self.stream):
+            body()
+            for dst, src in zip(keep, saved):
+                dst.copy_(src)
+        torch.cuda.current_stream(dev).wait_stream(self.stream)
+        if warmed is not None:
+            warmed()
         before = [w.launches for w in COUNTED]
+        stats = dict(collectives.STATS)
+        # what torch.cuda.graph frees on entry, freed first, so that the
+        # reserved bytes' growth is the graph's pool
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
         mem0 = (torch.cuda.memory_allocated(dev),
                 torch.cuda.memory_reserved(dev))
         t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(graph, stream=stream):
-                out = body()
+            if self.axis is not None and not collectives.capturable(
+                    self.axis):
+                graph, out = self._segmented(body)
+            else:
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph, pool=self.pool,
+                                      stream=self.stream):
+                    out = body()
         except Exception as e:
-            raise RuntimeError(f"capturing {self.what} failed: {e}") from e
+            raise RuntimeError(
+                f"capturing {label or self.what} failed: {e}") from e
         finally:
             counts = [(w, w.launches - b) for w, b in zip(COUNTED, before)]
             for w, b in zip(COUNTED, before):
                 w.launches = b
+            calls = collectives.STATS["calls"] - stats["calls"]
+            collectives.STATS.update(stats)
         self.captures[name] = {
             "seconds": time.perf_counter() - t0,
             "allocated_bytes": torch.cuda.memory_allocated(dev) - mem0[0],
-            "reserved_bytes": torch.cuda.memory_reserved(dev) - mem0[1]}
-        self.counts[name] = [(w, k) for w, k in counts if k]
+            "reserved_bytes": torch.cuda.memory_reserved(dev) - mem0[1],
+            "segments": len(getattr(graph, "graphs", (graph,)))}
+        self.counts[name] = ([(w, k) for w, k in counts if k], calls)
         return graph, out
 
     def replayed(self, name, graph, n=1):
         for _ in range(n):
             graph.replay()
-        for wrapper, k in self.counts[name]:
+        launches, calls = self.counts[name]
+        for wrapper, k in launches:
             wrapper.launches += k * n
+        collectives.STATS["calls"] += calls * n
 
 
 class CapturedProgram:
@@ -264,72 +360,69 @@ class CapturedLoop:
     loads) in place and returns nothing; a call `run(name, n)` runs step
     `name` `n` times.  On the card each step is one CUDA graph, captured
     on its first run after one eager warm-up run whose effect on the
-    state is undone before the capture, and replayed `n` times; on the
-    CPU the step itself runs `n` times on the same state.  `runs` counts
-    the iterations run (on the card, the replays); `captures` holds each
-    step's capture seconds and pool bytes.  `posegraph.optimize` and
-    `parallel.ba.ba_solve` without a mesh run their Gauss-Newton loops
-    as these."""
+    state is undone before the capture, and replayed `n` times (a step
+    with the collectives of a gloo mesh `axis`: graph segments cut at
+    them, `_Capture`); on the CPU the step itself runs `n` times on the
+    same state.  `runs` counts the iterations run (on the card, the
+    replays); `captures` holds each step's capture seconds, pool bytes
+    and segments.  `posegraph.optimize` and `parallel.ba.ba_solve` run
+    their Gauss-Newton loops as these, with a mesh or without."""
 
-    def __init__(self, steps, state, what):
+    def __init__(self, steps, state, what, axis=None):
         self.steps, self.state, self.what = steps, state, what
         self.device = state[0].device
         self.graphs = {}
         self.runs = 0
-        self._cap = _Capture(self.device, what)
+        self.axis = axis
+        self._cap = _Capture(self.device, what, axis)
         self.captures = self._cap.captures
-
-    def _capture(self, name):
-        step = self.steps[name]
-        saved = [t.clone() for t in self.state]
-
-        def warm_up():
-            # an eager step, undone; the capture itself runs nothing
-            step(*self.state)
-            for dst, src in zip(self.state, saved):
-                dst.copy_(src)
-
-        graph, _ = self._cap.capture(name, lambda: step(*self.state),
-                                     warm_up)
-        self.graphs[name] = graph
-        return graph
 
     def run(self, name, n):
         if n <= 0:
             return
+        step = self.steps[name]
         if self.device.type != "cuda":
             for _ in range(n):
-                self.steps[name](*self.state)
+                step(*self.state)
         else:
-            graph = self.graphs.get(name) or self._capture(name)
+            graph = self.graphs.get(name)
+            if graph is None:
+                graph, _ = self._cap.capture(
+                    name, lambda: step(*self.state), keep=self.state)
+                self.graphs[name] = graph
             self._cap.replayed(name, graph, n)
         self.runs += n
 
 
 class CompiledAlign:
-    """The align loop of one cache key (params, lanes, capacities,
-    device, layout) on static tensors; built from the first call's
-    inputs, after `route` and `prepare` (one pair), or `prepare_batch`
-    for B pairs on a lane axis (the batched loop, `make_batched_step`).  `captures` records, per graph length, the
-    capture's seconds and the growth of the card's allocated and
-    reserved bytes across it (the graph's pool: the blocks its launches
-    write, which stay reserved for its replays)."""
+    """The align loop of one cache key on static tensors: `align_jit`'s
+    (params, lanes, capacities, device, layout), built from the first
+    call's inputs after `route` and `prepare` (one pair), or
+    `prepare_batch` for B pairs on a lane axis (the batched loop,
+    `make_batched_step`); or a mesh path's (`run_mesh`), whose `body`
+    and per-align `pre` are its own and whose collectives run over
+    `axis`.  `counter` (`align_jit` or `run_mesh`) counts its replays
+    and warm-up iterations.  `captures` records, per graph length, the
+    capture's seconds, the growth of the card's allocated and reserved
+    bytes across it (the graph's pool: the blocks its launches write,
+    which stay reserved for its replays) and its graph segments."""
 
-    def __init__(self, p, fixed, moving, pre, state):
+    def __init__(self, p, fixed, moving, pre, state, body=None, axis=None,
+                 counter=None, what=None):
         self.p = p
         self.fixed, self.moving = _static(fixed), _static(moving)
         self.pre, self.state = _static(pre), _static(state)
         lanes = state.converged.dim() == 1
-        self.body = make_batched_step(p) if lanes else make_align_step(p)
+        self.body = body or (make_batched_step(p) if lanes
+                             else make_align_step(p))
+        self.counter = counter or align_jit
         self.device = state.R.device
-        self.graphs = {}     # length -> (CUDAGraph, [(wrapper, launches)])
-        self.captures = {}   # length -> capture seconds and bytes
-        if self.device.type == "cuda":
-            self.stream = torch.cuda.Stream(self.device)
-            self.pool = torch.cuda.graph_pool_handle()
-            # the capture stream's tickets, zero, held for the graphs
-            with torch.cuda.stream(self.stream):
-                self.tickets, _ = stream_tickets(self.device, MAX_UNITS)
+        self.graphs = {}     # length -> CUDAGraph or _Segments
+        self.axis = axis
+        self._cap = _Capture(self.device,
+                             what or f"align_jit's {p.backend} backend",
+                             axis)
+        self.captures = self._cap.captures
 
     def block(self, n):
         """`n` iterations of the body on the static state, in place."""
@@ -339,56 +432,25 @@ class CompiledAlign:
         for dst, src in zip(self.state, state):
             dst.copy_(src)
 
-    def _capture(self, n):
-        """Warm up, then capture, the block of `n` iterations; the static
-        state is left as it was."""
-        dev = self.device
-        saved = [t.clone() for t in self.state]
-        self.stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(self.stream):
-            self.block(n)
-        align_jit.warmups += n
-        torch.cuda.current_stream(dev).wait_stream(self.stream)
-        before = [w.launches for w in COUNTED]
-        # what torch.cuda.graph frees on entry, freed first, so that the
-        # reserved bytes' growth is the graph's pool
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()
-        mem0 = (torch.cuda.memory_allocated(dev),
-                torch.cuda.memory_reserved(dev))
-        t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
-                self.block(n)
-        except Exception as e:
-            raise RuntimeError(
-                f"align_jit: capturing {n} iterations of the {self.p.backend} "
-                f"backend failed: {e}") from e
-        finally:
-            counts = [(w, w.launches - b) for w, b in zip(COUNTED, before)]
-            for w, b in zip(COUNTED, before):
-                w.launches = b
-        self.captures[n] = {
-            "seconds": time.perf_counter() - t0,
-            "allocated_bytes": torch.cuda.memory_allocated(dev) - mem0[0],
-            "reserved_bytes": torch.cuda.memory_reserved(dev) - mem0[1]}
-        for dst, src in zip(self.state, saved):
-            dst.copy_(src)
-        self.graphs[n] = (graph, [(w, k) for w, k in counts if k])
-        return self.graphs[n]
-
     def run(self, n):
         """One block of `n` iterations: a graph replay on the card (the
-        graph captured on first use), the block itself on the CPU."""
+        graph captured on first use, after an eager warm-up block), the
+        block itself on the CPU."""
         if self.device.type != "cuda":
             self.block(n)
         else:
-            graph, counts = self.graphs.get(n) or self._capture(n)
-            graph.replay()
-            for wrapper, k in counts:
-                wrapper.launches += k
-        align_jit.replays += 1
+            graph = self.graphs.get(n)
+            if graph is None:
+                def warmed():
+                    self.counter.warmups += n
+
+                graph, _ = self._cap.capture(
+                    n, lambda: self.block(n), keep=self.state,
+                    label=f"{n} iterations of {self._cap.what}",
+                    warmed=warmed)
+                self.graphs[n] = graph
+            self._cap.replayed(n, graph)
+        self.counter.replays += 1
 
     def __call__(self, fixed, moving, pre, state) -> AlignResult:
         for dst, src in ((self.fixed, fixed), (self.moving, moving),
@@ -428,6 +490,57 @@ def run_compiled(p, fixed, moving, pre, state) -> AlignResult:
     if compiled is None:
         compiled = CACHE[key] = CompiledAlign(p, fixed, moving, pre, state)
     return compiled(fixed, moving, pre, state)
+
+
+def axis_key(axis) -> tuple:
+    """A mesh axis in a cache key: what its process group stands for (the
+    axis's name and size, this rank's index, the group's ranks and
+    backend), not the group object, which a mesh built again may make
+    anew (`DeviceMesh` makes a 2-D mesh's subgroups on every build)."""
+    return (axis.name, axis.size, axis.index, axis.ranks,
+            collectives.backend(axis))
+
+
+def cached(cache, key, axis, build):
+    """`cache[key]`, built by `build()` on the key's first call, and built
+    again in its place when the mesh `axis` (or None) holds another
+    process group than the entry's: a graph holds the collectives of the
+    group it was captured on, and the old entry's graphs and pool go with
+    it."""
+    entry = cache.get(key)
+    if entry is None or (axis is not None
+                         and entry.axis.group is not axis.group):
+        entry = cache[key] = build()
+    return entry
+
+
+def run_mesh(entry, p, axis, body, x, y, pre, state) -> AlignResult:
+    """The compiled loop of a mesh path on this rank, run as `align_jit`
+    runs its loop: `body(state, x, y, pre) -> state` is the path's
+    iteration (`parallel/sharded.py`) on this rank's blocks `x` and `y`,
+    reading what is per align only from `pre` (the path's precompute,
+    run eagerly before, its collectives included) and the state from
+    `init_state`; blocks of CHECK_EVERY iterations and the tail of
+    `max_iter % CHECK_EVERY`, `converged` read once a block (every rank
+    reads the same bits, so every rank stops together).  One compiled
+    loop per (entry point, params, block capacities, the axis (its size,
+    index, ranks and backend: `axis_key`), device, layout) in `MESH`,
+    built on the key's first call and again when the axis's process
+    group is another (`cached`); on the card a block is one graph on an
+    NCCL axis, its collectives inside, and graph segments with the
+    staged collectives between them on a gloo axis."""
+    dev = state.R.device
+    key = (entry, p, x.capacity, y.capacity, axis_key(axis), dev,
+           _strides((x, y, pre, state)))
+    compiled = cached(MESH, key, axis, lambda: CompiledAlign(
+        p, x, y, pre, state, body=body, axis=axis, counter=run_mesh,
+        what=f"{entry} on {axis.name}={axis.size} (index {axis.index}, "
+             f"{collectives.backend(axis)}) on {dev}"))
+    return compiled(x, y, pre, state)
+
+
+run_mesh.replays = 0
+run_mesh.warmups = 0
 
 
 def align_jit(p, fixed, moving, R0=None, T0=None, ell0=None,

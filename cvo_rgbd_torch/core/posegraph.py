@@ -34,12 +34,16 @@ writing its cost into its slot; the graduated kernel (Cauchy after
 in turn.  On the CPU the same iteration runs uncaptured on the same
 state.  The linear algebra takes the `_ex` forms (`solve_ex`, `inv_ex`),
 whose info stays on the device: the checked forms read it on the host,
-which a capture forbids; the eager mesh path runs the same ops.
+which a capture forbids; the eager mesh loop runs the same ops.
 
 Over a mesh (`optimize(mesh=...)`) the edge set shards over the ranks of
-an axis and the PCG solver's sums are psum'd (`collectives.py`); that
-path runs eagerly, as gloo collectives cannot be captured (the JAX
-package jits it too, `_compiled_pcg_sharded`).
+an axis and the PCG solver's sums are psum'd (`collectives.py`): the
+accumulators and each CG matvec's off-diagonal.  Its GN iteration is
+captured likewise on this rank's shard (the JAX package jits it,
+`_compiled_pcg_sharded`), keyed also by the axis and its backend: one
+graph an iteration on NCCL, psums included; on gloo graph segments cut
+at each psum (about `cg_iters + 1` of them), the staged all_reduces
+between them.  `_mesh_eager` keeps the loop op by op, its reference.
 """
 
 from __future__ import annotations
@@ -49,17 +53,24 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from cvo_rgbd_torch import se3
+from cvo_rgbd_torch import collectives, se3
 from cvo_rgbd_torch.collectives import psum
-from cvo_rgbd_torch.core.compiled import CapturedLoop, _copy_in, _static
+from cvo_rgbd_torch.core.compiled import (
+    CapturedLoop,
+    _copy_in,
+    _static,
+    axis_key,
+    cached,
+)
 from cvo_rgbd_torch.core.pcg import pcg
 from cvo_rgbd_torch.device import pin_fp32, resolve_device
 
 _GAUGE = 1e6
 
 # the compiled solves, one per (solver, nodes, edges, iters, damping,
-# cg_iters, huber_delta, robust, warmup, device, dtype), kept for the life
-# of the process as JAX keeps its jitted solves
+# cg_iters, huber_delta, robust, warmup, device, dtype, and over a mesh its
+# axis: `compiled.axis_key`), kept for the life of the process as JAX keeps
+# its jitted solves
 CACHE: dict = {}
 
 
@@ -258,11 +269,12 @@ def _edge_shard(graph: PoseGraph, ax) -> PoseGraph:
 
 
 def _gn_iteration(solver, damping, cg_iters, huber_delta, robust, k,
-                  warmup):
+                  warmup, axis=None):
     """One GN iteration in place on the static state (nodes, costs,
     slot, edge_i, edge_j, edge_z, edge_w): the step of iteration `k`
     (which matters only to the graduated kernel's `k < warmup`), its cost
-    into `costs[slot]`, then the slot moved on."""
+    into `costs[slot]`, then the slot moved on.  Over a mesh `axis` the
+    edges are this rank's shard (PCG, its sums psum'd)."""
 
     def iteration(nodes, costs, slot, *edges):
         graph = PoseGraph(nodes, *edges)
@@ -271,7 +283,7 @@ def _gn_iteration(solver, damping, cg_iters, huber_delta, robust, k,
                                        robust, k, warmup)
         else:
             new, cost = _gn_step_pcg(graph, nodes, damping, cg_iters,
-                                     huber_delta, robust, k, warmup)
+                                     huber_delta, robust, k, warmup, axis)
         nodes.copy_(new)
         costs.index_copy_(0, slot, cost.reshape(1))
         slot.add_(1)
@@ -280,28 +292,36 @@ def _gn_iteration(solver, damping, cg_iters, huber_delta, robust, k,
 
 
 def _compiled_solve(graph, solver, iters, damping, cg_iters, huber_delta,
-                    robust, warmup):
-    """`optimize` without a mesh: the GN iterations replayed on the
-    key's `CapturedLoop` (built on the key's first call); fresh nodes
-    and costs."""
+                    robust, warmup, axis=None):
+    """`optimize`: the GN iterations replayed on the key's
+    `CapturedLoop` (built on the key's first call; over a mesh `axis`,
+    on this rank's edge shard, its psums in the graph on NCCL and
+    between graph segments on gloo); fresh nodes and costs."""
     n, e = int(graph.nodes.shape[0]), int(graph.edge_i.shape[0])
     dev = graph.nodes.device
     key = (solver, n, e, iters, damping, cg_iters, huber_delta, robust,
            warmup, dev, graph.nodes.dtype)
-    loop = CACHE.get(key)
-    if loop is None:
+    where = f"on {dev}"
+    if axis is not None:
+        key += (axis_key(axis),)
+        where = (f"over {axis.name}={axis.size} (index {axis.index}, "
+                 f"{collectives.backend(axis)}) on {dev}")
+
+    def build():
         state = _static((graph.nodes, graph.nodes.new_zeros(iters),
                          torch.zeros(1, dtype=torch.int64, device=dev),
                          *graph[1:]))
         phases = ({"huber": 0, "cauchy": warmup}
                   if robust == "cauchy" and warmup else {robust: warmup})
-        loop = CACHE[key] = CapturedLoop(
+        return CapturedLoop(
             {name: _gn_iteration(solver, damping, cg_iters, huber_delta,
-                                 robust, k, warmup)
+                                 robust, k, warmup, axis)
              for name, k in phases.items()}, state,
             f"the {solver} pose-graph solve of {n} nodes and {e} edges "
             f"({iters} iterations, damping {damping}, cg_iters {cg_iters}, "
-            f"{robust} {huber_delta}, warmup {warmup}) on {dev}")
+            f"{robust} {huber_delta}, warmup {warmup}) {where}", axis)
+
+    loop = cached(CACHE, key, axis, build)
     nodes, costs, slot, *edges = loop.state
     _copy_in((nodes, *edges), (graph.nodes, *graph[1:]))
     slot.zero_()
@@ -311,6 +331,19 @@ def _compiled_solve(graph, solver, iters, damping, cg_iters, huber_delta,
     else:
         loop.run(robust, iters)
     return nodes.clone(), costs.clone()
+
+
+def _mesh_eager(graph, ax, iters, damping, cg_iters, huber_delta, robust,
+                warmup):
+    """`optimize(mesh=)`'s GN loop op by op on this rank's edge shard,
+    the reference of its compiled form."""
+    nodes = graph.nodes
+    costs = []
+    for k in range(iters):
+        nodes, cost = _gn_step_pcg(graph, nodes, damping, cg_iters,
+                                   huber_delta, robust, k, warmup, ax)
+        costs.append(cost)
+    return nodes, torch.stack(costs) if costs else graph.nodes.new_zeros(0)
 
 
 def optimize(graph: PoseGraph, iters: int = 10, damping: float = 1e-6,
@@ -326,13 +359,12 @@ def optimize(graph: PoseGraph, iters: int = 10, damping: float = 1e-6,
     an iteration.  `huber_delta`, `robust` and `robust_warmup` as in
     `_edge_terms` (0 = exact least squares, the default).
 
-    Without a mesh the GN loop is one captured iteration replayed
-    `iters` times (`_compiled_solve`; uncaptured on the CPU).  `mesh` (a
+    The GN loop is one captured iteration replayed `iters` times
+    (`_compiled_solve`; uncaptured on the CPU).  `mesh` (a
     `parallel.make_mesh` mesh) shards the edge set over its `axis` and
     forces PCG: every rank of the mesh calls it with the same graph, on
     its own device, and gets the same result; the edges are padded with
-    weight-0 self-loops to a multiple of the axis size.  That path runs
-    its iterations eagerly (gloo collectives cannot be captured)."""
+    weight-0 self-loops to a multiple of the axis size."""
     pin_fp32()
     n = int(graph.nodes.shape[0])
     if solver == "auto":
@@ -344,16 +376,9 @@ def optimize(graph: PoseGraph, iters: int = 10, damping: float = 1e-6,
     if mesh is None:
         return _compiled_solve(graph, solver, iters, damping, cg_iters,
                                huber_delta, robust, robust_warmup)
-    solver = "pcg"
     ax = mesh.axis(axis)
-    graph = _edge_shard(graph, ax)
-    nodes = graph.nodes
-    costs = []
-    for k in range(iters):
-        nodes, cost = _gn_step_pcg(graph, nodes, damping, cg_iters,
-                                   huber_delta, robust, k, robust_warmup, ax)
-        costs.append(cost)
-    return nodes, torch.stack(costs) if costs else graph.nodes.new_zeros(0)
+    return _compiled_solve(_edge_shard(graph, ax), "pcg", iters, damping,
+                           cg_iters, huber_delta, robust, robust_warmup, ax)
 
 
 def graph_cost(graph: PoseGraph, nodes=None):

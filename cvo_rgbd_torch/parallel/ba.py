@@ -40,8 +40,11 @@ and all-gathered; the PCG loop, O(Ne*18) a matvec, runs replicated.  Its
 scatter-adds may round differently on each rank's card, so the axis's
 first rank broadcasts its updated poses and landmarks (K*16 + M*3
 floats) each GN iteration, and every rank starts the next one from the
-same bits.  The mesh path runs eagerly: gloo collectives cannot be
-captured (the JAX package jits it, `_compiled_ba_sharded`).
+same bits.  Its GN iteration is captured too (the JAX package jits it,
+`_compiled_ba_sharded`), keyed also by the axis and its backend: one
+graph an iteration on NCCL, collectives included; on gloo graph
+segments cut at the psum, the all_gather and the broadcast.
+`_solve_local` keeps the loop op by op, its reference.
 
 Without a mesh, the JAX package jits the whole solve (`_ba_single`, the
 GN loop one `lax.scan`).  Here one GN iteration (the accumulators, the
@@ -52,7 +55,7 @@ per (K poses, M landmarks, observations, edges, iters, damping,
 cg_iters, device, dtype), and replayed `iters` times; on the CPU the
 same iteration runs uncaptured.  The block inverses take `inv_ex`, whose
 info stays on the device (`inv` reads it on the host, which a capture
-forbids); the mesh path runs the same op.
+forbids); the eager reference runs the same op.
 """
 
 from __future__ import annotations
@@ -62,9 +65,15 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from cvo_rgbd_torch import se3
+from cvo_rgbd_torch import collectives, se3
 from cvo_rgbd_torch.collectives import all_gather, broadcast, psum
-from cvo_rgbd_torch.core.compiled import CapturedLoop, _copy_in, _static
+from cvo_rgbd_torch.core.compiled import (
+    CapturedLoop,
+    _copy_in,
+    _static,
+    axis_key,
+    cached,
+)
 from cvo_rgbd_torch.core.pcg import pcg
 from cvo_rgbd_torch.device import pin_fp32, resolve_device
 from cvo_rgbd_torch.parallel.mesh import rank_device
@@ -72,8 +81,8 @@ from cvo_rgbd_torch.parallel.mesh import rank_device
 _INDEX_FIELDS = ("obs_pose", "obs_lm", "obs_edge", "edge_pose", "edge_lm")
 
 # the compiled solves, one per (K, M, observations, edges, iters, damping,
-# cg_iters, device, dtype), kept for the life of the process as JAX keeps
-# its jitted solve
+# cg_iters, device, dtype, and over a mesh its axis: `compiled.axis_key`),
+# kept for the life of the process as JAX keeps its jitted solve
 CACHE: dict = {}
 
 
@@ -259,41 +268,48 @@ def _schur_step(problem, poses, landmarks, acc, damping, cg_iters,
     return poses @ se3.exp_se3(dp), landmarks + dl, cost
 
 
+def _gn_step(problem: BAProblem, poses, landmarks, damping, cg_iters,
+             axis=None):
+    """One GN iteration from (poses, landmarks): (new poses, new
+    landmarks, the cost of the starting point).  Over a mesh axis
+    (`axis`, a `parallel.mesh.Axis`) the obs_* fields hold this rank's
+    shard, the accumulators are psum'd before the replicated update, and
+    the axis's first rank's update is broadcast after it."""
+    acc = _accumulate(problem, poses, landmarks, problem.edge_pose.shape[0])
+    if axis is not None:
+        acc = psum(acc, axis)
+    W = _landmark_inverse(acc[2], damping, axis)
+    poses, landmarks, cost = _schur_step(
+        problem, poses, landmarks, acc + (W,), damping, cg_iters)
+    if axis is not None:
+        poses, landmarks = broadcast((poses, landmarks), axis)
+    return poses, landmarks, cost
+
+
 def _solve_local(problem: BAProblem, iters: int, damping: float,
                  cg_iters: int, axis=None):
-    """The GN loop; returns (poses, landmarks, costs [iters]), each cost
-    that of the iteration's starting point.  Over a mesh axis (`axis`, a
-    `parallel.mesh.Axis`) the obs_* fields hold this rank's shard, the
-    accumulators are psum'd before the replicated update, and the axis's
-    first rank's update is broadcast after it."""
-    n_edges = problem.edge_pose.shape[0]
+    """The GN loop op by op (`_gn_step`), the reference of the captured
+    one; returns (poses, landmarks, costs [iters]), each cost that of the
+    iteration's starting point."""
     poses, landmarks = problem.poses, problem.landmarks
     costs = []
     for _ in range(iters):
-        acc = _accumulate(problem, poses, landmarks, n_edges)
-        if axis is not None:
-            acc = psum(acc, axis)
-        W = _landmark_inverse(acc[2], damping, axis)
-        poses, landmarks, cost = _schur_step(
-            problem, poses, landmarks, acc + (W,), damping, cg_iters)
-        if axis is not None:
-            poses, landmarks = broadcast((poses, landmarks), axis)
+        poses, landmarks, cost = _gn_step(problem, poses, landmarks,
+                                          damping, cg_iters, axis)
         costs.append(cost)
     return poses, landmarks, (torch.stack(costs) if costs
                               else poses.new_zeros(0))
 
 
-def _ba_iteration(n_edges, damping, cg_iters):
-    """One GN iteration of `_solve_local` in place on the static state
-    (poses, landmarks, costs, slot, then the problem's other fields):
-    its cost into `costs[slot]`, then the slot moved on."""
+def _ba_iteration(damping, cg_iters, axis=None):
+    """`_gn_step` in place on the static state (poses, landmarks, costs,
+    slot, then the problem's other fields): its cost into `costs[slot]`,
+    then the slot moved on."""
 
     def iteration(poses, landmarks, costs, slot, *fields):
-        problem = BAProblem(poses, landmarks, *fields)
-        acc = _accumulate(problem, poses, landmarks, n_edges)
-        W = _landmark_inverse(acc[2], damping)
-        new_poses, new_landmarks, cost = _schur_step(
-            problem, poses, landmarks, acc + (W,), damping, cg_iters)
+        new_poses, new_landmarks, cost = _gn_step(
+            BAProblem(poses, landmarks, *fields), poses, landmarks, damping,
+            cg_iters, axis)
         poses.copy_(new_poses)
         landmarks.copy_(new_landmarks)
         costs.index_copy_(0, slot, cost.reshape(1))
@@ -302,25 +318,34 @@ def _ba_iteration(n_edges, damping, cg_iters):
     return iteration
 
 
-def _compiled_solve(problem: BAProblem, iters, damping, cg_iters):
-    """`ba_solve` without a mesh: the GN iterations replayed on the key's
-    `CapturedLoop` (built on the key's first call); fresh poses,
-    landmarks and costs."""
+def _compiled_solve(problem: BAProblem, iters, damping, cg_iters,
+                    axis=None):
+    """`ba_solve`: the GN iterations replayed on the key's `CapturedLoop`
+    (built on the key's first call; over a mesh `axis`, on this rank's
+    shard, its psum, all_gather and broadcast in the graph on NCCL and
+    between graph segments on gloo); fresh poses, landmarks and costs."""
     k, m = (int(t.shape[0]) for t in problem[:2])
     o, e = int(problem.obs_pose.shape[0]), int(problem.edge_pose.shape[0])
     dev, dtype = problem.poses.device, problem.poses.dtype
     key = (k, m, o, e, iters, damping, cg_iters, dev, dtype)
-    loop = CACHE.get(key)
-    if loop is None:
+    where = f"on {dev}"
+    if axis is not None:
+        key += (axis_key(axis),)
+        where = (f"over {axis.name}={axis.size} (index {axis.index}, "
+                 f"{collectives.backend(axis)}) on {dev}")
+
+    def build():
         state = _static((problem.poses, problem.landmarks,
                          problem.poses.new_zeros(iters),
                          torch.zeros(1, dtype=torch.int64, device=dev),
                          *problem[2:]))
-        loop = CACHE[key] = CapturedLoop(
-            {"gn": _ba_iteration(e, damping, cg_iters)}, state,
+        return CapturedLoop(
+            {"gn": _ba_iteration(damping, cg_iters, axis)}, state,
             f"ba_solve of {k} poses, {m} landmarks, {o} observations and "
             f"{e} edges ({iters} iterations, damping {damping}, cg_iters "
-            f"{cg_iters}) on {dev}")
+            f"{cg_iters}) {where}", axis)
+
+    loop = cached(CACHE, key, axis, build)
     poses, landmarks, costs, slot, *fields = loop.state
     _copy_in((poses, landmarks, *fields), tuple(problem))
     slot.zero_()
@@ -328,27 +353,11 @@ def _compiled_solve(problem: BAProblem, iters, damping, cg_iters):
     return poses.clone(), landmarks.clone(), costs.clone()
 
 
-def ba_solve(problem: BAProblem, mesh=None, axis: str = "sp",
-             iters: int = 10, damping: float = 1e-4, cg_iters: int = 48,
-             device=None):
-    """Bundle-adjust on `device`; returns (poses [K,4,4], landmarks [M,3],
-    costs [iters]) there.
-
-    Without a mesh, on one device (the card unless `device="cpu"`), one
-    captured GN iteration replayed `iters` times (`_compiled_solve`;
-    uncaptured on the CPU).  With a mesh (`parallel.make_mesh`), every rank of it calls this with
-    the same problem and gets the same result on its own device (the
-    rank's card unless `device="cpu"`): the observations shard over
-    `axis`, padded with weight-0 observations, and the landmarks with
-    unobserved ones, to multiples of its size (the padding landmarks are
-    dropped from the result); that path runs its iterations eagerly."""
-    if mesh is None:
-        dev = resolve_device(device)
-        pin_fp32()
-        return _compiled_solve(problem.to(dev), iters, damping, cg_iters)
-    dev = rank_device(device)
-    pin_fp32()
-    ax = mesh.axis(axis)
+def _mesh_shard(problem: BAProblem, ax, dev):
+    """This rank's shard of `problem` over mesh axis `ax` on `dev`: the
+    observations padded with weight-0 ones, and the landmarks with
+    unobserved ones, to multiples of the axis size, then the rank's
+    block of the observations; and the real landmark count."""
     n = ax.size
     o = int(problem.obs_pose.shape[0])
     m = int(problem.landmarks.shape[0])
@@ -362,10 +371,34 @@ def ba_solve(problem: BAProblem, mesh=None, axis: str = "sp",
     problem = problem.to(dev)
     per = problem.obs_pose.shape[0] // n
     sl = slice(ax.index * per, (ax.index + 1) * per)
-    shard = problem._replace(**{f: getattr(problem, f)[sl] for f in (
-        "obs_pose", "obs_lm", "obs_z", "obs_w", "obs_edge")})
-    poses, landmarks, costs = _solve_local(shard, iters, damping, cg_iters,
-                                           ax)
+    return problem._replace(**{f: getattr(problem, f)[sl] for f in (
+        "obs_pose", "obs_lm", "obs_z", "obs_w", "obs_edge")}), m
+
+
+def ba_solve(problem: BAProblem, mesh=None, axis: str = "sp",
+             iters: int = 10, damping: float = 1e-4, cg_iters: int = 48,
+             device=None):
+    """Bundle-adjust on `device`; returns (poses [K,4,4], landmarks [M,3],
+    costs [iters]) there.  One captured GN iteration replayed `iters`
+    times (`_compiled_solve`; uncaptured on the CPU).
+
+    Without a mesh, on one device (the card unless `device="cpu"`).  With
+    a mesh (`parallel.make_mesh`), every rank of it calls this with the
+    same problem and gets the same result on its own device (the rank's
+    card unless `device="cpu"`): the observations shard over `axis`,
+    padded with weight-0 observations, and the landmarks with unobserved
+    ones, to multiples of its size (the padding landmarks are dropped
+    from the result)."""
+    if mesh is None:
+        dev = resolve_device(device)
+        pin_fp32()
+        return _compiled_solve(problem.to(dev), iters, damping, cg_iters)
+    dev = rank_device(device)
+    pin_fp32()
+    ax = mesh.axis(axis)
+    shard, m = _mesh_shard(problem, ax, dev)
+    poses, landmarks, costs = _compiled_solve(shard, iters, damping,
+                                              cg_iters, ax)
     return poses, landmarks[:m], costs
 
 

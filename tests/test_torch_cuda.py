@@ -1679,6 +1679,83 @@ def test_mesh_aligns_on_two_ranks_sharing_the_card(dev, entry):
                                    rtol=0.05)
 
 
+@pytest.mark.parametrize("transport", ["gloo", "nccl"])
+def test_compiled_mesh_loops_have_the_eager_bits_on_the_card(dev, transport):
+    """align_sharded (cvo, acvo) and align_ring (cvo), whose loops are
+    compiled, against their eager loops on the same ranks at the C++
+    stops, bit for bit: 2 ranks sharing the card over gloo (a block is
+    graph segments, the staged collectives between them) and 1 rank
+    over NCCL (a block is one graph, its all_reduces inside).  Then
+    optimize(mesh=) and ba_solve(mesh=) against their eager mesh loops:
+    2e-4 (BA 1e-4) and costs 1e-3, the same on every rank."""
+    import sys
+    from pathlib import Path
+
+    import cvo_rgbd_torch as ct
+    from cvo_rgbd_torch.parallel import mesh as tmesh
+
+    sys.path.insert(0, str(Path(__file__).parent))
+    import torch_ranks
+    from torch_ranks import BA, OPT
+
+    world = 2 if transport == "gloo" else 1
+    x, y = _filled_render(dev, 2)
+    clouds = {"render": tuple(tuple(t.cpu().numpy() for t in c)
+                              for c in (x, y))}
+    axes = {"sp": world}
+    cases = [(axes, "sharded", ct.CvoParams(), "render"),
+             (axes, "sharded", ct.AcvoParams(), "render"),
+             (axes, "ring", ct.CvoParams(), "render")]
+    got = tmesh.launch(torch_ranks.jobs, world, ([
+        ("compiled_and_eager", (cases, clouds, None)),
+        ("solvers_compiled_and_eager", (axes, torch_ranks.mesh_graph(),
+                                        torch_ranks.mesh_problem(), OPT, BA,
+                                        None))],), backend=transport,
+        timeout=600)
+    for rank in got:
+        for (res, ref, _, replays, segments), first in zip(rank[0],
+                                                           got[0][0]):
+            for f in ref:
+                np.testing.assert_array_equal(res[f], ref[f], err_msg=f)
+                np.testing.assert_array_equal(res[f], first[0][f])
+            assert bool(res["converged"]) and replays > 0
+            # gloo: 2 psums an iteration (the ring adds a ppermute a hop)
+            assert all((n == 1) == (transport == "nccl")
+                       for n in segments.values()) and segments
+        comp, eager = rank[1]
+        for part, tol in ((slice(0, 2), 2e-4), (slice(2, 5), 1e-4)):
+            for a, b in zip(comp[part][:-1], eager[part][:-1]):
+                np.testing.assert_allclose(a, b, atol=tol)
+            np.testing.assert_allclose(comp[part][-1], eager[part][-1],
+                                       rtol=1e-3)
+        for a, b in zip(comp, got[0][1][0]):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_a_failed_nccl_mesh_capture_raises(dev):
+    """A kernel body with a host read cannot be captured on an NCCL
+    axis: align_sharded raises, naming the entry point, after its one
+    eager warm-up block; no block is replayed or run eagerly in its
+    place."""
+    import sys
+    from pathlib import Path
+
+    import cvo_rgbd_torch as ct
+    from cvo_rgbd_torch.parallel import mesh as tmesh
+
+    sys.path.insert(0, str(Path(__file__).parent))
+    import torch_ranks
+
+    x, y = _filled_render(dev, 2)
+    (err, replays, warmups), = tmesh.launch(
+        torch_ranks.capture_fails, 1, ({"sp": 1}, ct.CvoParams(), tuple(
+            tuple(t.cpu().numpy() for t in c) for c in (x, y))),
+        backend="nccl", timeout=300)
+    assert err is not None and "capturing 8 iterations of align_sharded" \
+        in err and "nccl" in err
+    assert replays == 0 and warmups == 8
+
+
 @pytest.fixture(scope="module")
 def degraded(tmp_path_factory):
     """tests/test_degradation.py's sequence: total dropout at frame 10."""
